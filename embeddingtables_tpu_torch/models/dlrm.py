@@ -1,0 +1,343 @@
+"""DLRM forward (counterpart of `embeddingtables_tpu/models/dlrm.py`).
+
+  - The embedding ensemble is a `StackedTables`: all tables in ONE
+    `(sum V, D)` tensor, so the ensemble lookup is ONE gather.
+  - The dense towers run in `compute_dtype` (bfloat16 by default); weights
+    keep the JAX layout `(fan_in, fan_out)`, applied as `x @ W + b`.
+  - The dot interaction is assembled from Gram blocks on the table-major
+    `(T, B, D)` embeddings (`_block_interaction`); the top MLP's first-layer
+    ROWS are permuted to compensate for the block feature order
+    (`_block_w1_perm`), which is exact. Past `_SEL_MAX_ENTRIES` the
+    canonical `[bottom; emb]` Gram with triangle indexing takes over.
+
+Training (the block interaction's backward, `make_train_step`) is not here
+yet; `bce_loss` is.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import resolve_device
+from ..ops.ensemble import StackedTables
+from ..ops.lookup import lookup
+from ..tables import SimpleEmbedding
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    vocab_sizes: Tuple[int, ...]
+    num_dense: int = 13
+    dim: int = 128                                   # embedding feature size
+    bottom_mlp: Tuple[int, ...] = (512, 256, 128)    # last entry must == dim
+    top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    interaction: str = "dot"                         # "dot" | "cat"
+    self_interaction: bool = False                   # include diagonal of Z Z^T
+    bag: Optional[int] = None                        # multi-hot bag size (None = one-hot)
+    combiner: str = "sum"                            # bag reduction: "sum" | "mean"
+    # Padding sentinel for variable-length bags (fixed-width bags
+    # right-padded with this id): pads contribute zero rows and are excluded
+    # from mean denominators.
+    pad_idx: Optional[int] = None
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16      # dtype of the dense towers
+    # Storage dtype of the embedding tables only (None = param_dtype).
+    table_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        if self.bottom_mlp[-1] != self.dim:
+            raise ValueError(
+                f"bottom_mlp must end at dim={self.dim}, got {self.bottom_mlp}")
+        if self.interaction not in ("dot", "cat"):
+            raise ValueError(self.interaction)
+        if self.combiner not in ("sum", "mean"):
+            raise ValueError(self.combiner)
+
+    @property
+    def num_tables(self) -> int:
+        return len(self.vocab_sizes)
+
+    @property
+    def tables_dtype(self):
+        """Embedding-table storage dtype (table_dtype or param_dtype)."""
+        return self.table_dtype if self.table_dtype is not None \
+            else self.param_dtype
+
+    @property
+    def interaction_features(self) -> int:
+        t1 = self.num_tables + 1
+        if self.interaction == "cat":
+            return self.dim * t1
+        pairs = t1 * (t1 - 1) // 2 + (t1 if self.self_interaction else 0)
+        return self.dim + pairs
+
+
+def dlrm_small_config(vocab: int = 100_000, **kw) -> DLRMConfig:
+    """Criteo-Kaggle-shaped small config (26 tables)."""
+    kw.setdefault("vocab_sizes", tuple([vocab] * 26))
+    return DLRMConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _pairs(params: nn.ParameterList):
+    p = list(params)
+    return [(p[i], p[i + 1]) for i in range(0, len(p), 2)]
+
+
+class DLRM(nn.Module):
+    """Dense towers as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
+    plus the stacked embedding ensemble."""
+
+    def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables):
+        super().__init__()
+        self.config = config
+        self.bottom_params = nn.ParameterList(
+            [nn.Parameter(t) for wb in bottom for t in wb])
+        self.top_params = nn.ParameterList(
+            [nn.Parameter(t) for wb in top for t in wb])
+        self.tables = tables
+
+    @property
+    def bottom(self):
+        return _pairs(self.bottom_params)
+
+    @property
+    def top(self):
+        return _pairs(self.top_params)
+
+    def forward(self, dense, cat):
+        return dlrm_forward(self, dense, cat)
+
+
+def _init_mlp(sizes, dtype, generator, device):
+    layers = []
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        std = (2.0 / (fan_in + fan_out)) ** 0.5
+        w = torch.randn((fan_in, fan_out), generator=generator, device=device)
+        layers.append(((w * std).to(dtype),
+                       torch.zeros((fan_out,), dtype=dtype, device=device)))
+    return layers
+
+
+def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
+              device=None) -> DLRM:
+    """Random DLRM on `device` (CUDA unless given): Glorot-normal towers,
+    zero biases, tables uniform in [-1, 1) / sqrt(dim). `generator` must
+    live on that device; by default one seeded with 0."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    bottom = _init_mlp((cfg.num_dense,) + cfg.bottom_mlp, cfg.param_dtype,
+                       generator, device)
+    top = _init_mlp((cfg.interaction_features,) + cfg.top_mlp,
+                    cfg.param_dtype, generator, device)
+    data = torch.empty((sum(cfg.vocab_sizes), cfg.dim), dtype=torch.float32,
+                       device=device)
+    data.uniform_(-1.0, 1.0, generator=generator)
+    data /= float(cfg.dim) ** 0.5
+    offs = np.concatenate([[0], np.cumsum(cfg.vocab_sizes)]).tolist()
+    tables = StackedTables(data.to(cfg.tables_dtype), offs, cfg.dim)
+    return DLRM(cfg, bottom, top, tables)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _mlp(layers, x, compute_dtype, final_activation=True):
+    x = x.to(compute_dtype)
+    for i, (w, b) in enumerate(layers):
+        x = x @ w.to(compute_dtype) + b.to(compute_dtype)
+        if i < len(layers) - 1 or final_activation:
+            x = torch.relu(x)
+    return x
+
+
+# The triangle is extracted with a constant 0/1 selection-matrix product,
+# which is exact (one nonzero per column). The (t1^2, pairs) constant grows
+# ~t1^4/2, so past this many entries the canonical Gram plus index gather
+# takes over (the same threshold as the JAX package, so both packages take
+# the same branch for the same config).
+_SEL_MAX_ENTRIES = 8 << 20
+
+
+@functools.lru_cache(maxsize=8)
+def _tril_selection_np(t1: int, offset: int):
+    li, lj = np.tril_indices(t1, k=offset)
+    sel = np.zeros((t1 * t1, li.size), np.float32)
+    sel[li * t1 + lj, np.arange(li.size)] = 1.0
+    return sel
+
+
+# The cached device constants are built outside inference mode, so one first
+# made by the serving path stays usable by a forward that autograd tracks.
+
+@functools.lru_cache(maxsize=16)
+def _selection(t1: int, offset: int, dtype: torch.dtype, device: torch.device):
+    with torch.inference_mode(False):
+        return torch.from_numpy(_tril_selection_np(t1, offset)).to(device,
+                                                                   dtype)
+
+
+def _tri_interaction(z: torch.Tensor, offset: int) -> torch.Tensor:
+    """Gram + triangle selection on `z` (B, t1, D): `(z z^T).reshape @ SEL`."""
+    b, t1, _ = z.shape
+    zzt = torch.einsum("bij,bkj->bik", z, z)
+    return zzt.reshape(b, t1 * t1) @ _selection(t1, offset, z.dtype, z.device)
+
+
+def _block_interaction(bot: torch.Tensor, emb_t: torch.Tensor,
+                       offset: int) -> torch.Tensor:
+    """Block-Gram interaction on table-major embeddings `emb_t` (T, B, D):
+    `[bb? | be | ee-tril]` in block order, where `G_ee` is the (T, T) Gram of
+    the embedding rows, `G_be` their dots with the bottom output and `G_bb`
+    (self-interaction only) the bottom output's own square norm."""
+    t, b = emb_t.shape[0], bot.shape[0]
+    gee = torch.einsum("ibd,jbd->bij", emb_t, emb_t)
+    flat_ee = gee.reshape(b, t * t) @ _selection(t, offset, bot.dtype,
+                                                 bot.device)
+    gbe = torch.einsum("bd,jbd->bj", bot, emb_t)
+    parts = [gbe, flat_ee]
+    if offset == 0:
+        parts.insert(0, torch.sum(bot * bot, dim=-1, keepdim=True))
+    return torch.cat(parts, dim=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _block_w1_perm(t: int, offset: int, dim: int):
+    """Inverse row-permutation for the top MLP's first matmul so
+    `[bot | flat_block] @ W1[perm]` equals the canonical
+    `[bot | flat_canonical] @ W1`: canonical feature k sits at block
+    position P[k], so W1_eff[j] = W1[P^-1(j)]."""
+    t1 = t + 1
+    li, lj = np.tril_indices(t1, k=offset)
+    li_e, lj_e = np.tril_indices(t, k=offset)
+    ee_pos = {(a, b): k for k, (a, b) in enumerate(zip(li_e, lj_e))}
+    nbb = 1 if offset == 0 else 0
+    p = np.empty(li.size, np.int64)
+    for k, (a, b) in enumerate(zip(li, lj)):
+        if b == 0:
+            p[k] = (0 if a == 0 else nbb + (a - 1)) if offset == 0 \
+                else (a - 1)
+        else:
+            p[k] = nbb + t + ee_pos[(a - 1, b - 1)]
+    return np.argsort(np.concatenate([np.arange(dim), dim + p]))
+
+
+@functools.lru_cache(maxsize=16)
+def _block_w1_perm_tensor(t: int, offset: int, dim: int, device: torch.device):
+    with torch.inference_mode(False):
+        return torch.from_numpy(_block_w1_perm(t, offset, dim)).to(device)
+
+
+def dot_interaction(bottom_out: torch.Tensor, emb: torch.Tensor,
+                    self_interaction: bool) -> torch.Tensor:
+    """Pairwise interactions of Z = [bottom; emb] (B, T+1, D): the (strict)
+    lower triangle of Z Z^T, concatenated after the bottom output."""
+    z = torch.cat([bottom_out[:, None, :], emb], dim=1)
+    t1 = z.shape[1]
+    offset = 0 if self_interaction else -1
+    npairs = t1 * (t1 + 1) // 2 if self_interaction else t1 * (t1 - 1) // 2
+    if t1 * t1 * npairs <= _SEL_MAX_ENTRIES:
+        flat = _tri_interaction(z, offset)
+    else:
+        zzt = torch.einsum("bij,bkj->bik", z, z)
+        li, lj = np.tril_indices(t1, k=offset)
+        flat = zzt[:, torch.from_numpy(li).to(z.device),
+                   torch.from_numpy(lj).to(z.device)]
+    return torch.cat([bottom_out, flat], dim=-1)
+
+
+def stacked_flat_indices(tables: StackedTables, cat: torch.Tensor,
+                         pad_idx: Optional[int] = None):
+    """(T, B[, bag]) local ids -> (flat global int32 ids, valid mask or None).
+
+    Pad detection must precede the stacked-offset shift (a shifted pad no
+    longer matches the sentinel), so pads are remapped to local row 0 here
+    and reported through the mask."""
+    cat = torch.as_tensor(cat).to(tables.data.device)
+    if pad_idx is None:
+        g = tables.shift_indices(cat)
+        return g.reshape(-1, *g.shape[2:]), None
+    valid = cat != pad_idx
+    g = tables.shift_indices(torch.where(valid, cat, 0))
+    flat = g.reshape(-1, *g.shape[2:])
+    return flat, valid.reshape(flat.shape)
+
+
+def embedding_forward(tables: StackedTables, cat: torch.Tensor,
+                      combiner: str = "sum",
+                      pad_idx: Optional[int] = None) -> torch.Tensor:
+    """Ensemble lookup as ONE gather on the stacked tensor.
+
+    cat: (T, B) or (T, B, bag) per-table local ids -> (T, B, dim)."""
+    flat, valid = stacked_flat_indices(tables, cat, pad_idx)
+    w = None if valid is None else valid.float()
+    out = lookup(SimpleEmbedding(tables.data), flat, combiner=combiner,
+                 weights=w)
+    return out.reshape(tables.ntables, cat.shape[1], tables.dim)
+
+
+def forward_from_embeddings(bottom, top, cfg: DLRMConfig, dense: torch.Tensor,
+                            emb_t: torch.Tensor) -> torch.Tensor:
+    """Dense towers given already looked-up embeddings `(T, B, dim)`; returns
+    float32 logits `(B,)`."""
+    cd = cfg.compute_dtype
+    bot = _mlp(bottom, dense, cd)                        # (B, dim)
+    if cfg.interaction == "dot":
+        t = emb_t.shape[0]
+        t1 = t + 1
+        offset = 0 if cfg.self_interaction else -1
+        npairs = t1 * (t1 + 1) // 2 if cfg.self_interaction \
+            else t1 * (t1 - 1) // 2
+        if t1 * t1 * npairs <= _SEL_MAX_ENTRIES:
+            flat = _block_interaction(bot, emb_t.to(cd), offset)
+            feat = torch.cat([bot, flat], dim=-1)
+            w1, b1 = top[0]
+            perm = _block_w1_perm_tensor(t, offset, bot.shape[1], w1.device)
+            top = [(w1.index_select(0, perm), b1)] + list(top[1:])
+        else:
+            emb = emb_t.permute(1, 0, 2).to(cd)
+            feat = dot_interaction(bot, emb, cfg.self_interaction)
+    else:
+        # "cat": the bottom output followed by every table's embedding.
+        emb = emb_t.permute(1, 0, 2).to(cd)               # (B, T, dim)
+        feat = torch.cat([bot, emb.reshape(emb.shape[0], -1)], dim=-1)
+    logits = _mlp(top, feat, cd, final_activation=False)  # (B, 1)
+    return logits[:, 0].float()
+
+
+def dlrm_forward(model: DLRM, dense, cat) -> torch.Tensor:
+    """Logits `(B,)` for dense `(B, num_dense)` and cat `(T, B[, bag])`
+    (tensors or arrays; moved to the model's device)."""
+    device = model.tables.data.device
+    dense = torch.as_tensor(dense).to(device)
+    emb_t = embedding_forward(model.tables, cat, model.config.combiner,
+                              model.config.pad_idx)
+    return forward_from_embeddings(model.bottom, model.top, model.config,
+                                   dense, emb_t)
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid binary cross-entropy, mean over batch."""
+    z, y = logits, labels.float()
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def make_eval_step(cfg: DLRMConfig):
+    """`step(model, dense, cat) -> logits`, run under `torch.inference_mode`."""
+    del cfg  # the model carries its config; kept for the JAX signature
+
+    def step(model: DLRM, dense, cat):
+        with torch.inference_mode():
+            return dlrm_forward(model, dense, cat)
+    return step

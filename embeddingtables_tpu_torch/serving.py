@@ -1,0 +1,294 @@
+"""Serving layer: request micro-batching over the DLRM forward (counterpart
+of `embeddingtables_tpu/serving.py`).
+
+  - `MicroBatcher`: a thread-safe coalescer. Callers `submit()` one request
+    (any small batch) and get a `concurrent.futures.Future`; a worker thread
+    concatenates queued requests and flushes when `max_batch` fills or
+    `max_latency_ms` elapses since the oldest queued request. Flushed
+    batches are padded up to power-of-two buckets, so the device sees
+    O(log max_batch) distinct batch shapes.
+  - `make_dlrm_service`: glue from a DLRM to a `MicroBatcher`.
+  - `serve_http`: a stdlib `ThreadingHTTPServer` JSON endpoint
+    (`POST /predict`) over a `MicroBatcher`.
+
+Shapes: dense `(b, num_dense)` float32, cat `(T, b[, bag])` int32
+(table-major); scores `(b,)`.
+"""
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .models.dlrm import make_eval_step
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    """Smallest power-of-two >= n, clamped to max_batch."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, max_batch)
+
+
+@dataclass
+class _Pending:
+    dense: np.ndarray
+    cat: np.ndarray
+    future: Future
+    size: int
+
+
+@dataclass
+class BatcherStats:
+    requests: int = 0
+    examples: int = 0
+    batches: int = 0
+    padded_examples: int = 0           # wasted compute from bucket padding
+    bucket_sizes: set = field(default_factory=set)
+
+
+class MicroBatcher:
+    """Coalesce concurrent single requests into padded device batches.
+
+    predict_fn: `(dense (B, d), cat (T, B[, bag])) -> scores (B,)`; called
+    from ONE worker thread (one stream of device work), with B drawn from
+    power-of-two bucket sizes only.
+    """
+
+    def __init__(self, predict_fn: Callable, *, max_batch: int = 1024,
+                 max_latency_ms: float = 5.0):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self._predict = predict_fn
+        self.max_batch = max_batch
+        self.max_latency = max_latency_ms / 1e3
+        self.stats = BatcherStats()
+        self._stats_lock = threading.Lock()
+        self._q: queue.Queue = queue.Queue()
+        self._carry: Optional[_Pending] = None
+        self._stop = threading.Event()
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="microbatcher")
+        self._worker.start()
+
+    # -- client side --------------------------------------------------------
+    def submit(self, dense, cat) -> Future:
+        """Queue one request; resolves to its `(b,)` float32 scores."""
+        if self._stop.is_set():
+            raise RuntimeError("MicroBatcher is stopped")
+        dense = np.asarray(dense, np.float32)
+        cat = np.asarray(cat, np.int32)
+        if dense.ndim == 1:                   # single example convenience
+            dense = dense[None, :]
+            cat = cat[:, None] if cat.ndim == 1 else cat[:, None, :]
+        b = dense.shape[0]
+        if cat.shape[1] != b:
+            raise ValueError(f"dense batch {b} != cat batch {cat.shape[1]}")
+        if b > self.max_batch:
+            raise ValueError(f"request batch {b} exceeds max_batch "
+                             f"{self.max_batch}; split the request")
+        fut: Future = Future()
+        self._q.put(_Pending(dense, cat, fut, b))
+        if self._stop.is_set() and not fut.done():
+            # Raced with stop(): the worker may already have run its final
+            # drain, so nobody would ever read this entry. Fail it (the
+            # worker guards against double-resolution on its side too).
+            try:
+                fut.set_exception(RuntimeError("MicroBatcher stopped"))
+            except Exception:  # already resolved by the worker: fine
+                pass
+        return fut
+
+    def predict(self, dense, cat, timeout: Optional[float] = None):
+        """Blocking convenience wrapper around submit()."""
+        return self.submit(dense, cat).result(timeout)
+
+    def stats_snapshot(self) -> dict:
+        """Consistent copy of the batching counters (the live `stats`
+        fields are mutated by the worker thread)."""
+        with self._stats_lock:
+            st = self.stats
+            return dict(requests=st.requests, examples=st.examples,
+                        batches=st.batches,
+                        padded_examples=st.padded_examples,
+                        bucket_sizes=sorted(st.bucket_sizes))
+
+    def stop(self, drain: bool = True, timeout: float = 30.0):
+        """Stop the worker. drain=True (default) first lets queued work
+        flush so in-flight Futures resolve. Anything still queued after
+        `timeout` fails with RuntimeError."""
+        if drain:
+            deadline = time.monotonic() + timeout
+            while ((not self._q.empty() or self._carry is not None)
+                   and time.monotonic() < deadline
+                   and self._worker.is_alive()):
+                time.sleep(0.01)
+        self._stop.set()
+        self._q.put(None)                     # wake the worker
+        self._worker.join(timeout=10)
+
+    # -- worker side --------------------------------------------------------
+    def _next_pending(self, timeout):
+        if self._carry is not None:
+            p, self._carry = self._carry, None
+            return p
+        try:
+            return self._q.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def _run(self):
+        while not self._stop.is_set():
+            first = self._next_pending(timeout=0.1)
+            if first is None:
+                continue
+            batch = [first]
+            size = first.size
+            deadline = time.monotonic() + self.max_latency
+            while size < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                nxt = self._next_pending(timeout=remaining)
+                if nxt is None:
+                    break
+                if size + nxt.size > self.max_batch:
+                    self._carry = nxt         # flush now; nxt leads next batch
+                    break
+                batch.append(nxt)
+                size += nxt.size
+            self._flush(batch, size)
+        # Drain: fail anything still queued so callers never hang.
+        while True:
+            p = self._next_pending(timeout=0)
+            if p is None:
+                break
+            p.future.set_exception(RuntimeError("MicroBatcher stopped"))
+
+    def _flush(self, batch, size):
+        dense = np.concatenate([p.dense for p in batch], axis=0)
+        cat = np.concatenate([p.cat for p in batch], axis=1)
+        padded = _bucket(size, self.max_batch)
+        if padded > size:
+            pad = padded - size
+            dense = np.concatenate(
+                [dense, np.zeros((pad,) + dense.shape[1:], dense.dtype)], 0)
+            cat = np.concatenate(
+                [cat, np.zeros((cat.shape[0], pad) + cat.shape[2:],
+                               cat.dtype)], 1)
+        try:
+            out = self._predict(dense, cat)
+        except Exception as e:                # noqa: BLE001 — fan the error out
+            for p in batch:
+                p.future.set_exception(e)
+            return
+        # predict_fn may return one (B, ...) array or a tuple of them; each
+        # is sliced per request.
+        is_tuple = isinstance(out, (tuple, list))
+        outs = [np.asarray(o) for o in (out if is_tuple else (out,))]
+        with self._stats_lock:
+            st = self.stats
+            st.requests += len(batch)
+            st.examples += size
+            st.batches += 1
+            st.padded_examples += padded - size
+            st.bucket_sizes.add(padded)
+        off = 0
+        for p in batch:
+            sl = [o[off:off + p.size] for o in outs]
+            try:
+                p.future.set_result(tuple(sl) if is_tuple else sl[0])
+            except Exception:  # submit()'s stop-race already failed it
+                pass
+            off += p.size
+
+
+def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
+                      max_batch: int = 1024,
+                      max_latency_ms: float = 5.0) -> MicroBatcher:
+    """Batched DLRM scoring service on the model's device.
+
+    Each flushed batch is copied to the device, scored by `dlrm_forward`
+    under `torch.inference_mode()`, and copied back as numpy float32. Nothing
+    synchronises explicitly: the copy back is where the worker waits for the
+    batch. Returns a running `MicroBatcher`; use `.predict`/`.submit`,
+    `.stop()` when done.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh serving waits for the port's multi-device slice "
+            "(ROADMAP.md queue 1, item 11: Multi-device)")
+    if quantized:
+        raise NotImplementedError(
+            "quantized serving waits for the port of quant.py "
+            "(ROADMAP.md queue 1, item 8: Table variants)")
+    step = make_eval_step(model.config)
+    device = model.tables.data.device
+
+    def predict(dense, cat):
+        d = torch.from_numpy(dense).to(device)
+        c = torch.from_numpy(cat).to(device)
+        return step(model, d, c).cpu().numpy()
+
+    return MicroBatcher(predict, max_batch=max_batch,
+                        max_latency_ms=max_latency_ms)
+
+
+# ---------------------------------------------------------------------------
+# Stdlib HTTP harness
+# ---------------------------------------------------------------------------
+
+def serve_http(batcher: MicroBatcher, host: str = "127.0.0.1",
+               port: int = 0) -> ThreadingHTTPServer:
+    """JSON-over-HTTP front end for a MicroBatcher (started; not blocking).
+
+    POST /predict  {"dense": [[...], ...], "cat": [[...], ...]}
+                -> {"scores": [...]}            (shapes as module docstring)
+    GET  /stats -> batching counters.
+
+    Returns the server; `server.server_address[1]` is the bound port and
+    `server.shutdown()` stops it. Each HTTP thread just blocks on its
+    request's Future; batching happens in the MicroBatcher worker.
+    """
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):            # quiet
+            pass
+
+        def _reply(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path != "/stats":
+                return self._reply(404, {"error": "unknown path"})
+            self._reply(200, batcher.stats_snapshot())
+
+        def do_POST(self):
+            if self.path != "/predict":
+                return self._reply(404, {"error": "unknown path"})
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                out = batcher.predict(req["dense"], req["cat"], timeout=30.0)
+                self._reply(200, {"scores": np.asarray(out).tolist()})
+            except Exception as e:            # noqa: BLE001 — surface to client
+                self._reply(400, {"error": str(e)})
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="serving-http").start()
+    return server

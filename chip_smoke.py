@@ -17,7 +17,23 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     `gather_rows` launch count read around the run. Scores are checked
     against the plain path (plain gather, f32 towers).
  5. Multi-hot: the same widths with bags of 8 through `gather_bags`.
- 6. A `kernels` JSON line (every hand kernel, its launches on its path and
+ 6. Update kernels: `scatter_add_rows_sorted` (SGD and row-wise AdaGrad
+    epilogues, f32 and bf16 tables, padding, rows >= V, uniform and Zipf
+    runs, n = 0) and `hot_accumulate` (S = 128, 384, 512, f32 and bf16
+    modes, out-of-range ids) against their plain versions; then their times
+    beside their byte bounds, plain versions and one library call, the sort
+    and permute around the scatter, and hot_accumulate against the scatter
+    paths at S = 128 ... 1024.
+ 7. Stacked training at full width: `train_dlrm` on the same DLRM at
+    B = 65,536 from `SyntheticCriteo`, with SparseSGD, row-wise AdaGrad
+    (indexer, and auto, which takes the dense method here) and bf16 tables
+    with stochastic rounding; run-scatter launches counted per recipe, one
+    step of each optimizer held against the plain versions, and per-step
+    times.
+ 8. Per-table training: 26 `SimpleEmbedding`s with the Criteo Kaggle
+    cardinalities (capped at 250,000) through `lookup_vjp` and
+    `ensemble_update`, counting `hot_accumulate` and run-scatter launches.
+ 9. A `kernels` JSON line (every hand kernel, its launches on its path and
     its times), the card line again, and the final JSON status line.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -26,7 +42,9 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -337,25 +355,31 @@ def throughput(ett, model, cfg, bag=None, b=2048, steps=20):
     ms = start.elapsed_time(end) / steps
     require(bool(torch.isfinite(out).all()), "non-finite logits")
 
+    emit({"phase": "forward_time", "bag": bag, "batch": b,
+          "forward_ms": ms, "host_wall_ms": wall,
+          "examples_per_s": b / (ms / 1e3),
+          **kernel_profile(lambda: step(model, dense, cat), ms)})
+
+
+def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
+    """Kernel time per call of `fn` by name (torch.profiler over `reps`
+    calls) and the device's idle share of a `step_ms` step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            step(model, dense, cat)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     # Kernel events only: an aten op's device time repeats its kernels'.
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    device_us = sum(e.self_device_time_total for e in kernels) / 5
-    emit({"phase": "forward_time", "bag": bag, "batch": b,
-          "forward_ms": ms, "host_wall_ms": wall,
-          "examples_per_s": b / (ms / 1e3),
-          "profiled_kernel_us_per_step": device_us,
-          "device_idle_share": 1.0 - device_us / (ms * 1e3),
-          "kernels_per_step": sum(e.count for e in kernels) / 5,
-          "top_kernels_us_per_step": [
-              [e.key[:70], e.self_device_time_total / 5]
-              for e in kernels[:8]]})
+    device_us = sum(e.self_device_time_total for e in kernels) / reps
+    return {"profiled_kernel_us_per_step": device_us,
+            "device_idle_share": 1.0 - device_us / (step_ms * 1e3),
+            "kernels_per_step": sum(e.count for e in kernels) / reps,
+            "top_kernels_us_per_step": [
+                [e.key[:70], e.self_device_time_total / reps]
+                for e in kernels[:8]]}
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +411,450 @@ def multihot_phase(ett, G, model, cfg):
     return launches, modelb, cfgb
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the update kernels against their plain versions, and their times
+# ---------------------------------------------------------------------------
+
+B_TRAIN = 65_536                   # bench.py's single-chip batch
+VOCAB = 250_000                    # the serving model's rows per table
+# Criteo Kaggle (Display Advertising Challenge) per-feature cardinalities, as
+# facebookresearch/dlrm lists them for the Kaggle data set.
+CRITEO_KAGGLE_CARDINALITIES = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572)
+
+
+def criteo_batches(ett, vocab_sizes, k: int, seed: int):
+    """k `SyntheticCriteo` batches of B_TRAIN (Zipf(1.1) ids), made on the
+    host and moved to the card."""
+    data = ett.SyntheticCriteo(vocab_sizes=vocab_sizes, batch_size=B_TRAIN,
+                               seed=seed)
+    return [{key: torch.from_numpy(v).cuda() for key, v in b.items()}
+            for b in data.batches(k)]
+
+
+def stacked_rows(batch, vocab: int) -> torch.Tensor:
+    """A (T, B) batch's ids as rows of the stacked (T * vocab, D) table."""
+    cat = batch["cat"]
+    starts = torch.arange(cat.shape[0], device=cat.device,
+                          dtype=torch.int32) * vocab
+    return (cat + starts[:, None]).reshape(-1)
+
+
+def check_scatter(S, gen, streams, v, d):
+    """scatter_add_rows_sorted against its plain version at the training
+    shape: SGD bitwise, AdaGrad to rtol 1e-6 (the mean's reduction order,
+    rsqrt's last bits; one bf16 rounding, 2^-7 relative, on bf16 tables)."""
+    err = 0.0
+    table32 = torch.randn((v, d), generator=gen, device="cuda") * 0.05
+    accum0 = torch.rand((v,), generator=gen, device="cuda")
+    for kind, rows in streams.items():
+        r = torch.rand(rows.shape, generator=gen, device="cuda")
+        rows = torch.where(r < 0.01, -1, rows)            # padding
+        rows = torch.where(r > 0.995, v + 3, rows)        # dropped: >= V
+        rows = torch.sort(rows.to(torch.int32), stable=True).values
+        vals = torch.randn((rows.numel(), d), generator=gen, device="cuda")
+        valid = rows[(rows >= 0) & (rows < v)]
+        longest = int(torch.unique_consecutive(
+            valid, return_counts=True)[1].max())
+        for dtype in (torch.float32, torch.bfloat16):
+            base = table32.to(dtype)
+            for adagrad in (False, True):
+                tk, tp = base.clone(), base.clone()
+                ak = accum0.clone() if adagrad else None
+                ap = accum0.clone() if adagrad else None
+                S.scatter_add_rows_sorted(tk, rows, vals, -1e-3, accum=ak,
+                                          eps=1e-8)
+                S.scatter_add_rows_sorted_plain(tp, rows, vals, -1e-3,
+                                                accum=ap, eps=1e-8)
+                torch.cuda.synchronize()
+                if adagrad:
+                    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+                    torch.testing.assert_close(tk.float(), tp.float(),
+                                               rtol=rtol, atol=1e-6)
+                    torch.testing.assert_close(ak, ap, rtol=1e-6, atol=0.0)
+                else:
+                    require(torch.equal(bits(tk), bits(tp)),
+                            f"scatter {kind} {dtype} not bitwise")
+                e = max_abs_err(tk, tp)
+                err = max(err, e)
+                emit({"phase": "kernel_check",
+                      "kernel": "scatter_add_rows_sorted", "stream": kind,
+                      "epilogue": "adagrad" if adagrad else "sgd",
+                      "dtype": str(dtype).split(".")[1], "V": v, "D": d,
+                      "n": rows.numel(), "longest_run": longest,
+                      "max_abs_err": e,
+                      "tolerance": "bitwise" if not adagrad else
+                      ("rtol 1e-6" if dtype == torch.float32 else "rtol 2^-7")})
+                del tk, tp
+    small = torch.ones((10, d), device="cuda")
+    before = S.scatter_add_rows_sorted.launches
+    S.scatter_add_rows_sorted(small, torch.zeros(0, dtype=torch.int32,
+                                                 device="cuda"),
+                              torch.zeros((0, d), device="cuda"))
+    require(torch.equal(small, torch.ones_like(small))
+            and S.scatter_add_rows_sorted.launches == before,
+            "an empty stream changed the table or launched")
+    emit({"phase": "kernel_check", "kernel": "scatter_add_rows_sorted",
+          "n": 0, "unchanged": True, "launched": False})
+    return err
+
+
+def check_hot_accumulate(H, gen, d=128, n=B_TRAIN):
+    """hot_accumulate against its plain version: the atomics add in a varying
+    order, so the error is held to 1e-5 of the summed magnitude."""
+    err = 0.0
+    for segments in (128, 384, 512):
+        rows = torch.randint(-10, segments + 50, (n,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        vals = torch.randn((n, d), generator=gen, device="cuda")
+        for compute in (torch.float32, torch.bfloat16):
+            got = H.hot_accumulate(rows, vals, segments, compute_dtype=compute)
+            want = H.hot_accumulate_plain(rows, vals, segments, compute)
+            mag = H.hot_accumulate_plain(rows, vals.abs(), segments, compute)
+            require(bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all()),
+                    f"hot_accumulate S={segments} {compute}")
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            emit({"phase": "kernel_check", "kernel": "hot_accumulate",
+                  "segments": segments, "D": d, "n": n,
+                  "compute": str(compute).split(".")[1], "max_abs_err": e,
+                  "tolerance": "1e-5 of sum |vals| per segment"})
+    return err
+
+
+def time_scatter(S, G, gen, sets, v, d, label):
+    """The run-scatter (SGD epilogue) at one shape, f32 table: its time, the
+    sort and permute that scatter_update puts before it, the plain version,
+    `index_add_` as the yardstick, and the byte bound
+    n*D*4 (values) + n*4 (rows) + 2*U*D*4 (one read, one write per row)."""
+    table = torch.randn((v, d), generator=gen, device="cuda") * 0.05
+    prepared = []
+    for rows in sets:
+        srows, perm = torch.sort(rows, stable=True)
+        vals = torch.randn((rows.numel(), d), generator=gen, device="cuda")
+        prepared.append((rows, vals, srows, perm.to(torch.int32),
+                         G.gather_rows(vals, perm.to(torch.int32))))
+    n = sets[0].numel()
+    uniq = statistics.mean(int(torch.unique(r).numel()) for r in sets)
+    longest = max(int(torch.unique_consecutive(p[2], return_counts=True)[1]
+                      .max()) for p in prepared)
+    nbytes = n * d * 4 + n * 4 + 2 * uniq * d * 4
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = (n * d + 2 * uniq * d) / F32_OPS_PER_S * 1e3
+    plain_reps = 3 if longest > 1000 else 10
+    t = {"kernel_ms": time_each_ms(
+            lambda r, x: S.scatter_add_rows_sorted(table, r, x, -1e-4),
+            [(p[2], p[4]) for p in prepared]),
+         "plain_ms": time_each_ms(
+            lambda r, x: S.scatter_add_rows_sorted_plain(table, r, x, -1e-4),
+            [(p[2], p[4]) for p in prepared], reps=plain_reps),
+         "library_ms": time_each_ms(
+            lambda r, x: table.index_add_(0, r, x, alpha=-1e-4),
+            [(p[2].long(), p[4]) for p in prepared]),
+         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"}
+    extra = {"sort_ms": time_each_ms(lambda r: torch.sort(r, stable=True),
+                                     [(p[0],) for p in prepared]),
+             "permute_ms": time_each_ms(G.gather_rows,
+                                        [(p[1], p[3]) for p in prepared]),
+             "adagrad_kernel_ms": time_each_ms(
+                 lambda r, x, a: S.scatter_add_rows_sorted(
+                     table, r, x, -1e-4, accum=a, eps=1e-8),
+                 [(p[2], p[4], torch.zeros(v, device="cuda"))
+                  for p in prepared[:1]])}
+    emit({"phase": "kernel_time", "kernel": "scatter_add_rows_sorted",
+          "stream": label, "dtype": "float32", "V": v, "D": d, "n": n,
+          "unique_rows": uniq, "longest_run": longest, "bytes": nbytes,
+          **t, **extra})
+    return t
+
+
+def time_hot_accumulate(H, gen, segments, d=128, n=B_TRAIN):
+    """hot_accumulate (f32, as `_dense_grad` calls it) beside its plain
+    version, `torch.zeros(S, D).index_add_` and its byte bound
+    n*(4*D + 4) + S*D*4."""
+    sets = [(torch.randint(0, segments, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32),
+             torch.randn((n, d), generator=gen, device="cuda"))
+            for _ in range(3)]
+    nbytes = n * (4 * d + 4) + segments * d * 4
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = n * d / F32_OPS_PER_S * 1e3
+    f32 = torch.float32
+    t = {"kernel_ms": time_each_ms(
+            lambda r, x: H.hot_accumulate(r, x, segments, compute_dtype=f32),
+            sets),
+         "plain_ms": time_each_ms(
+            lambda r, x: H.hot_accumulate_plain(r, x, segments, f32), sets),
+         "library_ms": time_each_ms(
+            lambda r, x: torch.zeros((segments, d), device="cuda")
+            .index_add_(0, r, x), [(r.long(), x) for r, x in sets]),
+         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"}
+    emit({"phase": "kernel_time", "kernel": "hot_accumulate",
+          "segments": segments, "D": d, "n": n, "bytes": nbytes, **t})
+    return t, sets
+
+
+def segsum_crossover(S, H, gen, d=128, n=B_TRAIN):
+    """The data for `_SEGSUM_MAX_VPAD` on this card: per padded vocab S,
+    hot_accumulate (the dense gradient of tiny tables) against the scratch
+    `index_add_` (`_dense_grad`'s other branch) and the run-scatter path of
+    unregularized SGD (sort, permute, scatter) on an (S, D) table."""
+    out = []
+    for segments in (128, 256, 384, 512, 640, 768, 896, 1024):
+        sets = [(torch.randint(0, segments, (n,), generator=gen,
+                               device="cuda", dtype=torch.int32),
+                 torch.randn((n, d), generator=gen, device="cuda"))
+                for _ in range(3)]
+        table = torch.zeros((segments, d), device="cuda")
+        row = {"segments": segments,
+               "hot_accumulate_ms": time_each_ms(
+                   lambda r, x: H.hot_accumulate(
+                       r, x, segments, compute_dtype=torch.float32), sets),
+               "scratch_index_add_ms": time_each_ms(
+                   lambda r, x: torch.zeros((segments + 1, d), device="cuda")
+                   .index_add_(0, r, x), [(r.long(), x) for r, x in sets]),
+               "run_scatter_path_ms": time_each_ms(
+                   lambda r, x: S.scatter_update(table, r, x, -1e-4), sets)}
+        out.append(row)
+    emit({"phase": "segsum_crossover", "n": n, "D": d, "rows": out})
+
+
+def update_kernel_phase(ett, S, H, G, gen):
+    t0 = time.perf_counter()
+    v, d, t = 26 * VOCAB, 128, 26
+    zipf = [stacked_rows(b, VOCAB) for b in
+            criteo_batches(ett, (VOCAB,) * t, 3, SEED + 5)]
+    uniform = [torch.randint(0, v, (t * B_TRAIN,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+               for _ in range(3)]
+    errs = {"scatter_add_rows_sorted": check_scatter(
+                S, gen, {"uniform": uniform[0], "zipf": zipf[0]}, v, d),
+            "hot_accumulate": check_hot_accumulate(H, gen)}
+    emit({"phase": "update_kernel_checks",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    timings = {"scatter_add_rows_sorted": time_scatter(S, G, gen, uniform, v,
+                                                       d, "uniform")}
+    time_scatter(S, G, gen, zipf, v, d, "zipf")
+    time_scatter(S, G, gen, [u[:t * 2048] for u in uniform], v, d,
+                 "uniform_serving_batch")
+    del zipf, uniform
+    timings["hot_accumulate"], _ = time_hot_accumulate(H, gen, 128)
+    time_hot_accumulate(H, gen, 512)
+    segsum_crossover(S, H, gen)
+    torch.cuda.empty_cache()
+    emit({"phase": "update_kernel_times",
+          "seconds": time.perf_counter() - t0})
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: stacked training at full width
+# ---------------------------------------------------------------------------
+
+class plain_kernels:
+    """Route the run-scatter path to the plain versions, on the card."""
+
+    def __init__(self, S, G):
+        self.S, self.G = S, G
+
+    def __enter__(self):
+        self.saved = (self.S.scatter_add_rows_sorted, self.S.gather_rows)
+        self.S.scatter_add_rows_sorted = self.S.scatter_add_rows_sorted_plain
+        self.S.gather_rows = self.G.gather_rows_plain
+
+    def __exit__(self, *exc):
+        self.S.scatter_add_rows_sorted, self.S.gather_rows = self.saved
+
+
+def card_parity(ett, S, G, model, cfg, batch):
+    """One SparseSGD and one indexer-AdaGrad step from the same state and the
+    same delta (a real backward of `batch`), through the kernels and through
+    the plain versions: SGD bitwise (f32 table), AdaGrad to rtol 1e-6."""
+    from embeddingtables_tpu_torch.models.dlrm import (
+        bce_loss, embedding_forward, forward_from_embeddings,
+        stacked_flat_indices)
+    flat, _ = stacked_flat_indices(model.tables, batch["cat"])
+    emb = embedding_forward(model.tables, batch["cat"]).requires_grad_(True)
+    loss = bce_loss(forward_from_embeddings(
+        model.bottom, model.top, cfg, batch["dense"], emb), batch["label"])
+    (delta,) = torch.autograd.grad(loss, [emb])
+    upd = ett.SparseEmbeddingUpdate(delta=delta.reshape(-1, cfg.dim).float(),
+                                    indices=flat)
+    out = {}
+    for name, opt in (("sgd", ett.SparseSGD(1e-1)),
+                      ("adagrad_indexer",
+                       ett.SparseRowWiseAdaGrad(1e-2, method="indexer"))):
+        state0 = opt.init(model.tables.data)
+        if name != "sgd":
+            state0.accum.uniform_(0.0, 1e-3)
+        dk, dp = model.tables.data.clone(), model.tables.data.clone()
+        sk = ett.SparseOptState(state0.accum.clone())
+        sp = ett.SparseOptState(state0.accum.clone())
+        before = S.scatter_add_rows_sorted.launches
+        opt.apply(dk, upd, sk)
+        require(S.scatter_add_rows_sorted.launches == before + 1,
+                "card parity step did not launch the run-scatter")
+        with plain_kernels(S, G):
+            opt.apply(dp, upd, sp)
+        torch.cuda.synchronize()
+        if name == "sgd":
+            require(torch.equal(bits(dk), bits(dp)), "SGD step not bitwise")
+        else:
+            torch.testing.assert_close(dk, dp, rtol=1e-6, atol=1e-7)
+            torch.testing.assert_close(sk.accum, sp.accum, rtol=1e-6, atol=0.0)
+        out[name] = {"max_abs_err": max_abs_err(dk, dp),
+                     "rows_changed": int((dk != model.tables.data).any(1)
+                                         .sum())}
+        del dk, dp
+    emit({"phase": "train_card_parity", "n": flat.numel(), **out})
+
+
+def step_times(step, model, batches, generator=None, steps: int = 5) -> dict:
+    """Per-step device time (CUDA events over back-to-back steps), host wall,
+    examples/s, and the kernel profile of one step."""
+    def run(i):
+        b = batches[i % len(batches)]
+        return step(model, b["dense"], b["cat"], b["label"],
+                    generator=generator)
+    run(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(steps):
+        run(i)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    return {"step_ms": ms,
+            "host_wall_ms": (time.perf_counter() - t0) / steps * 1e3,
+            "examples_per_s": B_TRAIN / (ms / 1e3),
+            **kernel_profile(lambda: run(0), ms, reps=2)}
+
+
+def stacked_training_phase(ett, S, H, G):
+    t0 = time.perf_counter()
+    cfg = ett.dlrm_small_config(vocab=VOCAB)
+    batches = criteo_batches(ett, cfg.vocab_sizes, 4, SEED + 6)
+    cfg16 = dataclasses.replace(cfg, table_dtype=torch.bfloat16)
+    # The 4 batches are cycled, so the last 4 steps see the first 4 steps'
+    # batches again; the synthetic labels are near balanced and their signal
+    # is faint, so the towers learn at 0.1 to make the fall plain in 24 steps.
+    steps, dense_lr = 24, 0.1
+    recipes = (
+        ("sgd", cfg, ett.SparseSGD(1e-4), 1),
+        ("adagrad_indexer", cfg,
+         ett.SparseRowWiseAdaGrad(1e-3, method="indexer"), 1),
+        ("adagrad_auto_dense", cfg, ett.SparseRowWiseAdaGrad(1e-3), 0),
+        ("bf16_tables_adagrad_sr", cfg16,
+         ett.SparseRowWiseAdaGrad(1e-3, stochastic_rounding=True), 0))
+    launches = 0
+    for name, rcfg, opt, per_step in recipes:
+        r0 = time.perf_counter()
+        model = ett.init_dlrm(rcfg, torch.Generator(device="cuda")
+                              .manual_seed(SEED), device="cuda",
+                              sparse_opt=opt)
+        if name == "sgd":
+            card_parity(ett, S, G, model, rcfg, batches[0])
+        S.scatter_add_rows_sorted.launches = 0
+        H.hot_accumulate.launches = 0
+        res = ett.train_dlrm(rcfg, itertools.cycle(batches), steps,
+                             sparse_opt=opt, dense_lr=dense_lr, model=model,
+                             seed=SEED, log_every=1, verbose=False)
+        counts = {"scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches,
+                  "hot_accumulate": H.hot_accumulate.launches}
+        losses = res.losses
+        require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                f"{name}: non-finite losses {losses}")
+        require(statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+                f"{name}: losses did not fall {losses}")
+        require(counts == {"scatter_add_rows_sorted": per_step * steps,
+                           "hot_accumulate": 0},
+                f"{name}: launches {counts}")
+        launches += counts["scatter_add_rows_sorted"]
+        step = ett.make_train_step(rcfg, sparse_opt=opt, dense_lr=dense_lr)
+        gen = (torch.Generator(device="cuda").manual_seed(SEED)
+               if opt.stochastic_rounding else None)
+        emit({"phase": "train_stacked", "recipe": name, "batch": B_TRAIN,
+              "table_dtype": str(rcfg.tables_dtype).split(".")[1],
+              "steps": steps, "losses": losses, "launches": counts,
+              "train_dlrm_examples_per_s": res.examples_per_sec,
+              **step_times(step, model, batches, gen),
+              "seconds": time.perf_counter() - r0})
+        del model, res, step
+        torch.cuda.empty_cache()
+    emit({"phase": "train_stacked_done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: per-table training
+# ---------------------------------------------------------------------------
+
+def per_table_phase(ett, S, H):
+    from embeddingtables_tpu_torch.models.dlrm import (bce_loss,
+                                                      forward_from_embeddings)
+    from embeddingtables_tpu_torch.optim import apply_dense_tx
+    t0 = time.perf_counter()
+    vocabs = tuple(min(c, VOCAB) for c in CRITEO_KAGGLE_CARDINALITIES)
+    tiny = sum(-(-v // 128) * 128 <= 512 for v in vocabs)
+    require(tiny == 9, f"{tiny} tiny tables")
+    cfg = ett.DLRMConfig(vocab_sizes=vocabs)
+    model = ett.init_dlrm(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                          device="cuda")
+    tables = [model.tables.table(t) for t in range(cfg.num_tables)]
+    batches = criteo_batches(ett, vocabs, 2, SEED + 7)
+    params = list(model.bottom_params) + list(model.top_params)
+    hot_total = 0
+    for name, opt, want in (("sgd", ett.SparseSGD(1e-2), (9, 17)),
+                            ("adagrad_auto_dense",
+                             ett.SparseRowWiseAdaGrad(1e-2), (9, 0))):
+        states, losses, step_ms = None, [], []
+        for i in range(4):
+            b = batches[i % len(batches)]
+            S.scatter_add_rows_sorted.launches = 0
+            H.hot_accumulate.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs, pullbacks = zip(*(ett.lookup_vjp(t, b["cat"][j])
+                                    for j, t in enumerate(tables)))
+            emb = torch.stack(outs).requires_grad_(True)
+            loss = bce_loss(forward_from_embeddings(
+                model.bottom, model.top, cfg, b["dense"], emb), b["label"])
+            *grads, demb = torch.autograd.grad(loss, params + [emb])
+            apply_dense_tx(params, grads, None, None, 1e-2)
+            upds = [pb(demb[j].float()) for j, pb in enumerate(pullbacks)]
+            tables, states = ett.ensemble_update(opt, tables, upds, states)
+            end.record()
+            torch.cuda.synchronize()
+            got = (H.hot_accumulate.launches, S.scatter_add_rows_sorted.launches)
+            require(got == want, f"per-table {name} step {i}: (hot_accumulate,"
+                    f" run-scatter) launches {got}, want {want}")
+            hot_total += got[0]
+            losses.append(float(loss.detach()))
+            step_ms.append(start.elapsed_time(end))
+        require(all(math.isfinite(x) for x in losses),
+                f"per-table {name}: non-finite losses {losses}")
+        emit({"phase": "train_per_table", "optimizer": name, "batch": B_TRAIN,
+              "tables": len(tables), "tiny_tables": tiny,
+              "rows": sum(vocabs), "losses": losses,
+              "launches_per_step": {"hot_accumulate": want[0],
+                                    "scatter_add_rows_sorted": want[1]},
+              "step_ms": step_ms})
+    emit({"phase": "train_per_table_done",
+          "seconds": time.perf_counter() - t0})
+    del model, tables
+    torch.cuda.empty_cache()
+    return hot_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -396,6 +864,8 @@ def main() -> int:
     import embeddingtables_tpu_torch as ett
     from embeddingtables_tpu_torch.ops.cuda import _lib
     from embeddingtables_tpu_torch.ops.cuda import gather as G
+    from embeddingtables_tpu_torch.ops.cuda import scatter as S
+    from embeddingtables_tpu_torch.ops.cuda import segsum as H
 
     t_start = time.perf_counter()
     card = card_line()
@@ -416,8 +886,10 @@ def main() -> int:
                     or "spill" in ln]})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
+    emit({"phase": "gather_kernels", "seconds": time.perf_counter() - t0})
 
     cfg = ett.dlrm_small_config(vocab=250_000)
     t0 = time.perf_counter()
@@ -428,22 +900,40 @@ def main() -> int:
           * model.tables.data.element_size(),
           "table_shape": list(model.tables.data.shape),
           "compute_dtype": str(cfg.compute_dtype)})
+    t0 = time.perf_counter()
     serve_launches = serving_phase(ett, G, model, cfg)
     throughput(ett, model, cfg)
     bag_launches, modelb, cfgb = multihot_phase(ett, G, model, cfg)
     throughput(ett, modelb, cfgb, bag=8)
+    emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
+    del model, modelb
+    torch.cuda.empty_cache()
 
-    source = "embeddingtables_tpu_torch/csrc/gather.cu"
-    paths = {"gather_rows": (serve_launches, "embeddingtables_tpu/ops/pallas/gather.py:116"),
-             "gather_bags": (bag_launches, "embeddingtables_tpu/ops/pallas/gather.py:258")}
+    update_errs, update_timings = update_kernel_phase(ett, S, H, G, gen)
+    errs.update(update_errs)
+    timings.update(update_timings)
+    scatter_launches = stacked_training_phase(ett, S, H, G)
+    hot_launches = per_table_phase(ett, S, H)
+
+    csrc = "embeddingtables_tpu_torch/csrc/"
+    pallas = "embeddingtables_tpu/ops/pallas/"
+    paths = {
+        "gather_rows": (serve_launches["gather_rows"], "gather.cu",
+                        "gather.py:116"),
+        "gather_bags": (bag_launches["gather_bags"], "gather.cu",
+                        "gather.py:258"),
+        "scatter_add_rows_sorted": (scatter_launches, "scatter.cu",
+                                    "scatter.py:144"),
+        "hot_accumulate": (hot_launches, "segsum.cu", "segsum.py:135")}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": launches[name], "max_abs_err": errs[name],
+        {"name": name, "route": "cuda", "source": csrc + source,
+         "replaces": pallas + where, "launches": launches,
+         "max_abs_err": errs[name],
          "ms": timings[name]["kernel_ms"], "plain_ms": timings[name]["plain_ms"],
          "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],
          "library_ms": timings[name]["library_ms"]}
-        for name, (launches, where) in paths.items()]})
+        for name, (launches, source, where) in paths.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

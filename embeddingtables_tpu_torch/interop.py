@@ -16,6 +16,7 @@ import torch
 from .config import resolve_device
 from .models.dlrm import DLRM, DLRMConfig
 from .ops.ensemble import StackedTables
+from .optim import SparseOptState
 
 
 def tensor_from_array(arr, device) -> torch.Tensor:
@@ -29,11 +30,12 @@ def tensor_from_array(arr, device) -> torch.Tensor:
 
 def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
                      table_data, offsets: Sequence[int],
-                     device=None) -> DLRM:
+                     device=None, emb_accum=None) -> DLRM:
     """Build the port's `DLRM` on `device` (CUDA unless given) from numpy
     arrays: `bottom`/`top` are lists of `(W (fan_in, fan_out), b)` pairs,
     `table_data` the stacked `(sum V, dim)` table, `offsets` its T+1 row
-    offsets."""
+    offsets, and `emb_accum` the row-wise-AdaGrad accumulator `(sum V,)`
+    (None: SGD's empty state), so both packages train from one state."""
     device = resolve_device(device)
 
     def mlp(layers):
@@ -42,4 +44,6 @@ def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
 
     tables = StackedTables(tensor_from_array(table_data, device),
                            tuple(offsets), cfg.dim)
-    return DLRM(cfg, mlp(bottom), mlp(top), tables)
+    state = None if emb_accum is None else \
+        SparseOptState(accum=tensor_from_array(emb_accum, device))
+    return DLRM(cfg, mlp(bottom), mlp(top), tables, state)

@@ -9,9 +9,12 @@
     ROWS are permuted to compensate for the block feature order
     (`_block_w1_perm`), which is exact. Past `_SEL_MAX_ENTRIES` the
     canonical `[bottom; emb]` Gram with triangle indexing takes over.
-
-Training (the block interaction's backward, `make_train_step`) is not here
-yet; `bce_loss` is.
+  - Training (`make_train_step`) differentiates the loss with respect to the
+    looked-up `(T, B, D)` activations, never the tables: the block
+    interaction is a `torch.autograd.Function` whose backward is the JAX
+    package's symmetrized-selection VJP, the towers take a plain SGD step,
+    and the embedding gradient becomes one lazy `SparseEmbeddingUpdate` on
+    the stacked table, applied in place by the sparse optimizer.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from torch import nn
 from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..ops.lookup import lookup
+from ..ops.sparse_update import SparseEmbeddingUpdate
+from ..optim import SparseOptState, SparseSGD, apply_dense_tx
 from ..tables import SimpleEmbedding
 
 
@@ -94,9 +99,11 @@ def _pairs(params: nn.ParameterList):
 
 class DLRM(nn.Module):
     """Dense towers as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
-    plus the stacked embedding ensemble."""
+    the stacked embedding ensemble, and the sparse optimizer's row state
+    (`emb_state`; a zero-size accumulator for SGD)."""
 
-    def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables):
+    def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables,
+                 emb_state: SparseOptState | None = None):
         super().__init__()
         self.config = config
         self.bottom_params = nn.ParameterList(
@@ -104,6 +111,17 @@ class DLRM(nn.Module):
         self.top_params = nn.ParameterList(
             [nn.Parameter(t) for wb in top for t in wb])
         self.tables = tables
+        if emb_state is None:
+            emb_state = SparseSGD().init(tables.data)
+        self.register_buffer("emb_accum", emb_state.accum)
+
+    @property
+    def emb_state(self) -> SparseOptState:
+        return SparseOptState(accum=self.emb_accum)
+
+    @emb_state.setter
+    def emb_state(self, state: SparseOptState) -> None:
+        self.emb_accum = state.accum
 
     @property
     def bottom(self):
@@ -128,10 +146,11 @@ def _init_mlp(sizes, dtype, generator, device):
 
 
 def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
-              device=None) -> DLRM:
+              device=None, sparse_opt=None) -> DLRM:
     """Random DLRM on `device` (CUDA unless given): Glorot-normal towers,
-    zero biases, tables uniform in [-1, 1) / sqrt(dim). `generator` must
-    live on that device; by default one seeded with 0."""
+    zero biases, tables uniform in [-1, 1) / sqrt(dim), and `sparse_opt`'s
+    initial row state (default `SparseSGD`). `generator` must live on that
+    device; by default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -145,7 +164,8 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
     data /= float(cfg.dim) ** 0.5
     offs = np.concatenate([[0], np.cumsum(cfg.vocab_sizes)]).tolist()
     tables = StackedTables(data.to(cfg.tables_dtype), offs, cfg.dim)
-    return DLRM(cfg, bottom, top, tables)
+    state = (sparse_opt or SparseSGD()).init(tables.data)
+    return DLRM(cfg, bottom, top, tables, state)
 
 
 # ---------------------------------------------------------------------------
@@ -194,12 +214,21 @@ def _tri_interaction(z: torch.Tensor, offset: int) -> torch.Tensor:
     return zzt.reshape(b, t1 * t1) @ _selection(t1, offset, z.dtype, z.device)
 
 
-def _block_interaction(bot: torch.Tensor, emb_t: torch.Tensor,
-                       offset: int) -> torch.Tensor:
-    """Block-Gram interaction on table-major embeddings `emb_t` (T, B, D):
-    `[bb? | be | ee-tril]` in block order, where `G_ee` is the (T, T) Gram of
-    the embedding rows, `G_be` their dots with the bottom output and `G_bb`
-    (self-interaction only) the bottom output's own square norm."""
+@functools.lru_cache(maxsize=16)
+def _symmetric_selection_t(t: int, offset: int, dtype: torch.dtype,
+                           device: torch.device):
+    """`(SEL + SEL_swap)^T`, `(pairs, t*t)`: the block backward's selection.
+    SEL has one 1 per column at flat index i*t + j; the swap moves it to
+    j*t + i (a diagonal pair under self-interaction gets 2)."""
+    li, lj = np.tril_indices(t, k=offset)
+    ss = _tril_selection_np(t, offset).copy()
+    ss[lj * t + li, np.arange(li.size)] += 1.0
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(ss.T)).to(device, dtype)
+
+
+def _block_interaction_fwd(bot: torch.Tensor, emb_t: torch.Tensor,
+                           offset: int) -> torch.Tensor:
     t, b = emb_t.shape[0], bot.shape[0]
     gee = torch.einsum("ibd,jbd->bij", emb_t, emb_t)
     flat_ee = gee.reshape(b, t * t) @ _selection(t, offset, bot.dtype,
@@ -209,6 +238,48 @@ def _block_interaction(bot: torch.Tensor, emb_t: torch.Tensor,
     if offset == 0:
         parts.insert(0, torch.sum(bot * bot, dim=-1, keepdim=True))
     return torch.cat(parts, dim=-1)
+
+
+class _BlockInteraction(torch.autograd.Function):
+    """The block interaction with the JAX package's hand-written VJP
+    (`_block_interaction_fn`): the Gram's adjoint symmetrizes, so the
+    selection's cotangent is one `(B, pairs) @ (pairs, T*T)` product with
+    `SEL + SEL_swap` and one batched product, in the `(T, B, D)` layout and
+    in the operands' dtype at every step, so bf16 rounds where JAX's does."""
+
+    @staticmethod
+    def forward(ctx, bot, emb_t, offset):
+        ctx.save_for_backward(bot, emb_t)
+        ctx.offset = offset
+        return _block_interaction_fwd(bot, emb_t, offset)
+
+    @staticmethod
+    def backward(ctx, dflat):
+        bot, emb_t = ctx.saved_tensors
+        t, b = emb_t.shape[0], bot.shape[0]
+        nbb = 1 if ctx.offset == 0 else 0
+        dgbe = dflat[:, nbb:nbb + t]
+        ss_t = _symmetric_selection_t(t, ctx.offset, dflat.dtype,
+                                      dflat.device)
+        m = (dflat[:, nbb + t:] @ ss_t).reshape(b, t, t)
+        demb = (torch.einsum("bij,jbd->ibd", m, emb_t)
+                + torch.einsum("bj,bd->jbd", dgbe, bot))
+        dbot = torch.einsum("bj,jbd->bd", dgbe, emb_t)
+        if nbb:
+            dbot = dbot + 2.0 * dflat[:, :1] * bot
+        return dbot, demb, None
+
+
+def _block_interaction(bot: torch.Tensor, emb_t: torch.Tensor,
+                       offset: int) -> torch.Tensor:
+    """Block-Gram interaction on table-major embeddings `emb_t` (T, B, D):
+    `[bb? | be | ee-tril]` in block order, where `G_ee` is the (T, T) Gram of
+    the embedding rows, `G_be` their dots with the bottom output and `G_bb`
+    (self-interaction only) the bottom output's own square norm. Under
+    autograd the backward is `_BlockInteraction`'s."""
+    if torch.is_grad_enabled() and (bot.requires_grad or emb_t.requires_grad):
+        return _BlockInteraction.apply(bot, emb_t, offset)
+    return _block_interaction_fwd(bot, emb_t, offset)
 
 
 @functools.lru_cache(maxsize=8)
@@ -273,6 +344,29 @@ def stacked_flat_indices(tables: StackedTables, cat: torch.Tensor,
     return flat, valid.reshape(flat.shape)
 
 
+def stacked_update_weights(valid, combiner: str, shape):
+    """Per-occurrence update weights matching `embedding_forward`'s output
+    scale on the flat stacked stream: None for a plain sum, 1/bag for a
+    padless mean, and the (mean-normalized) validity mask with pads."""
+    if valid is None:
+        if combiner == "mean" and len(shape) == 2:
+            return torch.full(tuple(shape), 1.0 / shape[1],
+                              dtype=torch.float32)
+        return None
+    w = valid.float()
+    if combiner == "mean" and valid.dim() == 2:
+        w = w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-12)
+    return w
+
+
+def _stacked_lookup(tables: StackedTables, flat, valid, combiner: str,
+                    batch: int) -> torch.Tensor:
+    w = None if valid is None else valid.float()
+    out = lookup(SimpleEmbedding(tables.data), flat, combiner=combiner,
+                 weights=w)
+    return out.reshape(tables.ntables, batch, tables.dim)
+
+
 def embedding_forward(tables: StackedTables, cat: torch.Tensor,
                       combiner: str = "sum",
                       pad_idx: Optional[int] = None) -> torch.Tensor:
@@ -280,10 +374,7 @@ def embedding_forward(tables: StackedTables, cat: torch.Tensor,
 
     cat: (T, B) or (T, B, bag) per-table local ids -> (T, B, dim)."""
     flat, valid = stacked_flat_indices(tables, cat, pad_idx)
-    w = None if valid is None else valid.float()
-    out = lookup(SimpleEmbedding(tables.data), flat, combiner=combiner,
-                 weights=w)
-    return out.reshape(tables.ntables, cat.shape[1], tables.dim)
+    return _stacked_lookup(tables, flat, valid, combiner, cat.shape[1])
 
 
 def forward_from_embeddings(bottom, top, cfg: DLRMConfig, dense: torch.Tensor,
@@ -340,4 +431,61 @@ def make_eval_step(cfg: DLRMConfig):
     def step(model: DLRM, dense, cat):
         with torch.inference_mode():
             return dlrm_forward(model, dense, cat)
+    return step
+
+
+def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
+                    dense_tx=None, microbatch: Optional[int] = None):
+    """The single-device train step,
+    `step(model, dense, cat, label, lr=None, generator=None) -> loss`.
+
+    It updates `model` in place (the port's counterpart of JAX's donated
+    model): the towers by plain SGD at `dense_lr`, the stacked table and its
+    row state by ONE `sparse_opt.apply` (default `SparseSGD()`) of the lazy
+    `(delta, indices)` update. The table is read by the forward lookup before
+    the update writes it (one stream, in order). `lr` overrides
+    `sparse_opt.lr` for this step; `generator` feeds stochastic rounding and
+    is required when `sparse_opt.stochastic_rounding` is set. `dense_tx` and
+    `microbatch` are not ported yet."""
+    if dense_tx is not None:
+        raise NotImplementedError(
+            "dense_tx waits for the port's torch.optim support")
+    if microbatch and microbatch > 1:
+        raise NotImplementedError(
+            "microbatch waits for the port's models/microbatch.py")
+    sparse_opt = sparse_opt or SparseSGD()
+    use_sr = bool(getattr(sparse_opt, "stochastic_rounding", False))
+
+    def step(model: DLRM, dense, cat, label, lr=None, generator=None):
+        if use_sr and generator is None:
+            raise ValueError(
+                "sparse_opt.stochastic_rounding=True: pass a torch.Generator "
+                "as generator= (train_dlrm passes one)")
+        tables = model.tables
+        device = tables.data.device
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
+        params = list(model.bottom_params) + list(model.top_params)
+        with torch.enable_grad():
+            with torch.no_grad():
+                emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
+                                        cat.shape[1])
+            emb_t.requires_grad_(True)
+            logits = forward_from_embeddings(model.bottom, model.top, cfg,
+                                             dense, emb_t)
+            loss = bce_loss(logits, label)
+            *dense_grads, delta_t = torch.autograd.grad(loss,
+                                                        params + [emb_t])
+        apply_dense_tx(params, dense_grads, None, None, dense_lr)
+        w = stacked_update_weights(valid, cfg.combiner, flat.shape)
+        upd = SparseEmbeddingUpdate(
+            delta=delta_t.reshape(-1, cfg.dim).float(), indices=flat,
+            weights=None if w is None else w.to(device))
+        kw = {"generator": generator} if use_sr else {}
+        tables.data, model.emb_state = sparse_opt.apply(
+            tables.data, upd, model.emb_state, lr=lr, **kw)
+        return loss.detach()
+
     return step

@@ -1,10 +1,11 @@
 """Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and becomes one shared library
-`<KERNEL_BUILD_DIR>/<name>-<hash>.so`, built at first use on the machine
-with the card (nothing is compiled at import time: the CPU tests import every
-module). The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Every pointer and the stream
+`<KERNEL_BUILD_DIR>/<name>-<hash>.so`, built at first use on the machine with
+the card (nothing is compiled at import time: the CPU tests import every
+module). The sources share the `csrc/*.cuh` headers. The hash covers the
+source, the headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Every pointer and the stream
 cross as `ctypes.c_void_p`; every entry returns `cudaGetLastError()`, which
 `check` turns into an exception with the text of the library's own
 `et_cuda_error_string`, which every source exports.
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from `csrc/<name>.cu` lives."""
+    """Where the library built from `csrc/<name>.cu` (and the shared
+    `csrc/*.cuh` headers it may include) lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return config.KERNEL_BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

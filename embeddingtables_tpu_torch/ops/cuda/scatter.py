@@ -1,0 +1,162 @@
+"""Sorted-run scatter (the fused sparse update): a hand-written CUDA kernel
+and its plain version.
+
+Counterpart of `embeddingtables_tpu/ops/pallas/scatter.py`:
+
+  - `scatter_add_rows_sorted(table, rows, vals, scale)`: over rows sorted
+    ascending, `table[r] += scale * sum(run of r) vals`, the run summed in
+    float32 in stream order and the row rounded once to the table dtype.
+    Each unique row is read once and written once, in place. Rows `< 0` are
+    padding; rows `>= V` are dropped (the Pallas kernel would copy out of
+    bounds). With `accum=` it runs the row-wise AdaGrad epilogue instead:
+    `accum[r] += mean(acc^2)`, then
+    `table[r] += (scale * acc) * rsqrt(max(accum[r] + eps, 1e-30))` with
+    `scale = -lr`.
+  - `scatter_update(table, rows, vals, scale)`: any row order; a stable sort
+    of the rows, a permute of the values with `gather_rows`, then the
+    run-scatter. Equal to `table.index_add_(0, rows, scale * vals)` up to
+    the order of the float32 additions.
+
+Tables are float32 or bfloat16; values are float32. A CUDA tensor goes to the
+kernel in `csrc/scatter.cu`; a CPU tensor to the plain version
+(`scatter_add_rows_sorted_plain`), which is also what the kernel is checked
+against on the card: it makes the same float32 additions in the same order.
+The wrapper counts its launches in `scatter_add_rows_sorted.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _lib
+from .gather import gather_rows
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                                   _F32, _F32, _INT, _P],
+}
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _validate(table, rows, vals, accum) -> None:
+    if table.dtype not in _DTYPE_CODE:
+        raise TypeError(f"table dtype must be float32 or bfloat16, got {table.dtype}")
+    if table.dim() != 2:
+        raise ValueError(f"table must be (V, D), got shape {tuple(table.shape)}")
+    if rows.dtype != torch.int32 or rows.dim() != 1:
+        raise TypeError(f"rows must be 1-D int32, got {rows.dtype} {tuple(rows.shape)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"values must be float32, got {vals.dtype}")
+    if vals.shape != (rows.shape[0], table.shape[1]):
+        raise ValueError(f"values must be {(rows.shape[0], table.shape[1])}, "
+                         f"got {tuple(vals.shape)}")
+    tensors = [table, rows, vals]
+    if accum is not None:
+        if accum.dtype != torch.float32 or accum.shape != (table.shape[0],):
+            raise ValueError(f"accum must be ({table.shape[0]},) float32, got "
+                             f"{accum.dtype} {tuple(accum.shape)}")
+        tensors.append(accum)
+    if any(t.device != table.device for t in tensors):
+        raise ValueError("table, rows, values and accum must be on one device")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("table, rows, values and accum must be contiguous")
+
+
+def _run_sums(rows: torch.Tensor, vals: torch.Tensor, v: int):
+    """(run start positions, float32 run sums) of the valid runs of `rows`.
+    Each run is summed in stream order: level p adds the p-th value of every
+    run at once, and the runs of one level are distinct rows."""
+    r = rows.long()
+    valid = (r >= 0) & (r < v)
+    start = valid.clone()
+    start[1:] &= r[1:] != r[:-1]
+    starts = start.nonzero().squeeze(1)
+    acc = torch.zeros((starts.numel(), vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    if starts.numel() == 0:
+        return starts, acc
+    run = torch.cumsum(start, 0) - 1
+    ks = valid.nonzero().squeeze(1)
+    level = ks - starts[run[ks]]
+    order = torch.argsort(level, stable=True)
+    ks, level = ks[order], level[order]
+    off = 0
+    for count in torch.bincount(level).tolist():
+        k = ks[off:off + count]
+        acc.index_add_(0, run[k], vals[k])
+        off += count
+    return starts, acc
+
+
+def scatter_add_rows_sorted_plain(table: torch.Tensor, sorted_rows: torch.Tensor,
+                                  sorted_vals: torch.Tensor, scale=1.0, *,
+                                  accum: torch.Tensor | None = None,
+                                  eps=0.0) -> torch.Tensor:
+    """Plain PyTorch `scatter_add_rows_sorted`, in place; returns `table`."""
+    starts, acc = _run_sums(sorted_rows, sorted_vals, table.shape[0])
+    if starts.numel() == 0:
+        return table
+    rows = sorted_rows[starts].long()
+    sc = torch.tensor(scale, dtype=torch.float32, device=table.device)
+    step = sc * acc
+    if accum is not None:
+        a = accum[rows] + (acc * acc).mean(dim=-1)
+        accum.index_copy_(0, rows, a)
+        e = torch.tensor(eps, dtype=torch.float32, device=table.device)
+        step = step * torch.rsqrt(torch.clamp_min(a + e, 1e-30))[:, None]
+    new = table[rows].float() + step
+    table.index_copy_(0, rows, new.to(table.dtype))
+    return table
+
+
+def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
+                            sorted_vals: torch.Tensor, scale=1.0, *,
+                            accum: torch.Tensor | None = None,
+                            eps=0.0) -> torch.Tensor:
+    """`table[r] += scale * sum(run of r) vals` over ascending int32 rows, in
+    place; returns `table`. `accum=` selects the row-wise AdaGrad epilogue
+    (module docstring). Rows must be sorted: unsorted rows split a row into
+    several runs, which race on the card."""
+    _validate(table, sorted_rows, sorted_vals, accum)
+    if table.device.type == "cpu":
+        return scatter_add_rows_sorted_plain(table, sorted_rows, sorted_vals,
+                                             scale, accum=accum, eps=eps)
+    (n,), (v, d) = sorted_rows.shape, table.shape
+    if n == 0 or d == 0:
+        return table
+    lib = _lib.load("scatter", _SIGNATURES)
+    with torch.cuda.device(table.device):
+        err = lib.et_scatter_add_rows_sorted(
+            table.data_ptr(), sorted_rows.data_ptr(), sorted_vals.data_ptr(),
+            None if accum is None else accum.data_ptr(), n, v, d,
+            _DTYPE_CODE[table.dtype], float(scale), float(eps),
+            _lib.sm_count(table), _lib.stream_of(table))
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            f"rows of {d} elements are wider than the run-scatter holds in "
+            "registers: at most 1024 (D % 4 == 0, 16-byte aligned values), "
+            "else 256")
+    _lib.check(lib, err, "scatter_add_rows_sorted")
+    scatter_add_rows_sorted.launches += 1
+    return table
+
+
+def scatter_update(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                   scale=1.0, *, accum: torch.Tensor | None = None,
+                   eps=0.0) -> torch.Tensor:
+    """Duplicate-accumulating scatter-add through sorted runs, in place:
+    a stable sort of `rows`, the values permuted with `gather_rows`, then
+    `scatter_add_rows_sorted` (which drops rows `< 0` and `>= V`)."""
+    sorted_rows, perm = torch.sort(rows.to(torch.int32), stable=True)
+    sorted_vals = gather_rows(vals.float().contiguous(),
+                              perm.to(torch.int32))
+    return scatter_add_rows_sorted(table, sorted_rows, sorted_vals, scale,
+                                   accum=accum, eps=eps)
+
+
+scatter_add_rows_sorted.launches = 0

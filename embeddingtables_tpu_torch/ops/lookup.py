@@ -11,14 +11,21 @@ hand-written kernels, on a CPU tensor their plain versions. 1-D ids go to
 padded bags gather their rows with `gather_rows` over the flattened ids and
 reduce them in `_combine`. Ids follow the JAX lookup's contract: `[-V, 0)`
 wraps, any other out-of-range id gives NaN.
+
+`lookup_vjp` is the lookup with its lazy pullback: the cotangent is a
+`SparseEmbeddingUpdate` (`delta`, `indices`, per-occurrence weights), and no
+scatter happens until a sparse optimizer applies it.
 """
 from __future__ import annotations
+
+from typing import Callable, Tuple
 
 import torch
 
 from ..tables import SimpleEmbedding, is_table
 from ..types import Forward
 from .cuda.gather import gather_bags, gather_rows
+from .sparse_update import SparseEmbeddingUpdate
 
 
 def _ids(indices, device) -> torch.Tensor:
@@ -34,38 +41,46 @@ def _weights(weights, device):
     return w.float() if w.dtype == torch.float64 else w
 
 
+def _index_rows(data: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """`data[indices, :]` as JAX indexes: an id in `[-V, 0)` wraps once and
+    any other id clamps to `[0, V-1]`."""
+    v = data.shape[0]
+    i = torch.where((indices >= -v) & (indices < 0), indices + v, indices)
+    return data[i.clamp(0, v - 1), :]
+
+
 def lookup_oracle(data: torch.Tensor, indices, combiner: str = "sum",
                   weights=None, pad_idx: int | None = None) -> torch.Tensor:
     """Naive dense implementation on a raw `(vocab, dim)` tensor: the test
     oracle. Occurrences equal to `pad_idx` are absent: they contribute a
-    zero row and are excluded from the mean denominator. Plain indexing:
-    out-of-range ids raise here."""
+    zero row and are excluded from the mean denominator. Indexing follows
+    the JAX oracle's `data[idx]`: ids in `[-V, 0)` wrap, others clamp."""
     indices = torch.as_tensor(indices).to(data.device).long()
     weights = _weights(weights, data.device)
     if pad_idx is not None:
         valid = indices != pad_idx
         safe = torch.where(valid, indices, 0)
         if indices.dim() == 1:
-            out = data[safe, :] * valid[:, None].to(data.dtype)
+            out = _index_rows(data, safe) * valid[:, None].to(data.dtype)
             if weights is not None:
                 out = out * weights.reshape(-1, 1).to(out.dtype)
             return out
         w = valid.float()
         if weights is not None:
             w = w * weights.float()
-        rows = data[safe, :] * w[..., None].to(data.dtype)
+        rows = _index_rows(data, safe) * w[..., None].to(data.dtype)
         out = rows.sum(dim=1)
         if combiner == "mean":
             denom = w.sum(dim=1, keepdim=True)
             out = out / denom.clamp_min(1e-12).to(out.dtype)
         return out
     if indices.dim() == 1:
-        out = data[indices, :]
+        out = _index_rows(data, indices)
         if weights is not None:
             out = out * weights.reshape(-1, 1).to(out.dtype)
         return out
     if indices.dim() == 2:
-        rows = data[indices, :]
+        rows = _index_rows(data, indices)
         if weights is not None:
             rows = rows * weights[..., None]
         out = rows.sum(dim=1)
@@ -156,3 +171,57 @@ def lookup(table, indices, context=None, *, combiner: str = "sum",
     if combiner == "sum" and weights is None:
         return _lookup_dispatch(data, indices)
     return _combine(_bag_rows(data, indices), indices, combiner, weights)
+
+
+def effective_weights(indices: torch.Tensor, combiner: str, weights,
+                      pad_idx: int | None = None):
+    """Per-occurrence scale that folds the combiner into the lazy update:
+    None for plain sum bags and plain non-reducing lookups, else float32,
+    `(B, bag)` for bags and `(B,)` for non-reducing lookups. Padded
+    occurrences get weight 0 and the mean denominator counts valid mass
+    only; the captured ids keep their values (zero-weight occurrences add
+    exact zeros)."""
+    device = indices.device
+    w = None if weights is None else \
+        torch.as_tensor(weights).to(device, torch.float32)
+    if indices.dim() != 2:
+        w = None if w is None else w.reshape(-1)
+        if pad_idx is not None:
+            mask = (indices != pad_idx).float()
+            return mask if w is None else mask * w
+        return w
+    b, bag = indices.shape
+    if pad_idx is not None:
+        mask = (indices != pad_idx).float()
+        w = mask if w is None else mask * w
+        if combiner == "mean":
+            return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-12)
+        return w
+    if combiner == "mean":
+        if w is not None:
+            return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-12)
+        return torch.full((b, bag), 1.0 / bag, dtype=torch.float32,
+                          device=device)
+    return w
+
+
+def lookup_vjp(table, indices, *, combiner: str = "sum", weights=None,
+               pad_idx: int | None = None
+               ) -> Tuple[torch.Tensor,
+                          Callable[[torch.Tensor], SparseEmbeddingUpdate]]:
+    """`lookup` plus the lazy pullback: `pullback(delta)` returns
+    `SparseEmbeddingUpdate(delta, indices, effective weights)` and performs
+    no scatter; the fused optimizer step does that later. Mean and weighted
+    combiners and `pad_idx` masks fold into the update's weights."""
+    device = table.example().device if is_table(table) \
+        else torch.as_tensor(table).device
+    indices = _ids(indices, device)
+    out = lookup(table, indices, combiner=combiner, weights=weights,
+                 pad_idx=pad_idx)
+    eff = effective_weights(indices, combiner, weights, pad_idx)
+
+    def pullback(delta: torch.Tensor) -> SparseEmbeddingUpdate:
+        return SparseEmbeddingUpdate(delta=delta, indices=indices,
+                                     weights=eff)
+
+    return out, pullback

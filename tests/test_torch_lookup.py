@@ -202,3 +202,24 @@ def test_local_out_of_range_ids_follow_the_stacked_shift(combiner):
     got = embedding_forward(pt, torch.from_numpy(cat), combiner).numpy()
     assert np.isnan(want[2, 1]).all() and not np.isnan(want[:, 0]).any()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("pad_idx", [None, -1])
+@pytest.mark.parametrize("ndim,combiner", [(1, "sum"), (2, "sum"),
+                                           (2, "mean")])
+def test_lookup_oracle_indexes_out_of_range_ids_as_jax(ndim, combiner,
+                                                       pad_idx):
+    # JAX's `data[idx]`: an id in [-V, 0) wraps once, any other id clamps to
+    # [0, V-1]; the pad sentinel is masked before either.
+    arr, idx, w = _inputs(5, "float32", ndim, True, None)
+    bad = np.array([-1, -V, -V - 1, V, V + 3, 2**31 - 1, -2**31, -7],
+                   np.int32)
+    idx.reshape(-1)[:bad.size] = bad
+    if pad_idx is not None:
+        idx.reshape(-1)[-3:] = pad_idx
+    got = ett.lookup_oracle(tensor_from_array(arr, "cpu"), idx, combiner, w,
+                            pad_idx=pad_idx).numpy()
+    want = np.asarray(et.lookup_oracle(jnp.asarray(arr), jnp.asarray(idx),
+                                       combiner, jnp.asarray(w),
+                                       pad_idx=pad_idx))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (`embeddingtables_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --run-window-sweep   # only the run-scatter's L sweep
+    python3 chip_smoke.py --per-table          # only the per-table comparison
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -19,22 +21,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
  5. Multi-hot: the same widths with bags of 8 through `gather_bags`.
  6. Update kernels: `scatter_add_rows_sorted` (SGD and row-wise AdaGrad
     epilogues, f32 and bf16 tables, padding, rows >= V, uniform and Zipf
-    runs, n = 0) and `hot_accumulate` (S = 128, 384, 512, f32 and bf16
-    modes, out-of-range ids) against their plain versions; then their times
-    beside their byte bounds, plain versions and one library call, the sort
-    and permute around the scatter, and hot_accumulate against the scatter
-    paths at S = 128 ... 1024.
+    runs, runs placed on the kernel's window edges, n = 0) and
+    `hot_accumulate` (S = 128, 384, 512, f32 and bf16 modes, out-of-range
+    ids) against their plain versions; then their times beside their byte
+    bounds, plain versions and one library call, the sort and permute around
+    the scatter, and hot_accumulate against the scatter paths at
+    S = 128 ... 1024.
  7. Stacked training at full width: `train_dlrm` on the same DLRM at
     B = 65,536 from `SyntheticCriteo`, with SparseSGD, row-wise AdaGrad
     (indexer, and auto, which takes the dense method here) and bf16 tables
     with stochastic rounding; run-scatter launches counted per recipe, one
     step of each optimizer held against the plain versions, and per-step
-    times.
+    times with a kernel profile.
  8. Per-table training: 26 `SimpleEmbedding`s with the Criteo Kaggle
     cardinalities (capped at 250,000) through `lookup_vjp` and
-    `ensemble_update`, counting `hot_accumulate` and run-scatter launches.
+    `ensemble_update`, counting `hot_accumulate` and run-scatter launches,
+    with a kernel profile of one SGD and one AdaGrad step; then
+    `hot_accumulate` checked and timed on the tiny features' own ids.
  9. A `kernels` JSON line (every hand kernel, its launches on its path and
-    its times), the card line again, and the final JSON status line.
+    its times; the run-scatter's Zipf time beside its uniform one), the card
+    line again, and the final JSON status line.
+
+With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
+the run-scatter's window length (`run_window_sweep`). With `--per-table` it
+runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
+phase 8: the lines that compare two versions of the update kernels on the
+per-table path. Copied into an unpacked older commit and run there, it
+measures that commit's kernels the same way.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -361,9 +374,16 @@ def throughput(ett, model, cfg, bag=None, b=2048, steps=20):
           **kernel_profile(lambda: step(model, dense, cat), ms)})
 
 
+# The hand kernels' device-function names, as the profiler shows them.
+HAND_KERNELS = {"scatter_add_rows_sorted": "runscatter_",
+                "hot_accumulate": "segsum_", "gather_rows": "gather_rows_kernel",
+                "gather_bags": "gather_bags_kernel"}
+
+
 def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
     """Kernel time per call of `fn` by name (torch.profiler over `reps`
-    calls) and the device's idle share of a `step_ms` step."""
+    calls), the hand kernels' share of it, and the device's idle share of a
+    `step_ms` step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -377,6 +397,10 @@ def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
     return {"profiled_kernel_us_per_step": device_us,
             "device_idle_share": 1.0 - device_us / (step_ms * 1e3),
             "kernels_per_step": sum(e.count for e in kernels) / reps,
+            "hand_kernel_us_per_step": {
+                name: sum(e.self_device_time_total for e in kernels
+                          if key in e.key) / reps
+                for name, key in HAND_KERNELS.items()},
             "top_kernels_us_per_step": [
                 [e.key[:70], e.self_device_time_total / reps]
                 for e in kernels[:8]]}
@@ -442,18 +466,41 @@ def stacked_rows(batch, vocab: int) -> torch.Tensor:
     return (cat + starts[:, None]).reshape(-1)
 
 
+def with_padding(rows: torch.Tensor, v: int, gen) -> torch.Tensor:
+    """About 1% of the ids made padding (-1) and 0.5% rows >= V, sorted."""
+    r = torch.rand(rows.shape, generator=gen, device="cuda")
+    rows = torch.where(r < 0.01, -1, rows)
+    rows = torch.where(r > 0.995, v + 3, rows)
+    return torch.sort(rows.to(torch.int32), stable=True).values
+
+
+def window_edge_stream(window: int, v: int, reps: int = 200) -> torch.Tensor:
+    """Sorted rows whose runs sit on the run-scatter's window edges (length
+    L), `reps` times over: each repetition (10 windows) has runs of L and
+    L + 1, a run starting at L - 1 (mod L) and spanning five windows, a run
+    filling one window exactly, and short runs. Padding comes first (L / 4
+    positions, before the first edge) and 20 rows >= V last."""
+    pad = window // 4
+    lengths = [pad, window, window + 1, window - 2 - pad, 3 * window + 5,
+               window - 4, window, 1, 2, 3, window + 1, 7, window - 14]
+    runs = len(lengths) * reps
+    ids = torch.arange(runs, device="cuda", dtype=torch.int32) * (v // runs)
+    ids[0] = -1
+    counts = torch.tensor(lengths * reps, device="cuda")
+    rows = torch.repeat_interleave(ids, counts)
+    return torch.cat([rows, torch.full((20,), v, dtype=torch.int32,
+                                       device="cuda")])
+
+
 def check_scatter(S, gen, streams, v, d):
     """scatter_add_rows_sorted against its plain version at the training
-    shape: SGD bitwise, AdaGrad to rtol 1e-6 (the mean's reduction order,
-    rsqrt's last bits; one bf16 rounding, 2^-7 relative, on bf16 tables)."""
+    shape, on sorted streams: SGD bitwise, AdaGrad to rtol 1e-6 (the mean's
+    reduction order, rsqrt's last bits; one bf16 rounding, 2^-7 relative, on
+    bf16 tables)."""
     err = 0.0
     table32 = torch.randn((v, d), generator=gen, device="cuda") * 0.05
     accum0 = torch.rand((v,), generator=gen, device="cuda")
     for kind, rows in streams.items():
-        r = torch.rand(rows.shape, generator=gen, device="cuda")
-        rows = torch.where(r < 0.01, -1, rows)            # padding
-        rows = torch.where(r > 0.995, v + 3, rows)        # dropped: >= V
-        rows = torch.sort(rows.to(torch.int32), stable=True).values
         vals = torch.randn((rows.numel(), d), generator=gen, device="cuda")
         valid = rows[(rows >= 0) & (rows < v)]
         longest = int(torch.unique_consecutive(
@@ -631,15 +678,21 @@ def update_kernel_phase(ett, S, H, G, gen):
     uniform = [torch.randint(0, v, (t * B_TRAIN,), generator=gen,
                              device="cuda", dtype=torch.int32)
                for _ in range(3)]
+    edges = window_edge_stream(S.RUN_WINDOW, v)
     errs = {"scatter_add_rows_sorted": check_scatter(
-                S, gen, {"uniform": uniform[0], "zipf": zipf[0]}, v, d),
+                S, gen, {"uniform": with_padding(uniform[0], v, gen),
+                         "zipf": with_padding(zipf[0], v, gen),
+                         "window_edges": edges}, v, d),
             "hot_accumulate": check_hot_accumulate(H, gen)}
     emit({"phase": "update_kernel_checks",
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     timings = {"scatter_add_rows_sorted": time_scatter(S, G, gen, uniform, v,
                                                        d, "uniform")}
-    time_scatter(S, G, gen, zipf, v, d, "zipf")
+    # Zipf is the training path's traffic: its time joins the kernels line.
+    z = time_scatter(S, G, gen, zipf, v, d, "zipf")
+    timings["scatter_add_rows_sorted"].update(zipf_ms=z["kernel_ms"],
+                                              zipf_bound_ms=z["bound_ms"])
     time_scatter(S, G, gen, [u[:t * 2048] for u in uniform], v, d,
                  "uniform_serving_batch")
     del zipf, uniform
@@ -650,6 +703,90 @@ def update_kernel_phase(ett, S, H, G, gen):
     emit({"phase": "update_kernel_times",
           "seconds": time.perf_counter() - t0})
     return errs, timings
+
+
+def run_window_sweep(ett, S, gen, windows=(128, 256, 512, 1024)):
+    """How the run-scatter's window length L was chosen: the kernel built
+    with each L in `windows` (scatter.cu's kRunWindow replaced in a copy),
+    checked bitwise against the plain version summing in the same windows
+    (SGD, f32, stacked Zipf stream), and timed on the stacked uniform and
+    Zipf streams and on the per-table path's run-scatter inputs (the 17
+    Criteo features over 512 padded rows, one call each, summed per step).
+    Run with `python3 chip_smoke.py --run-window-sweep`."""
+    import ctypes
+    from embeddingtables_tpu_torch import config
+    from embeddingtables_tpu_torch.ops.cuda import _lib
+    src = (_lib.CSRC / "scatter.cu").read_text()
+    line = f"constexpr int kRunWindow = {S.RUN_WINDOW};"
+    require(line in src, "scatter.cu does not declare kRunWindow as expected")
+    out = config.KERNEL_BUILD_DIR / "run_window_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for w in windows:
+        cu, so = out / f"scatter_L{w}.cu", out / f"scatter_L{w}.so"
+        cu.write_text(src.replace(line, f"constexpr int kRunWindow = {w};"))
+        procs[w] = (so, subprocess.Popen(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(_lib.CSRC), "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for w, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc with L = {w}:\n{log}")
+        fn = ctypes.CDLL(str(so)).et_scatter_add_rows_sorted
+        fn.argtypes = S._SIGNATURES["et_scatter_add_rows_sorted"]
+        fn.restype = ctypes.c_int
+        libs[w] = fn
+
+    def scatter(w, table, rows, vals):
+        (n,), (v, d) = rows.shape, table.shape
+        scratch = torch.empty((2 * -(-n // w), d), device="cuda")
+        err = libs[w](table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+                      None, scratch.data_ptr(), n, v, d, 0, -1e-4, 0.0,
+                      _lib.stream_of(table))
+        require(err == 0, f"run-scatter with L = {w}: CUDA error {err}")
+
+    def sorted_sets(row_sets):
+        return [(torch.sort(r.to(torch.int32)).values,
+                 torch.randn((r.numel(), 128), generator=gen, device="cuda"))
+                for r in row_sets]
+
+    v = 26 * VOCAB
+    stacked = {
+        "uniform": sorted_sets(torch.randint(0, v, (26 * B_TRAIN,),
+                                             generator=gen, device="cuda")
+                               for _ in range(3)),
+        "zipf": sorted_sets(stacked_rows(b, VOCAB) for b in criteo_batches(
+            ett, (VOCAB,) * 26, 3, SEED + 5))}
+    table = torch.randn((v, 128), generator=gen, device="cuda") * 0.05
+    vocabs = tuple(min(c, VOCAB) for c in CRITEO_KAGGLE_CARDINALITIES)
+    (batch,) = criteo_batches(ett, vocabs, 1, SEED + 7)
+    per_table = [(torch.zeros((vv, 128), device="cuda"), *sorted_sets(
+        [batch["cat"][j]])[0]) for j, vv in enumerate(vocabs)
+        if -(-vv // 128) * 128 > 512]
+    results = []
+    for w in windows:
+        rows, vals = stacked["zipf"][0]
+        tk, tp = table.clone(), table.clone()
+        scatter(w, tk, rows, vals)
+        saved, S.RUN_WINDOW = S.RUN_WINDOW, w
+        try:
+            S.scatter_add_rows_sorted_plain(tp, rows, vals, -1e-4)
+        finally:
+            S.RUN_WINDOW = saved
+        torch.cuda.synchronize()
+        require(torch.equal(bits(tk), bits(tp)), f"L = {w}: not bitwise")
+        del tk, tp
+        row = {"window": w, "zipf_bitwise": True}
+        for kind, sets in stacked.items():
+            row[f"{kind}_ms"] = time_each_ms(
+                lambda r, x: scatter(w, table, r, x), sets)
+        row["per_table_sgd_ms_per_step"] = time_each_ms(
+            lambda: [scatter(w, *p) for p in per_table], [()], reps=10)
+        results.append(row)
+    emit({"phase": "run_window_sweep", "n_stacked": 26 * B_TRAIN,
+          "per_table_calls": len(per_table), "chosen": S.RUN_WINDOW,
+          "rows": results})
 
 
 # ---------------------------------------------------------------------------
@@ -797,7 +934,42 @@ def stacked_training_phase(ett, S, H, G):
 # Phase 8: per-table training
 # ---------------------------------------------------------------------------
 
-def per_table_phase(ett, S, H):
+def time_per_table_hot_accumulate(H, gen, batches, vocabs, d=128):
+    """hot_accumulate on the per-table path's own inputs: the Zipf ids of
+    the features of at most 512 padded rows, one call per feature as
+    `_dense_grad` makes it (f32), each held against the plain version to
+    1e-5 of the summed magnitude, and the sum of the calls' times per step
+    beside the sum of their byte bounds n*(4*D + 4) + S*D*4."""
+    f32, feats, total, bound = torch.float32, [], 0.0, 0.0
+    for j, v in enumerate(vocabs):
+        segments = -(-v // 128) * 128
+        if segments > 512:
+            continue
+        sets = [(b["cat"][j].contiguous(),
+                 torch.randn((B_TRAIN, d), generator=gen, device="cuda"))
+                for b in batches]
+        ms = time_each_ms(lambda r, x: H.hot_accumulate(
+            r, x, segments, compute_dtype=f32), sets)
+        rows, vals = sets[0]
+        got = H.hot_accumulate(rows, vals, segments, compute_dtype=f32)
+        want = H.hot_accumulate_plain(rows, vals, segments, f32)
+        mag = H.hot_accumulate_plain(rows, vals.abs(), segments, f32)
+        require(bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all()),
+                f"hot_accumulate on feature {j} ({v} rows)")
+        counts = torch.bincount(rows.long(), minlength=v)
+        feats.append({"feature": j, "vocab": v, "segments": segments,
+                      "kernel_ms": ms, "max_abs_err": max_abs_err(got, want),
+                      "hottest_id_share": float(counts.max()) / B_TRAIN})
+        total += ms
+        bound += (B_TRAIN * (4 * d + 4) + segments * d * 4) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "kernel_time", "kernel": "hot_accumulate",
+          "inputs": "per_table_tiny_features", "n": B_TRAIN, "D": d,
+          "features": feats, "kernel_ms_per_step": total,
+          "bound_ms_per_step": bound,
+          "tolerance": "1e-5 of sum |vals| per segment"})
+
+
+def per_table_phase(ett, S, H, gen):
     from embeddingtables_tpu_torch.models.dlrm import (bce_loss,
                                                       forward_from_embeddings)
     from embeddingtables_tpu_torch.optim import apply_dense_tx
@@ -811,27 +983,32 @@ def per_table_phase(ett, S, H):
     tables = [model.tables.table(t) for t in range(cfg.num_tables)]
     batches = criteo_batches(ett, vocabs, 2, SEED + 7)
     params = list(model.bottom_params) + list(model.top_params)
+
+    def step(opt, b, states):
+        nonlocal tables
+        outs, pullbacks = zip(*(ett.lookup_vjp(t, b["cat"][j])
+                                for j, t in enumerate(tables)))
+        emb = torch.stack(outs).requires_grad_(True)
+        loss = bce_loss(forward_from_embeddings(
+            model.bottom, model.top, cfg, b["dense"], emb), b["label"])
+        *grads, demb = torch.autograd.grad(loss, params + [emb])
+        apply_dense_tx(params, grads, None, None, 1e-2)
+        upds = [pb(demb[j].float()) for j, pb in enumerate(pullbacks)]
+        tables, states = ett.ensemble_update(opt, tables, upds, states)
+        return loss, states
+
     hot_total = 0
     for name, opt, want in (("sgd", ett.SparseSGD(1e-2), (9, 17)),
                             ("adagrad_auto_dense",
                              ett.SparseRowWiseAdaGrad(1e-2), (9, 0))):
         states, losses, step_ms = None, [], []
         for i in range(4):
-            b = batches[i % len(batches)]
             S.scatter_add_rows_sorted.launches = 0
             H.hot_accumulate.launches = 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            outs, pullbacks = zip(*(ett.lookup_vjp(t, b["cat"][j])
-                                    for j, t in enumerate(tables)))
-            emb = torch.stack(outs).requires_grad_(True)
-            loss = bce_loss(forward_from_embeddings(
-                model.bottom, model.top, cfg, b["dense"], emb), b["label"])
-            *grads, demb = torch.autograd.grad(loss, params + [emb])
-            apply_dense_tx(params, grads, None, None, 1e-2)
-            upds = [pb(demb[j].float()) for j, pb in enumerate(pullbacks)]
-            tables, states = ett.ensemble_update(opt, tables, upds, states)
+            loss, states = step(opt, batches[i % len(batches)], states)
             end.record()
             torch.cuda.synchronize()
             got = (H.hot_accumulate.launches, S.scatter_add_rows_sorted.launches)
@@ -842,12 +1019,20 @@ def per_table_phase(ett, S, H):
             step_ms.append(start.elapsed_time(end))
         require(all(math.isfinite(x) for x in losses),
                 f"per-table {name}: non-finite losses {losses}")
+        # Two more steps under the profiler (outside the counted run).
+        held = {"states": states}
+
+        def profiled_step(opt=opt, held=held):
+            held["states"] = step(opt, batches[0], held["states"])[1]
         emit({"phase": "train_per_table", "optimizer": name, "batch": B_TRAIN,
               "tables": len(tables), "tiny_tables": tiny,
               "rows": sum(vocabs), "losses": losses,
               "launches_per_step": {"hot_accumulate": want[0],
                                     "scatter_add_rows_sorted": want[1]},
-              "step_ms": step_ms})
+              "step_ms": step_ms,
+              **kernel_profile(profiled_step, statistics.median(step_ms[1:]),
+                               reps=2)})
+    time_per_table_hot_accumulate(H, gen, batches, vocabs)
     emit({"phase": "train_per_table_done",
           "seconds": time.perf_counter() - t0})
     del model, tables
@@ -886,6 +1071,16 @@ def main() -> int:
                     or "spill" in ln]})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if "--run-window-sweep" in sys.argv[1:]:
+        run_window_sweep(ett, S, gen)
+        print(card_line(), flush=True)
+        return 0
+    if "--per-table" in sys.argv[1:]:
+        for segments in (128, 512):
+            time_hot_accumulate(H, gen, segments)
+        per_table_phase(ett, S, H, gen)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -913,7 +1108,7 @@ def main() -> int:
     errs.update(update_errs)
     timings.update(update_timings)
     scatter_launches = stacked_training_phase(ett, S, H, G)
-    hot_launches = per_table_phase(ett, S, H)
+    hot_launches = per_table_phase(ett, S, H, gen)
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
@@ -932,7 +1127,9 @@ def main() -> int:
          "ms": timings[name]["kernel_ms"], "plain_ms": timings[name]["plain_ms"],
          "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],
-         "library_ms": timings[name]["library_ms"]}
+         "library_ms": timings[name]["library_ms"],
+         **{k: timings[name][k] for k in ("zipf_ms", "zipf_bound_ms")
+            if k in timings[name]}}
         for name, (launches, source, where) in paths.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -5,10 +5,10 @@ Counterpart of `embeddingtables_tpu/ops/pallas/scatter.py`:
 
   - `scatter_add_rows_sorted(table, rows, vals, scale)`: over rows sorted
     ascending, `table[r] += scale * sum(run of r) vals`, the run summed in
-    float32 in stream order and the row rounded once to the table dtype.
-    Each unique row is read once and written once, in place. Rows `< 0` are
-    padding; rows `>= V` are dropped (the Pallas kernel would copy out of
-    bounds). With `accum=` it runs the row-wise AdaGrad epilogue instead:
+    float32 and the row rounded once to the table dtype. Each unique row is
+    read once and written once, in place. Rows `< 0` are padding; rows
+    `>= V` are dropped (the Pallas kernel would copy out of bounds). With
+    `accum=` it runs the row-wise AdaGrad epilogue instead:
     `accum[r] += mean(acc^2)`, then
     `table[r] += (scale * acc) * rsqrt(max(accum[r] + eps, 1e-30))` with
     `scale = -lr`.
@@ -16,6 +16,11 @@ Counterpart of `embeddingtables_tpu/ops/pallas/scatter.py`:
     of the rows, a permute of the values with `gather_rows`, then the
     run-scatter. Equal to `table.index_add_(0, rows, scale * vals)` up to
     the order of the float32 additions.
+
+The order of the float32 additions: pieces at run starts and at multiples of
+`RUN_WINDOW` (L) positions, each summed in stream order, then each run's
+pieces folded left to right, `((p0 + p1) + p2) + ...`. A run that crosses no
+multiple of L is one piece, summed in stream order.
 
 Tables are float32 or bfloat16; values are float32. A CUDA tensor goes to the
 kernel in `csrc/scatter.cu`; a CPU tensor to the plain version
@@ -32,11 +37,16 @@ import torch
 from . import _lib
 from .gather import gather_rows
 
+# L: the window length of the summation order; `kRunWindow` in
+# csrc/scatter.cu, checked against it when the library loads.
+RUN_WINDOW = 128
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                                   _F32, _F32, _INT, _P],
+    "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                                   _F32, _F32, _P],
+    "et_run_window": [],
 }
 _CUDA_ERROR_INVALID_VALUE = 1
 
@@ -67,30 +77,46 @@ def _validate(table, rows, vals, accum) -> None:
         raise ValueError("table, rows, values and accum must be contiguous")
 
 
+def _level_sums(group: torch.Tensor, level: torch.Tensor, x: torch.Tensor,
+                groups: int) -> torch.Tensor:
+    """float32 sums of the rows of `x` by `group`, each group's rows added
+    from zero in `level` order: level p adds the p-th row of every group at
+    once, and the groups of one level are distinct."""
+    acc = torch.zeros((groups, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    order = torch.argsort(level, stable=True)
+    group, x = group[order], x[order]
+    off = 0
+    for count in torch.bincount(level[order]).tolist():
+        acc.index_add_(0, group[off:off + count], x[off:off + count])
+        off += count
+    return acc
+
+
 def _run_sums(rows: torch.Tensor, vals: torch.Tensor, v: int):
-    """(run start positions, float32 run sums) of the valid runs of `rows`.
-    Each run is summed in stream order: level p adds the p-th value of every
-    run at once, and the runs of one level are distinct rows."""
+    """(run start positions, float32 run sums) of the valid runs of `rows`,
+    in the kernel's order: pieces at run starts and at multiples of
+    RUN_WINDOW, each summed in stream order, then each run's pieces folded
+    left to right."""
     r = rows.long()
     valid = (r >= 0) & (r < v)
     start = valid.clone()
     start[1:] &= r[1:] != r[:-1]
     starts = start.nonzero().squeeze(1)
-    acc = torch.zeros((starts.numel(), vals.shape[1]), dtype=torch.float32,
-                      device=vals.device)
     if starts.numel() == 0:
-        return starts, acc
-    run = torch.cumsum(start, 0) - 1
+        return starts, torch.zeros((0, vals.shape[1]), dtype=torch.float32,
+                                   device=vals.device)
+    pos = torch.arange(r.numel(), device=r.device)
+    piece_start = start | (valid & (pos % RUN_WINDOW == 0))
+    pieces = piece_start.nonzero().squeeze(1)
+    piece = torch.cumsum(piece_start, 0) - 1        # at valid positions
     ks = valid.nonzero().squeeze(1)
-    level = ks - starts[run[ks]]
-    order = torch.argsort(level, stable=True)
-    ks, level = ks[order], level[order]
-    off = 0
-    for count in torch.bincount(level).tolist():
-        k = ks[off:off + count]
-        acc.index_add_(0, run[k], vals[k])
-        off += count
-    return starts, acc
+    piece_sums = _level_sums(piece[ks], ks - pieces[piece[ks]], vals[ks],
+                             pieces.numel())
+    run_of_piece = (torch.cumsum(start, 0) - 1)[pieces]
+    first_piece = piece[starts]
+    rank = torch.arange(pieces.numel(), device=r.device) - first_piece[run_of_piece]
+    return starts, _level_sums(run_of_piece, rank, piece_sums, starts.numel())
 
 
 def scatter_add_rows_sorted_plain(table: torch.Tensor, sorted_rows: torch.Tensor,
@@ -114,6 +140,14 @@ def scatter_add_rows_sorted_plain(table: torch.Tensor, sorted_rows: torch.Tensor
     return table
 
 
+def _library():
+    lib = _lib.load("scatter", _SIGNATURES)
+    if lib.et_run_window() != RUN_WINDOW:
+        raise RuntimeError(f"csrc/scatter.cu sums in windows of "
+                           f"{lib.et_run_window()}, RUN_WINDOW is {RUN_WINDOW}")
+    return lib
+
+
 def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
                             sorted_vals: torch.Tensor, scale=1.0, *,
                             accum: torch.Tensor | None = None,
@@ -129,13 +163,16 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
     (n,), (v, d) = sorted_rows.shape, table.shape
     if n == 0 or d == 0:
         return table
-    lib = _lib.load("scatter", _SIGNATURES)
+    lib = _library()
+    # Two f32 slots per window for the pieces of runs that cross its edges.
+    scratch = torch.empty((2 * -(-n // RUN_WINDOW), d), dtype=torch.float32,
+                          device=table.device)
     with torch.cuda.device(table.device):
         err = lib.et_scatter_add_rows_sorted(
             table.data_ptr(), sorted_rows.data_ptr(), sorted_vals.data_ptr(),
-            None if accum is None else accum.data_ptr(), n, v, d,
-            _DTYPE_CODE[table.dtype], float(scale), float(eps),
-            _lib.sm_count(table), _lib.stream_of(table))
+            None if accum is None else accum.data_ptr(), scratch.data_ptr(),
+            n, v, d, _DTYPE_CODE[table.dtype], float(scale), float(eps),
+            _lib.stream_of(table))
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"rows of {d} elements are wider than the run-scatter holds in "

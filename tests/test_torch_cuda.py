@@ -93,10 +93,13 @@ from embeddingtables_tpu_torch.ops.cuda import segsum as H  # noqa: E402
 
 def _sorted_rows(g, device, n, v, zipf):
     """Ascending int32 rows with padding (< 0), rows >= V and, under
-    `zipf`, long runs on a few hot rows."""
+    `zipf`, long runs on a few hot rows, the hottest spanning many of the
+    run-scatter's windows."""
     if zipf:
         hot = torch.randint(0, v, (8,), generator=g, device=device)
         pick = torch.randint(0, 8, (n,), generator=g, device=device)
+        pick = torch.where(torch.rand((n,), generator=g, device=device) < 0.4,
+                           0, pick)
         cold = torch.randint(0, v, (n,), generator=g, device=device)
         coin = torch.rand((n,), generator=g, device=device) < 0.6
         rows = torch.where(coin, hot[pick], cold)
@@ -145,6 +148,49 @@ def test_cuda_scatter_add_rows_sorted_matches_plain(cuda_device, dtype,
     ok = (rows >= 0) & (rows < v)
     untouched[rows[ok].long()] = False
     assert torch.equal(t_k[untouched], table[untouched])
+    if zipf:
+        runs = torch.unique_consecutive(rows[ok], return_counts=True)[1]
+        assert int(runs.max()) > 16 * S.RUN_WINDOW
+
+
+def _window_edge_rows(device, v):
+    """Runs placed on the window edges (L = RUN_WINDOW), three times over:
+    runs of L and L + 1, one starting at L - 1 (mod L) over five windows, one
+    filling a window; padding before the first edge, rows >= V at the end."""
+    w = S.RUN_WINDOW
+    lengths = [w // 4, w, w + 1, w - 2 - w // 4, 3 * w + 5, w - 4, w, 1, 2, 3,
+               w + 1, 7, w - 14]
+    ids = torch.arange(3 * len(lengths), dtype=torch.int32) * 7
+    ids[0] = -1
+    rows = torch.repeat_interleave(ids, torch.tensor(lengths * 3))
+    return torch.cat([rows, torch.full((5,), v, dtype=torch.int32)]).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("adagrad", [False, True])
+def test_cuda_scatter_window_edges_match_plain(cuda_device, dtype, adagrad):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    v, d = 300, 128
+    rows = _window_edge_rows(cuda_device, v)
+    vals = torch.randn((rows.numel(), d), generator=g, device=cuda_device)
+    table = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
+    accum = (torch.rand((v,), generator=g, device=cuda_device)
+             if adagrad else None)
+    t_k, t_p = table.clone(), table.clone()
+    a_k = None if accum is None else accum.clone()
+    a_p = None if accum is None else accum.clone()
+    S.scatter_add_rows_sorted(t_k, rows, vals, -0.05, accum=a_k, eps=1e-8)
+    S.scatter_add_rows_sorted_plain(t_p, rows, vals, -0.05, accum=a_p, eps=1e-8)
+    torch.cuda.synchronize()
+    if not adagrad:
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(t_k.view(bits), t_p.view(bits))
+    else:
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(t_k.float(), t_p.float(), rtol=tol,
+                                   atol=1e-6)
+        torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda
@@ -159,7 +205,9 @@ def test_cuda_scatter_empty_stream_launches_nothing(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("segments", [128, 384, 512])
+# 1024 and 2048 segments take 16- and 8-column slices: the cluster
+# reduction's four-word and one-word paths.
+@pytest.mark.parametrize("segments", [128, 384, 512, 1024, 2048])
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 def test_cuda_hot_accumulate_matches_plain(cuda_device, segments, compute):
     g = torch.Generator(device=cuda_device).manual_seed(segments)
@@ -174,6 +222,17 @@ def test_cuda_hot_accumulate_matches_plain(cuda_device, segments, compute):
     mag = H.hot_accumulate_plain(rows, vals.abs(), segments, compute)
     # Atomics add in a varying order: f32 rounding of the summed magnitude.
     assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+    if segments == 128:
+        # Zipf ids into a 3-row table padded to 128 segments: long stretches
+        # of equal ids pile onto three rows.
+        p = torch.tensor([0.57, 0.26, 0.17], device=cuda_device)
+        rows = torch.multinomial(p, n, replacement=True, generator=g)
+        rows = rows.to(torch.int32)
+        got = H.hot_accumulate(rows, vals, segments, compute_dtype=compute)
+        want = H.hot_accumulate_plain(rows, vals, segments, compute)
+        mag = H.hot_accumulate_plain(rows, vals.abs(), segments, compute)
+        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+        assert bool((got[3:] == 0).all())
 
 
 @pytest.mark.cuda

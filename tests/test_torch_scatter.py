@@ -106,6 +106,102 @@ def test_adagrad_epilogue_matches_its_formula():
                                atol=1e-6)
 
 
+L = S.RUN_WINDOW
+
+
+def _window_edge_stream(rng, v):
+    """Sorted rows whose runs cross multiples of L: padding before the first
+    edge, runs of L and L + 1, a run starting at L - 1 (mod L) and spanning
+    five windows, a run filling one window exactly, short runs, rows >= V."""
+    pad = L // 4
+    lengths = [L, L + 1, L - 2 - pad, 3 * L + 5, L - 4, L, 1, 2, 3, L + 1, 7]
+    assert pad + sum(lengths[:3]) == 3 * L - 1          # the long run's start
+    assert (pad + sum(lengths[:5])) % L == 0            # the window-filling run
+    rows = [-1] * pad
+    for row, length in zip(sorted(rng.choice(v, len(lengths), replace=False)),
+                           lengths):
+        rows += [int(row)] * length
+    rows += [v] * 9 + [v + 3] * 11
+    return np.asarray(rows, np.int32)
+
+
+def _zipf_stream(rng, v, n=2500):
+    rows = np.minimum(rng.zipf(1.5, n) - 1, v + 2)      # hot low rows, >= V
+    rows[rng.random(n) < 0.05] = -1
+    return np.sort(rows).astype(np.int32)
+
+
+def _numpy_run_sums(rows, vals, v):
+    """{row: f32 run sum}: pieces cut at run starts and multiples of L, each
+    summed from zero in stream order, then folded left to right."""
+    sums, pieces, piece, cur = {}, [], None, None
+    for k, r in enumerate(rows.tolist()):
+        if r != cur or k % L == 0:
+            if piece is not None:
+                pieces.append(piece)
+            piece = None
+        if r != cur:
+            if pieces:
+                acc = pieces[0]
+                for p in pieces[1:]:
+                    acc = acc + p
+                sums[cur] = acc
+            pieces, cur = [], r
+        if 0 <= r < v:
+            piece = (np.zeros(vals.shape[1], np.float32) if piece is None
+                     else piece) + vals[k]
+    if piece is not None:
+        pieces.append(piece)
+    if pieces:
+        acc = pieces[0]
+        for p in pieces[1:]:
+            acc = acc + p
+        sums[cur] = acc
+    return sums
+
+
+@pytest.mark.parametrize("stream", ["window_edges", "zipf"])
+def test_plain_run_scatter_order_across_window_edges(stream):
+    rng = np.random.default_rng(len(stream))
+    v, d, scale = 40, 16, np.float32(-0.02)
+    rows = (_window_edge_stream(rng, v) if stream == "window_edges"
+            else _zipf_stream(rng, v))
+    vals = rng.standard_normal((rows.size, d)).astype(np.float32)
+    arr = rng.standard_normal((v, d)).astype(np.float32)
+    sums = _numpy_run_sums(rows, vals, v)
+    assert max(np.bincount(rows[(rows >= 0) & (rows < v)])) > 2 * L
+
+    # SGD: bitwise the numpy loop.
+    want = arr.copy()
+    for r, g in sums.items():
+        want[r] = want[r] + scale * g
+    table = torch.from_numpy(arr.copy())
+    S.scatter_add_rows_sorted(table, torch.from_numpy(rows),
+                              torch.from_numpy(vals), float(scale))
+    np.testing.assert_array_equal(table.numpy().view(np.int32),
+                                  want.view(np.int32))
+    # ... and JAX's scatter-add up to the order of the f32 additions.
+    jrows = np.where(rows < 0, v, rows)
+    jax_want = jnp.asarray(arr).at[jrows].add(scale * jnp.asarray(vals),
+                                              mode="drop")
+    np.testing.assert_allclose(table.numpy(), np.asarray(jax_want),
+                               rtol=1e-5, atol=1e-5)
+
+    # AdaGrad: the epilogue's formula in f64 on the same f32 run sums.
+    accum = torch.from_numpy(rng.random(v).astype(np.float32))
+    want_t, want_a = arr.astype(np.float64), accum.numpy().astype(np.float64)
+    for r, g in sums.items():
+        g = g.astype(np.float64)
+        want_a[r] += (g * g).mean()
+        want_t[r] -= 0.1 * g / np.sqrt(want_a[r] + 1e-8)
+    table = torch.from_numpy(arr.copy())
+    S.scatter_add_rows_sorted(table, torch.from_numpy(rows),
+                              torch.from_numpy(vals), -0.1, accum=accum,
+                              eps=1e-8)
+    np.testing.assert_allclose(accum.numpy(), want_a, rtol=1e-6)
+    np.testing.assert_allclose(table.numpy(), want_t, rtol=1e-5, atol=1e-6)
+
+
 def test_empty_stream_changes_nothing():
     table = torch.ones((4, D))
     S.scatter_add_rows_sorted(table, torch.zeros(0, dtype=torch.int32),

@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --run-window-sweep   # only the run-scatter's L sweep
     python3 chip_smoke.py --per-table          # only the per-table comparison
+    python3 chip_smoke.py --ensemble           # only the ensemble API phase
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -29,16 +30,27 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     S = 128 ... 1024.
  7. Stacked training at full width: `train_dlrm` on the same DLRM at
     B = 65,536 from `SyntheticCriteo`, with SparseSGD, row-wise AdaGrad
-    (indexer, and auto, which takes the dense method here) and bf16 tables
-    with stochastic rounding; run-scatter launches counted per recipe, one
-    step of each optimizer held against the plain versions, and per-step
-    times with a kernel profile.
+    (indexer, and auto, which takes the dense method here), bf16 tables
+    with stochastic rounding, SparseLazyAdam and SparseFTRL (l1 > 0);
+    run-scatter and hot_accumulate launches counted per recipe, one step of
+    each optimizer held against the plain versions, per-step times with a
+    kernel profile, and each recipe's peak device memory.
  8. Per-table training: 26 `SimpleEmbedding`s with the Criteo Kaggle
     cardinalities (capped at 250,000) through `lookup_vjp` and
     `ensemble_update`, counting `hot_accumulate` and run-scatter launches,
     with a kernel profile of one SGD and one AdaGrad step; then
     `hot_accumulate` checked and timed on the tiny features' own ids.
- 9. A `kernels` JSON line (every hand kernel, its launches on its path and
+ 9. The ensemble API on the same 26 tables: `maplookup` under
+    `PreallocationStrategy(128)` (26 `gather_rows` launches for a list, 1
+    for a `StackedTables`, bags of 8 through `gather_bags`), bitwise the
+    plain path; `maplookup_vjp` + `ensemble_sgd_update(method="dedup")`
+    (26 run-scatter launches a step, bitwise the plain run-scatter);
+    `ensemble_update` with SparseLazyAdam and SparseFTRL (9
+    `hot_accumulate` launches a step, held against the plain version); the
+    six features of 250,000 rows as `SplitEmbedding`s of 65,536-row shards
+    under indexer AdaGrad (4 run-scatter launches a table), against the same
+    update on `SimpleEmbedding`s; and `index()` timed on the card.
+10. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one), the card
     line again, and the final JSON status line.
 
@@ -47,7 +59,8 @@ the run-scatter's window length (`run_window_sweep`). With `--per-table` it
 runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
 phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
-measures that commit's kernels the same way.
+measures that commit's kernels the same way. With `--ensemble` it runs
+phases 1-2 and phase 9.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -441,6 +454,7 @@ def multihot_phase(ett, G, model, cfg):
 
 B_TRAIN = 65_536                   # bench.py's single-chip batch
 VOCAB = 250_000                    # the serving model's rows per table
+SHARD_ROWS = 65_536                # the ensemble phase's SplitEmbedding shards
 # Criteo Kaggle (Display Advertising Challenge) per-feature cardinalities, as
 # facebookresearch/dlrm lists them for the Kaggle data set.
 CRITEO_KAGGLE_CARDINALITIES = (
@@ -808,6 +822,74 @@ class plain_kernels:
         self.S.scatter_add_rows_sorted, self.S.gather_rows = self.saved
 
 
+class plain_gathers:
+    """Route the forward lookup (`ops.lookup`) to the plain gathers."""
+
+    def __init__(self, G):
+        self.G = G
+        self.L = sys.modules["embeddingtables_tpu_torch.ops.lookup"]
+
+    def __enter__(self):
+        self.saved = (self.L.gather_rows, self.L.gather_bags)
+        self.L.gather_rows = self.G.gather_rows_plain
+        self.L.gather_bags = self.G.gather_bags_plain
+
+    def __exit__(self, *exc):
+        self.L.gather_rows, self.L.gather_bags = self.saved
+
+
+class plain_segsum:
+    """Route `_dense_grad`'s tiny-table branch to hot_accumulate's plain
+    version."""
+
+    def __init__(self, H):
+        self.H = H
+        self.P = sys.modules["embeddingtables_tpu_torch.optim"]
+
+    def __enter__(self):
+        self.saved = self.P.hot_accumulate
+        self.P.hot_accumulate = (
+            lambda r, x, s, compute_dtype: self.H.hot_accumulate_plain(
+                r, x, s, compute_dtype))
+
+    def __exit__(self, *exc):
+        self.P.hot_accumulate = self.saved
+
+
+def card_parity_dense(ett, G, model, cfg, batch, opt, name):
+    """One `make_train_step` of a dense-realization optimizer (lazy Adam,
+    FTRL) from the same state through the gather kernel and through the
+    plain gathers, deterministic algorithms on (index_add_'s float atomics
+    would otherwise add in a varying order): tables and every state leaf to
+    rtol 1e-6."""
+    import copy
+    step = ett.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1)
+    mk, mp = copy.deepcopy(model), copy.deepcopy(model)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step(mk, batch["dense"], batch["cat"], batch["label"])
+        with plain_gathers(G):
+            step(mp, batch["dense"], batch["cat"], batch["label"])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.testing.assert_close(mk.tables.data, mp.tables.data, rtol=1e-6,
+                               atol=1e-7)
+    errs = {"tables": max_abs_err(mk.tables.data, mp.tables.data)}
+    for f, a, b in zip(type(mk.emb_state)._fields, mk.emb_state, mp.emb_state):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        errs[f] = max_abs_err(a, b) if a.is_floating_point() else \
+            float((a - b).abs().max())
+    changed = int((mk.tables.data != model.tables.data).any(1).sum())
+    zeros = int((mk.tables.data == 0).sum())
+    del mk, mp
+    torch.cuda.empty_cache()
+    emit({"phase": "train_card_parity", "recipe": name,
+          "max_abs_err": errs, "rows_changed": changed,
+          "exact_zeros": zeros, "tolerance": "rtol 1e-6"})
+    return zeros
+
+
 def card_parity(ett, S, G, model, cfg, batch):
     """One SparseSGD and one indexer-AdaGrad step from the same state and the
     same delta (a real backward of `batch`), through the kernels and through
@@ -890,7 +972,9 @@ def stacked_training_phase(ett, S, H, G):
          ett.SparseRowWiseAdaGrad(1e-3, method="indexer"), 1),
         ("adagrad_auto_dense", cfg, ett.SparseRowWiseAdaGrad(1e-3), 0),
         ("bf16_tables_adagrad_sr", cfg16,
-         ett.SparseRowWiseAdaGrad(1e-3, stochastic_rounding=True), 0))
+         ett.SparseRowWiseAdaGrad(1e-3, stochastic_rounding=True), 0),
+        ("lazy_adam", cfg, ett.SparseLazyAdam(1e-3), 0),
+        ("ftrl_l1", cfg, ett.SparseFTRL(0.05, l1=1e-3), 0))
     launches = 0
     for name, rcfg, opt, per_step in recipes:
         r0 = time.perf_counter()
@@ -899,6 +983,13 @@ def stacked_training_phase(ett, S, H, G):
                               sparse_opt=opt)
         if name == "sgd":
             card_parity(ett, S, G, model, rcfg, batches[0])
+        if name in ("lazy_adam", "ftrl_l1"):
+            zeros = card_parity_dense(ett, G, model, rcfg, batches[0], opt,
+                                      name)
+            require(name != "ftrl_l1" or zeros > 0,
+                    "FTRL with l1 > 0 made no exact zeros")
+        # The peak below is the training's: the parity copies come before.
+        torch.cuda.reset_peak_memory_stats()
         S.scatter_add_rows_sorted.launches = 0
         H.hot_accumulate.launches = 0
         res = ett.train_dlrm(rcfg, itertools.cycle(batches), steps,
@@ -923,6 +1014,7 @@ def stacked_training_phase(ett, S, H, G):
               "steps": steps, "losses": losses, "launches": counts,
               "train_dlrm_examples_per_s": res.examples_per_sec,
               **step_times(step, model, batches, gen),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "seconds": time.perf_counter() - r0})
         del model, res, step
         torch.cuda.empty_cache()
@@ -1040,6 +1132,221 @@ def per_table_phase(ett, S, H, gen):
     return hot_total
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the ensemble API
+# ---------------------------------------------------------------------------
+
+def events_ms(fn, reps: int = 3) -> list:
+    """CUDA-event time of each of `reps` calls of `fn`."""
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def ensemble_phase(ett, S, H, G, gen):
+    """maplookup, maplookup_vjp + ensemble_sgd_update, ensemble_update with
+    lazy Adam and FTRL, SplitEmbedding under indexer AdaGrad, and index()
+    on the 26 Criteo Kaggle features (capped at 250,000 rows), B = 65,536.
+    Returns the launches of each kernel in the counted runs."""
+    t0 = time.perf_counter()
+    vocabs = tuple(min(c, VOCAB) for c in CRITEO_KAGGLE_CARDINALITIES)
+    d, nt, pre = 128, len(vocabs), 128
+    base = torch.empty((sum(vocabs), d), device="cuda").uniform_(
+        -1.0, 1.0, generator=gen) / d ** 0.5
+    offs = np.concatenate([[0], np.cumsum(vocabs)]).tolist()
+
+    def fresh():
+        return [ett.SimpleEmbedding(base[offs[j]:offs[j + 1]].clone())
+                for j in range(nt)]
+    (batch,) = criteo_batches(ett, vocabs, 1, SEED + 8)
+    cat = batch["cat"]                                     # (26, B) int32
+    wrappers = {"gather_rows": G.gather_rows, "gather_bags": G.gather_bags,
+                "scatter_add_rows_sorted": S.scatter_add_rows_sorted,
+                "hot_accumulate": H.hot_accumulate}
+    launches = dict.fromkeys(wrappers, 0)
+
+    def counted(fn):
+        """Run `fn` with every launch count set to 0 just before; returns
+        its result and the counts read just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, n in got.items():
+            launches[k] += n
+        return out, got
+
+    # 1. maplookup under PreallocationStrategy(128): a list, a StackedTables,
+    #    and bags of 8; each bitwise the plain path.
+    strat = ett.PreallocationStrategy(prependrows=pre)
+    tables = fresh()
+    fused, got = counted(lambda: ett.maplookup(strat, tables, cat))
+    require(tuple(fused.shape) == (B_TRAIN, pre + nt * d)
+            and fused.dtype == torch.float32, f"fused shape {fused.shape}")
+    require(bool(torch.isfinite(fused).all()), "non-finite maplookup output")
+    require(got["gather_rows"] == nt, f"list maplookup launches {got}")
+    with plain_gathers(G):
+        plain = ett.maplookup(strat, tables, cat)
+    require(torch.equal(bits(fused), bits(plain))
+            and not bool(fused[:, :pre].any()), "list maplookup not bitwise")
+    stacked = ett.StackedTables.stack(tables)
+    fused_st, got = counted(lambda: ett.maplookup(strat, stacked, cat))
+    require(got["gather_rows"] == 1, f"stacked maplookup launches {got}")
+    require(torch.equal(bits(fused_st), bits(plain)),
+            "stacked maplookup not bitwise")
+    # 8,192 bags of 8 per table: the same 65,536 ids per table.
+    bags = torch.stack([torch.randint(0, v, (B_TRAIN // 8, 8), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                        for v in vocabs])
+    fused_b, got = counted(lambda: ett.maplookup(strat, tables, bags))
+    require(got["gather_bags"] == nt and got["gather_rows"] == 0,
+            f"bag maplookup launches {got}")
+    with plain_gathers(G):
+        plain_b = ett.maplookup(strat, tables, bags)
+    torch.testing.assert_close(fused_b, plain_b, rtol=1e-6, atol=0.0)
+    times = {"maplookup_list_ms": events_ms(
+                 lambda: ett.maplookup(strat, tables, cat)),
+             "maplookup_stacked_ms": events_ms(
+                 lambda: ett.maplookup(strat, stacked, cat)),
+             "maplookup_bags8_ms": events_ms(
+                 lambda: ett.maplookup(strat, tables, bags))}
+    del fused, fused_st, fused_b, plain, plain_b, stacked
+    emit({"phase": "ensemble_maplookup", "batch": B_TRAIN, "tables": nt,
+          "rows": sum(vocabs), "out_shape": [B_TRAIN, pre + nt * d],
+          "bitwise": True, "bag8_max_abs_err": 0.0, **times})
+
+    # 2. maplookup_vjp + ensemble_sgd_update(method="dedup"): 26 run-scatter
+    #    launches a step, bitwise the plain run-scatter on the same streams.
+    # Multiples of 2^-13 below 2^-5: every sum of up to 2^16 of them is
+    # exact in f32, in any order, so the kernels' atomics (hot_accumulate)
+    # and index_add_'s give the plain versions' bits.
+    delta = torch.round(64 * torch.randn((B_TRAIN, pre + nt * d),
+                                         generator=gen, device="cuda")
+                        ).clamp(-255, 255) / 8192
+    plain_tables = fresh()
+
+    def sgd_step(ts):
+        _, pull = ett.maplookup_vjp(strat, ts, cat)
+        return ett.ensemble_sgd_update(ts, pull(delta), 0.1, method="dedup",
+                                       indexer=ett.SparseIndexer())
+    _, got = counted(lambda: sgd_step(tables))
+    require(got["scatter_add_rows_sorted"] == nt,
+            f"ensemble_sgd_update launches {got}")
+    with plain_kernels(S, G), plain_gathers(G):
+        sgd_step(plain_tables)
+    require(all(torch.equal(bits(a.data), bits(b.data))
+                for a, b in zip(tables, plain_tables)),
+            "ensemble_sgd_update not bitwise the plain run-scatter")
+    sgd_ms = events_ms(lambda: sgd_step(tables))
+    del plain_tables
+    emit({"phase": "ensemble_sgd_update", "method": "dedup",
+          "indexer": "SparseIndexer", "launches_per_step": got,
+          "bitwise": True, "step_ms": sgd_ms,
+          **kernel_profile(lambda: sgd_step(tables),
+                           statistics.median(sgd_ms), reps=2)})
+
+    # 3. ensemble_update with lazy Adam and FTRL: 9 hot_accumulate and no
+    #    run-scatter launches a step; one step against the plain version.
+    tiny = sum(-(-v // 128) * 128 <= 512 for v in vocabs)
+    for name, opt in (("lazy_adam", ett.SparseLazyAdam(1e-3)),
+                      ("ftrl_l1", ett.SparseFTRL(0.05, l1=1e-3))):
+        tk, tp = fresh(), fresh()
+        states_k = [opt.init(t.data) for t in tk]
+        states_p = [opt.init(t.data) for t in tp]
+
+        def upd_step(ts, states):
+            _, pull = ett.maplookup_vjp(strat, ts, cat)
+            return ett.ensemble_update(opt, ts, pull(delta), states)[1]
+        states_k, got = counted(lambda: upd_step(tk, states_k))
+        require(got["hot_accumulate"] == tiny == 9
+                and got["scatter_add_rows_sorted"] == 0,
+                f"{name} ensemble_update launches {got}")
+        with plain_gathers(G), plain_segsum(H):
+            states_p = upd_step(tp, states_p)
+        torch.cuda.synchronize()
+        # The delta's sums are exact, so the step is bitwise the plain one.
+        for a, b, sa, sb in zip(tk, tp, states_k, states_p):
+            require(torch.equal(bits(a.data), bits(b.data))
+                    and all(torch.equal(x, y) for x, y in zip(sa, sb)),
+                    f"{name} ensemble_update not bitwise the plain version")
+        ms = events_ms(lambda: upd_step(tk, states_k))
+        emit({"phase": "ensemble_update", "optimizer": name,
+              "launches_per_step": got, "bitwise": True, "step_ms": ms,
+              **kernel_profile(lambda: upd_step(tk, states_k),
+                               statistics.median(ms), reps=2)})
+        del tk, tp, states_k, states_p
+    torch.cuda.empty_cache()
+
+    # 4. The six features of VOCAB rows as SplitEmbeddings of SHARD_ROWS-row
+    #    shards (4 each, the last ragged) under indexer AdaGrad: 4 run-scatter
+    #    launches a table, against the same update on SimpleEmbeddings.
+    big = [j for j, v in enumerate(vocabs) if v == VOCAB]
+    require(len(big) == 6, f"{len(big)} features of {VOCAB} rows")
+    opt = ett.SparseRowWiseAdaGrad(1e-2, method="indexer")
+    splits = [ett.SplitEmbedding(base[offs[j]:offs[j + 1]], SHARD_ROWS)
+              for j in big]
+    require(all(s.nshards == 4 and s.shards[-1].shape[0] == VOCAB - 3 * SHARD_ROWS
+                for s in splits), "split shapes")
+    simples = [ett.SimpleEmbedding(base[offs[j]:offs[j + 1]].clone())
+               for j in big]
+    # Unrounded deltas: the shards' streams cut the run-scatter's windows
+    # elsewhere than the whole tables' do, so the f32 sums differ in order.
+    upds = [ett.SparseEmbeddingUpdate(
+        delta=1e-2 * torch.randn((B_TRAIN, d), generator=gen, device="cuda"),
+        indices=cat[j]) for j in big]
+    (_, split_states), got = counted(
+        lambda: ett.ensemble_update(opt, splits, upds))
+    require(got["scatter_add_rows_sorted"] == 4 * len(big),
+            f"split ensemble_update launches {got}")
+    _, simple_states = ett.ensemble_update(opt, simples, upds)
+    err = 0.0
+    for sp, si, a, b in zip(splits, simples, split_states, simple_states):
+        torch.testing.assert_close(sp.materialize(), si.data, rtol=1e-6,
+                                   atol=1e-7)
+        torch.testing.assert_close(a.accum, b.accum, rtol=1e-6, atol=0.0)
+        err = max(err, max_abs_err(sp.materialize(), si.data))
+    split_ms = events_ms(lambda: ett.ensemble_update(opt, splits, upds,
+                                                     split_states))
+    simple_ms = events_ms(lambda: ett.ensemble_update(opt, simples, upds,
+                                                      simple_states))
+    emit({"phase": "ensemble_split", "tables": len(big), "rows": VOCAB,
+          "rows_per_shard": SHARD_ROWS, "shards": 4,
+          "launches_per_step": got, "max_abs_err_vs_simple": err,
+          "tolerance": "rtol 1e-6", "split_step_ms": split_ms,
+          "simple_step_ms": simple_ms})
+    del splits, simples, upds, split_states, simple_states
+
+    # 5. index() on the card, for the record: one feature and the stacked
+    #    stream.
+    stacked_ids = (cat + torch.tensor(offs[:-1], device="cuda",
+                                      dtype=torch.int32)[:, None]).reshape(-1)
+    idx_times = []
+    for label, ids, v in (("one_feature", cat[big[0]], VOCAB),
+                          ("stacked", stacked_ids, sum(vocabs))):
+        for ix in (ett.SparseIndexer(), ett.DenseIndexer()):
+            res = ett.index(ids, vocab=v, indexer=ix)
+            idx_times.append({
+                "stream": label, "n": ids.numel(), "vocab": v,
+                "indexer": type(ix).__name__,
+                "num_unique": int(res.num_unique),
+                "ms": statistics.median(events_ms(
+                    lambda: ett.index(ids, vocab=v, indexer=ix), reps=5))})
+    emit({"phase": "ensemble_index", "rows": idx_times})
+    del base, delta, tables, batch, cat, bags
+    torch.cuda.empty_cache()
+    emit({"phase": "ensemble_done", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1081,6 +1388,10 @@ def main() -> int:
         per_table_phase(ett, S, H, gen)
         print(card_line(), flush=True)
         return 0
+    if "--ensemble" in sys.argv[1:]:
+        ensemble_phase(ett, S, H, G, gen)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -1109,17 +1420,20 @@ def main() -> int:
     timings.update(update_timings)
     scatter_launches = stacked_training_phase(ett, S, H, G)
     hot_launches = per_table_phase(ett, S, H, gen)
+    ens = ensemble_phase(ett, S, H, G, gen)
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
     paths = {
-        "gather_rows": (serve_launches["gather_rows"], "gather.cu",
-                        "gather.py:116"),
-        "gather_bags": (bag_launches["gather_bags"], "gather.cu",
-                        "gather.py:258"),
-        "scatter_add_rows_sorted": (scatter_launches, "scatter.cu",
-                                    "scatter.py:144"),
-        "hot_accumulate": (hot_launches, "segsum.cu", "segsum.py:135")}
+        "gather_rows": (serve_launches["gather_rows"] + ens["gather_rows"],
+                        "gather.cu", "gather.py:116"),
+        "gather_bags": (bag_launches["gather_bags"] + ens["gather_bags"],
+                        "gather.cu", "gather.py:258"),
+        "scatter_add_rows_sorted": (
+            scatter_launches + ens["scatter_add_rows_sorted"], "scatter.cu",
+            "scatter.py:144"),
+        "hot_accumulate": (hot_launches + ens["hot_accumulate"], "segsum.cu",
+                           "segsum.py:135")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source,
          "replaces": pallas + where, "launches": launches,

@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .models.dlrm import DLRM, DLRMConfig
+from .models.dlrm import _STATE_TYPES, DLRM, DLRMConfig
 from .ops.ensemble import StackedTables
 from .optim import SparseOptState
+
+_STATES = {c._fields: c for c in _STATE_TYPES}
 
 
 def tensor_from_array(arr, device) -> torch.Tensor:
@@ -30,13 +32,18 @@ def tensor_from_array(arr, device) -> torch.Tensor:
 
 def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
                      table_data, offsets: Sequence[int],
-                     device=None, emb_accum=None) -> DLRM:
+                     device=None, emb_accum=None, emb_state=None) -> DLRM:
     """Build the port's `DLRM` on `device` (CUDA unless given) from numpy
     arrays: `bottom`/`top` are lists of `(W (fan_in, fan_out), b)` pairs,
     `table_data` the stacked `(sum V, dim)` table, `offsets` its T+1 row
-    offsets, and `emb_accum` the row-wise-AdaGrad accumulator `(sum V,)`
-    (None: SGD's empty state), so both packages train from one state."""
+    offsets, and the sparse optimizer's state, so both packages train from
+    one state. `emb_accum` is the row-wise-AdaGrad accumulator `(sum V,)`;
+    `emb_state` any optimizer state with named fields (a NamedTuple such as
+    the JAX package's, or a dict): `accum`; `m`, `v`, `count` (lazy Adam);
+    or `z`, `n` (FTRL). Neither: SGD's empty state."""
     device = resolve_device(device)
+    if emb_accum is not None and emb_state is not None:
+        raise ValueError("pass emb_accum= or emb_state=, not both")
 
     def mlp(layers):
         return [(tensor_from_array(w, device), tensor_from_array(b, device))
@@ -46,4 +53,13 @@ def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
                            tuple(offsets), cfg.dim)
     state = None if emb_accum is None else \
         SparseOptState(accum=tensor_from_array(emb_accum, device))
+    if emb_state is not None:
+        fields = (emb_state if isinstance(emb_state, dict)
+                  else emb_state._asdict())
+        cls = _STATES.get(tuple(fields))
+        if cls is None:
+            raise ValueError(f"no optimizer state has the fields "
+                             f"{tuple(fields)}")
+        state = cls(**{k: tensor_from_array(v, device)
+                       for k, v in fields.items()})
     return DLRM(cfg, mlp(bottom), mlp(top), tables, state)

@@ -30,7 +30,8 @@ from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..ops.lookup import lookup
 from ..ops.sparse_update import SparseEmbeddingUpdate
-from ..optim import SparseOptState, SparseSGD, apply_dense_tx
+from ..optim import (SparseAdamState, SparseFTRLState, SparseOptState,
+                     SparseSGD, apply_dense_tx)
 from ..tables import SimpleEmbedding
 
 
@@ -97,13 +98,19 @@ def _pairs(params: nn.ParameterList):
     return [(p[i], p[i + 1]) for i in range(0, len(p), 2)]
 
 
+# The sparse optimizers' state types; `DLRM` keeps each field as a buffer
+# named `emb_<field>` (SGD and AdaGrad: `emb_accum`).
+_STATE_TYPES = (SparseOptState, SparseAdamState, SparseFTRLState)
+
+
 class DLRM(nn.Module):
     """Dense towers as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
     the stacked embedding ensemble, and the sparse optimizer's row state
-    (`emb_state`; a zero-size accumulator for SGD)."""
+    (`emb_state`: a `SparseOptState`, with a zero-size accumulator for SGD,
+    a `SparseAdamState` or a `SparseFTRLState`), held as buffers."""
 
     def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables,
-                 emb_state: SparseOptState | None = None):
+                 emb_state=None):
         super().__init__()
         self.config = config
         self.bottom_params = nn.ParameterList(
@@ -113,15 +120,26 @@ class DLRM(nn.Module):
         self.tables = tables
         if emb_state is None:
             emb_state = SparseSGD().init(tables.data)
-        self.register_buffer("emb_accum", emb_state.accum)
+        if type(emb_state) not in _STATE_TYPES:
+            raise TypeError(f"emb_state must be one of "
+                            f"{[c.__name__ for c in _STATE_TYPES]}, got "
+                            f"{type(emb_state).__name__}")
+        self._state_type = type(emb_state)
+        for name, value in zip(emb_state._fields, emb_state):
+            self.register_buffer("emb_" + name, value)
 
     @property
-    def emb_state(self) -> SparseOptState:
-        return SparseOptState(accum=self.emb_accum)
+    def emb_state(self):
+        cls = self._state_type
+        return cls(*[getattr(self, "emb_" + f) for f in cls._fields])
 
     @emb_state.setter
-    def emb_state(self, state: SparseOptState) -> None:
-        self.emb_accum = state.accum
+    def emb_state(self, state) -> None:
+        if type(state) is not self._state_type:
+            raise TypeError(f"the model holds a {self._state_type.__name__}, "
+                            f"got a {type(state).__name__}")
+        for name, value in zip(state._fields, state):
+            setattr(self, "emb_" + name, value)
 
     @property
     def bottom(self):
@@ -440,13 +458,15 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
     `step(model, dense, cat, label, lr=None, generator=None) -> loss`.
 
     It updates `model` in place (the port's counterpart of JAX's donated
-    model): the towers by plain SGD at `dense_lr`, the stacked table and its
-    row state by ONE `sparse_opt.apply` (default `SparseSGD()`) of the lazy
-    `(delta, indices)` update. The table is read by the forward lookup before
-    the update writes it (one stream, in order). `lr` overrides
-    `sparse_opt.lr` for this step; `generator` feeds stochastic rounding and
-    is required when `sparse_opt.stochastic_rounding` is set. `dense_tx` and
-    `microbatch` are not ported yet."""
+    model): the stacked table and its row state by ONE `sparse_opt.apply`
+    (default `SparseSGD()`; also `SparseRowWiseAdaGrad`, `SparseLazyAdam`,
+    `SparseFTRL`) of the lazy `(delta, indices)` update, then the towers by
+    plain SGD at `dense_lr`. The table is read by the forward lookup before
+    the update writes it (one stream, in order), and an `apply` that refuses
+    the step (FTRL given another `lr`) leaves the model as it was. `lr`
+    overrides `sparse_opt.lr` for this step; `generator` feeds stochastic
+    rounding and is required when `sparse_opt.stochastic_rounding` is set.
+    `dense_tx` and `microbatch` are not ported yet."""
     if dense_tx is not None:
         raise NotImplementedError(
             "dense_tx waits for the port's torch.optim support")
@@ -478,7 +498,6 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
             loss = bce_loss(logits, label)
             *dense_grads, delta_t = torch.autograd.grad(loss,
                                                         params + [emb_t])
-        apply_dense_tx(params, dense_grads, None, None, dense_lr)
         w = stacked_update_weights(valid, cfg.combiner, flat.shape)
         upd = SparseEmbeddingUpdate(
             delta=delta_t.reshape(-1, cfg.dim).float(), indices=flat,
@@ -486,6 +505,7 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
         kw = {"generator": generator} if use_sr else {}
         tables.data, model.emb_state = sparse_opt.apply(
             tables.data, upd, model.emb_state, lr=lr, **kw)
+        apply_dense_tx(params, dense_grads, None, None, dense_lr)
         return loss.detach()
 
     return step

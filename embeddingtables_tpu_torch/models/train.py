@@ -18,6 +18,7 @@ import torch
 
 from ..config import resolve_device
 from ..metrics import auc
+from ..optim import SparseFTRL
 from .dlrm import DLRMConfig, init_dlrm, make_eval_step, make_train_step
 
 # Options of the JAX `train_dlrm` that the port does not have yet, with the
@@ -68,7 +69,9 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     `device` (CUDA unless given) from `seed`. `lr_schedule(step)` sets the
     sparse optimizer's lr per step. `losses` holds the loss at every
     `log_every`-th step and the last; `aucs` the eval AUC every `eval_every`
-    steps. The options of `_NOT_PORTED` raise when set."""
+    steps. The options of `_NOT_PORTED` raise when set, and so does an
+    `lr_schedule` with `SparseFTRL` (alpha is baked into its state), before
+    the first step, as the JAX loop's first step does."""
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"train_dlrm() got an unexpected keyword "
@@ -76,6 +79,10 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
         if value != _NOT_PORTED[name]:
             raise NotImplementedError(
                 f"train_dlrm({name}=...) is not ported yet")
+    if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
+        raise ValueError(
+            "SparseFTRL cannot change lr per step: alpha is baked into the "
+            "accumulated z state, so it takes no lr_schedule")
     if model is None:
         device = resolve_device(device)
         model = init_dlrm(cfg, torch.Generator(device=device).manual_seed(seed),

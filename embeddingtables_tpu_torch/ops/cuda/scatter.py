@@ -16,6 +16,9 @@ Counterpart of `embeddingtables_tpu/ops/pallas/scatter.py`:
     of the rows, a permute of the values with `gather_rows`, then the
     run-scatter. Equal to `table.index_add_(0, rows, scale * vals)` up to
     the order of the float32 additions.
+  - `scatter_sgd(table, delta, idx_result, cols, lr)`: the SGD step of an
+    indexer result, `table[r] -= lr * sum delta[cols[k]]` over the
+    occurrences k of r, each occurrence's row being `unique[group_of[k]]`.
 
 The order of the float32 additions: pieces at run starts and at multiples of
 `RUN_WINDOW` (L) positions, each summed in stream order, then each run's
@@ -194,6 +197,19 @@ def scatter_update(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                               perm.to(torch.int32))
     return scatter_add_rows_sorted(table, sorted_rows, sorted_vals, scale,
                                    accum=accum, eps=eps)
+
+
+def scatter_sgd(table: torch.Tensor, delta: torch.Tensor, idx_result,
+                cols: torch.Tensor, lr) -> torch.Tensor:
+    """Fused sparse SGD from an `IndexerResult` and the occurrences' delta
+    columns (`flatten_indices`), in place through `scatter_update`; returns
+    `table`. Rows < 0 are padding and rows >= V are dropped, as in JAX's
+    `scatter_sgd`: the indexer's `unique` folds every id below -1 into -1,
+    so a negative id cannot be resolved from the result."""
+    rows = idx_result.unique[idx_result.group_of.long()]
+    vals = delta.float().index_select(0, cols.to(delta.device).long())
+    return scatter_update(table, rows.to(table.device),
+                          vals.to(table.device), -float(lr))
 
 
 scatter_add_rows_sorted.launches = 0

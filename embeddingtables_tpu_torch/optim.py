@@ -1,7 +1,9 @@
 """Sparse optimizers: fused, dedup-correct row updates for embedding tables
 (counterpart of `embeddingtables_tpu/optim.py`).
 
-`SparseSGD` and `SparseRowWiseAdaGrad` (one f32 accumulator per row) apply a
+`SparseSGD`, `SparseRowWiseAdaGrad` (one f32 accumulator per row),
+`SparseLazyAdam` (f32 moments `m`, `v` per coordinate and a global step
+count) and `SparseFTRL` (FTRL-Proximal: f32 `z`, `n` per coordinate) apply a
 lazy `SparseEmbeddingUpdate` to a `(V, D)` table. Each unique row is written
 once and its state advanced once per step. Two realizations, chosen as the
 JAX package chooses them, so both packages take the same branch for the same
@@ -10,16 +12,17 @@ call:
   - the run-scatter (`ops/cuda/scatter.py`): SGD without regularization, and
     AdaGrad's "indexer" method. Ids follow JAX's `.at[]` contract: `[-V, 0)`
     wraps, other out-of-range ids are dropped.
-  - the dense realization (`sgd_dense_body`, `adagrad_dense_body`): a `(V, D)`
-    f32 gradient from `_dense_grad`, then one elementwise pass. It carries
+  - the dense realization (`sgd_dense_body`, `adagrad_dense_body`,
+    `adam_dense_body`, `ftrl_dense_body`): a `(V, D)` f32 gradient from
+    `_dense_grad`, then elementwise passes. It carries Adam and FTRL,
     `weight_decay`, `clipnorm`, stochastic rounding and `dense_grad_dtype`,
     and takes tables of at most `_SEGSUM_MAX_VPAD` padded rows through
     `hot_accumulate`.
 
-`apply` updates the table (and AdaGrad's accumulator) in place and returns
-them: the port's counterpart of JAX's donated buffers. Where JAX's `apply`
-takes a PRNG `key=` for stochastic rounding, the port takes a
-`torch.Generator` as `generator=`.
+`apply` updates the table and the row state in place and returns them: the
+port's counterpart of JAX's donated buffers (Adam's `count` comes back as a
+new 0-d int32 tensor). Where JAX's `apply` takes a PRNG `key=` for
+stochastic rounding, the port takes a `torch.Generator` as `generator=`.
 """
 from __future__ import annotations
 
@@ -41,6 +44,24 @@ class SparseOptState(NamedTuple):
     AdaGrad, or a zero-size placeholder for stateless SGD."""
 
     accum: torch.Tensor
+
+
+class SparseAdamState(NamedTuple):
+    """Lazy-Adam state: `(vocab, dim)` f32 first and second moments (two
+    distinct buffers) and the global step count, a 0-d int32 tensor (bias
+    correction uses the global step, the TF-LazyAdam convention)."""
+
+    m: torch.Tensor
+    v: torch.Tensor
+    count: torch.Tensor
+
+
+class SparseFTRLState(NamedTuple):
+    """FTRL-Proximal state: `(vocab, dim)` f32 accumulated adjusted gradient
+    `z` and squared-gradient sum `n` (McMahan et al. 2013, Alg. 1)."""
+
+    z: torch.Tensor
+    n: torch.Tensor
 
 
 def _occurrence_grads(upd: SparseEmbeddingUpdate, row_offset: int = 0):
@@ -151,6 +172,73 @@ def adagrad_dense_body(data, accum, rows, g, lr, eps,
     return data.copy_(out), accum
 
 
+def adam_dense_body(data, m, v, t, rows, g, lr, b1, b2, eps,
+                    weight_decay: float = 0.0,
+                    clipnorm: Optional[float] = None, generator=None,
+                    grad_dtype=None):
+    """Lazy Adam through the dense gradient, in place: returns
+    `(data, m, v)`. `t` is the global step (an int or a 0-d tensor). Touched
+    rows advance their moments and take a step; untouched rows are exact
+    fixed points. `weight_decay` is decoupled (AdamW-style) and lazy."""
+    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    touched = _touched(grad)[:, None]
+    m.copy_(torch.where(touched, b1 * m + (1 - b1) * grad, m))
+    v.copy_(torch.where(touched, b2 * v + (1 - b2) * grad * grad, v))
+    tf = t.float() if torch.is_tensor(t) else float(t)
+    mhat = m / (1 - b1 ** tf)
+    vhat = v / (1 - b2 ** tf)
+    step = lr * mhat / (torch.sqrt(vhat) + eps)
+    new = data.float() - torch.where(touched, step, 0.0)
+    if weight_decay != 0.0:
+        new = new * torch.where(touched, 1.0 - lr * weight_decay, 1.0)
+    out = stochastic_cast(new, data.dtype, generator)
+    if generator is not None:
+        out = torch.where(touched, out, data)
+    return data.copy_(out), m, v
+
+
+def ftrl_init_arrays(data, alpha, beta, l1, l2, initial_accum):
+    """`(z0, n0)` that reproduce `data` under FTRL's closed form:
+    `z0 = -w0 * ((beta + sqrt(n0)) / alpha + l2) - sign(w0) * l1` (zero
+    where `w0` is zero), so the first touch of a row does not snap it to
+    the l1-shrunk origin."""
+    w0 = data.float()
+    n0 = torch.full(data.shape, initial_accum, dtype=torch.float32,
+                    device=data.device)
+    denom = (beta + torch.sqrt(n0)) / alpha + l2
+    z0 = torch.where(w0 != 0.0, -w0 * denom - torch.sign(w0) * l1, 0.0)
+    return z0, n0
+
+
+def ftrl_dense_body(data, z, n, rows, g, alpha, beta, l1, l2,
+                    clipnorm: Optional[float] = None, generator=None,
+                    grad_dtype=None):
+    """FTRL-Proximal through the dense gradient, in place: returns
+    `(data, z, n)`. Per touched row, per coordinate:
+
+        n' = n + g^2
+        z' = z + g - ((sqrt(n') - sqrt(n)) / alpha) * w
+        w' = 0                                  if |z'| <= l1
+             -(z' - sign(z') * l1) / ((beta + sqrt(n')) / alpha + l2)  else
+
+    Untouched rows are exact fixed points; `l1` gives exact zeros. On bf16
+    tables the recomputed weights of a touched row re-round."""
+    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    touched = _touched(grad)[:, None]
+    w = data.float()
+    new_n = n + grad * grad
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / alpha
+    z.copy_(torch.where(touched, z + grad - sigma * w, z))
+    n.copy_(torch.where(touched, new_n, n))
+    del new_n, sigma
+    denom = (beta + torch.sqrt(n)) / alpha + l2
+    w_new = torch.where(torch.abs(z) > l1, -(z - torch.sign(z) * l1) / denom,
+                        0.0)
+    out = stochastic_cast(torch.where(touched, w_new, w), data.dtype,
+                          generator)
+    return data.copy_(torch.where(touched, out, data)), z, n
+
+
 @torch.no_grad()
 def apply_dense_tx(params, grads, dense_tx, state, lr):
     """Tower update: plain SGD `p -= lr * g` in place when `dense_tx` is
@@ -238,10 +326,10 @@ class SparseRowWiseAdaGrad:
               state: SparseOptState, *, row_offset: int = 0, lr=None,
               idx_result=None, method: str | None = None,
               generator: torch.Generator | None = None):
-        """One step, in place; returns `(data, state)`."""
-        if idx_result is not None:
-            raise NotImplementedError(
-                "idx_result= waits for the port's ops/indexer.py")
+        """One step, in place; returns `(data, state)`. With `idx_result`
+        (an `IndexerResult` of the update's ids) "auto" takes the indexer
+        method; its rows are the update's own ids either way, since the
+        run-scatter dedups them itself."""
         lr = self.lr if lr is None else lr
         rows, g = _occurrence_grads(upd, row_offset)
         method = method or self.method
@@ -253,6 +341,8 @@ class SparseRowWiseAdaGrad:
         if method == "auto":
             if regularized or self.dense_grad_dtype is not None:
                 method = "dense"
+            elif idx_result is not None:
+                method = "indexer"
             else:
                 method = ("dense" if rows.numel() * 16 >= data.shape[0]
                           else "indexer")
@@ -273,8 +363,101 @@ class SparseRowWiseAdaGrad:
         if self.dense_grad_dtype is not None:
             raise ValueError("dense_grad_dtype applies to the dense method "
                              "only; the indexer method sums in f32")
-        scatter_update(data, resolve_rows(rows, data.shape[0]), g.float(),
-                       -float(lr), accum=state.accum, eps=self.eps)
+        scatter_update(data, resolve_rows(rows, data.shape[0]), g.float(), -float(lr), accum=state.accum,
+                       eps=self.eps)
+        return data, state
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseLazyAdam:
+    """Lazy Adam: moments and rows advance only for the rows touched this
+    step (a strict Adam would decay every row's moments every step).
+
+        m_r = b1*m_r + (1-b1)*g_r         (touched rows only)
+        v_r = b2*v_r + (1-b2)*g_r^2
+        row_r -= lr * (m_r/(1-b1^t)) / (sqrt(v_r/(1-b2^t)) + eps)
+
+    Realized through the dense gradient (`adam_dense_body`). Memory: two
+    table-sized f32 buffers. weight_decay (decoupled) and per-row clipnorm
+    apply to touched rows only; stochastic_rounding needs
+    `apply(generator=...)`."""
+
+    lr: float = 0.001
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clipnorm: Optional[float] = None
+    stochastic_rounding: bool = False
+    dense_grad_dtype: Optional[str] = None
+
+    def init(self, data: torch.Tensor) -> SparseAdamState:
+        return SparseAdamState(
+            m=torch.zeros(data.shape, dtype=torch.float32, device=data.device),
+            v=torch.zeros(data.shape, dtype=torch.float32, device=data.device),
+            count=torch.zeros((), dtype=torch.int32, device=data.device))
+
+    def apply(self, data: torch.Tensor, upd: SparseEmbeddingUpdate,
+              state: SparseAdamState, *, row_offset: int = 0, lr=None,
+              generator: torch.Generator | None = None):
+        """One step, in place; returns `(data, state)`."""
+        lr = self.lr if lr is None else lr
+        if self.stochastic_rounding and generator is None:
+            raise ValueError(
+                "stochastic_rounding=True needs apply(generator=...)")
+        rows, g = _occurrence_grads(upd, row_offset)
+        t = state.count + 1
+        adam_dense_body(
+            data, state.m, state.v, t, rows, g, lr, self.b1, self.b2,
+            self.eps, self.weight_decay, self.clipnorm,
+            generator=generator if self.stochastic_rounding else None,
+            grad_dtype=self.dense_grad_dtype)
+        return data, SparseAdamState(m=state.m, v=state.v, count=t)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseFTRL:
+    """FTRL-Proximal (McMahan et al. 2013; TF `FtrlOptimizer` semantics):
+    per-coordinate adaptive rates and l1/l2 regularization with exact
+    zeros. `lr` is FTRL's alpha.
+
+    The weight is a closed form of the state, so `init(data)` solves for the
+    `z` that reproduces the table exactly (`ftrl_init_arrays`), and `apply`
+    refuses a per-step `lr` other than the built one: alpha is baked into
+    the accumulated `z`. Lazy: only touched rows advance. On bf16 tables a
+    touched row's untouched coordinates re-round, so keep FTRL tables f32."""
+
+    lr: float = 0.05
+    beta: float = 1.0
+    l1: float = 0.0
+    l2: float = 0.0
+    initial_accum: float = 0.0
+    clipnorm: Optional[float] = None
+    stochastic_rounding: bool = False
+    dense_grad_dtype: Optional[str] = None
+
+    def init(self, data: torch.Tensor) -> SparseFTRLState:
+        return SparseFTRLState(*ftrl_init_arrays(
+            data, self.lr, self.beta, self.l1, self.l2, self.initial_accum))
+
+    def apply(self, data: torch.Tensor, upd: SparseEmbeddingUpdate,
+              state: SparseFTRLState, *, row_offset: int = 0, lr=None,
+              generator: torch.Generator | None = None):
+        """One step, in place; returns `(data, state)`."""
+        if lr is not None and lr != self.lr:
+            raise ValueError(
+                "SparseFTRL cannot change lr per step: alpha is baked into "
+                "the accumulated z state. Build a new SparseFTRL and "
+                "re-init (or keep lr fixed).")
+        if self.stochastic_rounding and generator is None:
+            raise ValueError(
+                "stochastic_rounding=True needs apply(generator=...)")
+        rows, g = _occurrence_grads(upd, row_offset)
+        ftrl_dense_body(
+            data, state.z, state.n, rows, g, self.lr, self.beta, self.l1,
+            self.l2, self.clipnorm,
+            generator=generator if self.stochastic_rounding else None,
+            grad_dtype=self.dense_grad_dtype)
         return data, state
 
 

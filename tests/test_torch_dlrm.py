@@ -25,6 +25,8 @@ from embeddingtables_tpu.models.dlrm import dlrm_forward as jax_forward
 from embeddingtables_tpu.models.dlrm import dot_interaction as jax_dot
 import embeddingtables_tpu_torch as ett
 from embeddingtables_tpu_torch.models import dlrm as P
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -16,6 +16,8 @@ from embeddingtables_tpu.ops.pallas.gather import gather_bags as jax_gather_bags
 from embeddingtables_tpu.ops.pallas.gather import gather_rows as jax_gather_rows
 from embeddingtables_tpu_torch.interop import tensor_from_array
 from embeddingtables_tpu_torch.ops.cuda import gather as G
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 V = 96
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

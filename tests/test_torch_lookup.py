@@ -21,6 +21,8 @@ import embeddingtables_tpu_torch as ett
 from embeddingtables_tpu_torch.interop import tensor_from_array
 from embeddingtables_tpu_torch.models.dlrm import (embedding_forward,
                                                   stacked_flat_indices)
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 V, D, B, BAG = 40, 16, 12, 4
 TOL = {"float32": dict(rtol=1e-6, atol=1e-6),

@@ -1,13 +1,15 @@
 """The port's sparse optimizers and stochastic rounding against the JAX
 package's, on the same numpy inputs on the CPU.
 
-`SparseSGD` and `SparseRowWiseAdaGrad` run on tables on both sides of the
-512-padded-row line (`hot_accumulate` below it, the scatter above), with
-weighted, mean and padded bags, regularizers, a bf16 gradient scratch, and
-ids outside the vocabulary. Tolerance: rtol/atol 1e-5, the order of f32
-additions (run-scatter or `index_add_` here, XLA's scatter or a one-hot
-matmul there); 1e-3 where both sides accumulate in a bf16 scratch, whose
-partial sums round (2^-9 relative each) in different orders.
+`SparseSGD`, `SparseRowWiseAdaGrad`, `SparseLazyAdam` and `SparseFTRL` run on
+tables on both sides of the 512-padded-row line (`hot_accumulate` below it,
+the scatter above), with weighted, mean and padded bags, regularizers, a
+bf16 gradient scratch, and ids outside the vocabulary. Tolerance: rtol/atol
+1e-5, the order of f32 additions (run-scatter or `index_add_` here, XLA's
+scatter or a one-hot matmul there); 1e-3 where both sides accumulate in a
+bf16 scratch, whose partial sums round (2^-9 relative each) in different
+orders. Adam and FTRL are held over three steps (JAX jitted, one program
+per optimizer and shape) to rtol/atol 1e-5 as well.
 
 Stochastic rounding draws its noise from a `torch.Generator`, which cannot
 reproduce JAX's bits, so it is held to its properties, as
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import embeddingtables_tpu as et
@@ -30,6 +33,8 @@ from embeddingtables_tpu_torch.ops.cuda import scatter as S
 from embeddingtables_tpu_torch.ops.cuda import segsum as H
 from embeddingtables_tpu_torch.rounding import (stochastic_cast,
                                                 stochastic_round_to_bf16)
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 D, B, BAG = 128, 24, 3
 
@@ -154,16 +159,121 @@ def test_the_same_value_errors_as_jax():
 
 
 def test_what_waits_for_the_indexer_raises():
-    data = torch.zeros((1000, D))
-    upd = ett.SparseEmbeddingUpdate(delta=torch.ones((2, D)),
-                                    indices=torch.tensor([1, 2]))
-    opt = P.SparseRowWiseAdaGrad()
-    with pytest.raises(NotImplementedError, match="indexer"):
-        opt.apply(data, upd, opt.init(data), idx_result=object())
+    # idx_result= no longer waits: "auto" takes the indexer method with it
+    # (JAX: `optim.py` SparseRowWiseAdaGrad).
+    v = 1000
+    rng = np.random.default_rng(6)
+    arr = rng.standard_normal((v, D)).astype(np.float32)
+    idx = np.array([5, 5, 9, 700, 9, 5], np.int32)
+    delta = rng.standard_normal((6, D)).astype(np.float32)
+    jopt = J.SparseRowWiseAdaGrad(lr=0.3)
+    jdata, jstate = jax.jit(lambda d, u, s: jopt.apply(
+        d, u, s, idx_result=et.index(u.indices)))(
+        jnp.asarray(arr), et.SparseEmbeddingUpdate(
+            delta=jnp.asarray(delta), indices=jnp.asarray(idx)),
+        jopt.init(jnp.asarray(arr)))
+    data = torch.from_numpy(arr.copy())
+    upd = ett.SparseEmbeddingUpdate(delta=torch.from_numpy(delta),
+                                    indices=torch.from_numpy(idx))
+    opt = P.SparseRowWiseAdaGrad(lr=0.3)
+    state = opt.init(data)
+    calls = S.scatter_add_rows_sorted.launches
+    opt.apply(data, upd, state, idx_result=ett.index(upd.indices))
+    np.testing.assert_allclose(data.numpy(), np.asarray(jdata), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(state.accum.numpy(), np.asarray(jstate.accum),
+                               rtol=1e-5, atol=1e-7)
+    assert calls == S.scatter_add_rows_sorted.launches      # CPU: plain
     # A port-side choice: JAX silently ignores the scratch dtype here.
     opt = P.SparseRowWiseAdaGrad(method="indexer", dense_grad_dtype="bfloat16")
     with pytest.raises(ValueError, match="dense method only"):
         opt.apply(data, upd, opt.init(data))
+
+
+ZOO = {
+    # name: (JAX optimizer, port optimizer)
+    "lazy_adam_decay_clip": (
+        J.SparseLazyAdam(lr=0.05, weight_decay=0.1, clipnorm=0.5),
+        P.SparseLazyAdam(lr=0.05, weight_decay=0.1, clipnorm=0.5)),
+    "ftrl": (J.SparseFTRL(lr=0.1), P.SparseFTRL(lr=0.1)),
+    "ftrl_l1_l2_clip": (J.SparseFTRL(lr=0.1, l1=0.05, l2=0.1, clipnorm=2.0,
+                                     initial_accum=0.1),
+                        P.SparseFTRL(lr=0.1, l1=0.05, l2=0.1, clipnorm=2.0,
+                                     initial_accum=0.1)),
+}
+
+
+@pytest.mark.parametrize("v", [300, 1000])
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_adam_and_ftrl_match_jax_over_three_steps(name, v):
+    """A one-hot step, a bag step and a one-hot step, with ids outside the
+    vocabulary: V = 300 takes `hot_accumulate`'s plain version, V = 1000 the
+    `index_add_` scratch. The state is updated in place; Adam's count is a
+    0-d int32 tensor."""
+    jopt, popt = ZOO[name]
+    rng = np.random.default_rng(v + len(name))
+    arr = (0.1 * rng.standard_normal((v, D))).astype(np.float32)
+    jdata = jnp.asarray(arr)
+    jstate = jopt.init(jdata)
+    jstep = jax.jit(lambda d, u, s: jopt.apply(d, u, s))
+    data = torch.from_numpy(arr.copy())
+    state = popt.init(data)
+    leaves = [t.data_ptr() for t in state if t.dim()]
+    for kind in ("rows", "bags", "rows"):
+        jupd, pupd = _update(rng, v, kind, wrap_ids=True)
+        jdata, jstate = jstep(jdata, jupd, jstate)
+        got, state = popt.apply(data, pupd, state)
+        assert got is data
+    assert [t.data_ptr() for t in state if t.dim()] == leaves  # in place
+    np.testing.assert_allclose(data.numpy(), np.asarray(jdata), rtol=1e-5,
+                               atol=1e-5)
+    for p, j in zip(state, jstate):
+        assert p.dtype == torch.float32 or p.dtype == torch.int32
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)
+    if "ftrl" in name and "l1" in name:
+        assert int((data == 0).sum()) > 0              # l1: exact zeros
+
+
+def test_ftrl_init_reproduces_the_table_and_untouched_rows_stay():
+    rng = np.random.default_rng(2)
+    arr = rng.standard_normal((60, 8)).astype(np.float32)
+    opt = P.SparseFTRL(lr=0.05, l1=0.2, l2=0.3, initial_accum=0.1)
+    z0, n0 = P.ftrl_init_arrays(torch.from_numpy(arr), 0.05, 1.0, 0.2, 0.3,
+                                0.1)
+    jz0, jn0 = J.ftrl_init_arrays(jnp.asarray(arr), 0.05, 1.0, 0.2, 0.3, 0.1)
+    np.testing.assert_array_equal(z0.numpy(), np.asarray(jz0))
+    np.testing.assert_array_equal(n0.numpy(), np.asarray(jn0))
+    # The closed form of (z0, n0) gives the table back.
+    denom = (1.0 + torch.sqrt(n0)) / 0.05 + 0.3
+    back = torch.where(z0.abs() > 0.2, -(z0 - torch.sign(z0) * 0.2) / denom,
+                       0.0)
+    np.testing.assert_allclose(back.numpy(), arr, rtol=1e-5, atol=1e-6)
+    data = torch.from_numpy(arr.copy())
+    idx = rng.integers(0, 10, 32).astype(np.int32)
+    delta = rng.standard_normal((32, 8)).astype(np.float32)
+    opt.apply(data, ett.SparseEmbeddingUpdate(
+        delta=torch.from_numpy(delta), indices=torch.from_numpy(idx)),
+        opt.init(data))
+    assert torch.equal(data[10:], torch.from_numpy(arr[10:]))
+    assert not torch.equal(data[:10], torch.from_numpy(arr[:10]))
+
+
+def test_ftrl_refuses_another_lr():
+    opt = P.SparseFTRL(lr=0.05)
+    data = torch.ones((4, 2))
+    state = opt.init(data)
+    upd = ett.SparseEmbeddingUpdate(delta=torch.full((1, 2), 1e-9),
+                                    indices=torch.tensor([0]))
+    with pytest.raises(ValueError, match="cannot change lr"):
+        opt.apply(data, upd, state, lr=0.01)
+    assert torch.equal(data, torch.ones((4, 2)))
+    opt.apply(data, upd, state, lr=0.05)           # the built value passes
+    assert torch.equal(data[1:], torch.ones((3, 2)))
+    for o in (P.SparseFTRL(stochastic_rounding=True),
+              P.SparseLazyAdam(stochastic_rounding=True)):
+        with pytest.raises(ValueError, match="needs apply"):
+            o.apply(data, upd, o.init(data))
 
 
 @pytest.mark.parametrize("v,run_scatters", [(160, 0), (161, 1)])
@@ -258,8 +368,10 @@ def test_stochastic_cast_passthrough():
     P.SparseSGD(lr=0.5, stochastic_rounding=True),
     P.SparseRowWiseAdaGrad(lr=0.5, stochastic_rounding=True),
     P.SparseRowWiseAdaGrad(lr=0.5, stochastic_rounding=True,
-                           weight_decay=0.1)], ids=["sgd", "adagrad",
-                                                    "adagrad_decay"])
+                           weight_decay=0.1),
+    P.SparseLazyAdam(lr=0.05, stochastic_rounding=True),
+    P.SparseFTRL(lr=1.0, stochastic_rounding=True)],
+    ids=["sgd", "adagrad", "adagrad_decay", "lazy_adam", "ftrl"])
 def test_sr_leaves_untouched_rows_exact(opt):
     v = 10
     data = (1.0 + torch.arange(v * 4, dtype=torch.float32).reshape(v, 4)

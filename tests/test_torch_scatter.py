@@ -29,6 +29,8 @@ from embeddingtables_tpu.optim import SparseSGD as JaxSGD
 import embeddingtables_tpu_torch as ett
 from embeddingtables_tpu_torch.interop import tensor_from_array
 from embeddingtables_tpu_torch.ops.cuda import scatter as S
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 D = 128
 BF16_TOL = dict(rtol=2 ** -8, atol=2 ** -8)
@@ -289,10 +291,14 @@ def test_sgd_update_refuses_what_it_cannot_do():
     data = torch.zeros((V, DIM))
     with pytest.raises(ValueError, match="method"):
         ett.sgd_update(data, pupd, LR, method="xla")
-    for kw in ({"idx_result": object()}, {"indexer": object()},
-               {"view": object()}):
-        with pytest.raises(NotImplementedError, match="indexer"):
-            ett.sgd_update(data, pupd, LR, **kw)
+    # An update takes (B,) or (B, bag) ids only, with or without an indexer.
+    cube = ett.SparseEmbeddingUpdate(delta=torch.zeros((2, DIM)),
+                                     indices=torch.zeros((2, 2, 2),
+                                                         dtype=torch.int32))
+    for kw in ({}, {"indexer": ett.SparseIndexer()}):
+        with pytest.raises(ValueError, match="1-D or 2-D"):
+            ett.sgd_update(data, cube, LR, **kw)
+    assert torch.equal(data, torch.zeros((V, DIM)))
 
 
 @pytest.mark.parametrize("case", sorted(UPDATES))

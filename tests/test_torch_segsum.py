@@ -20,6 +20,8 @@ from embeddingtables_tpu.ops.pallas.segsum import \
 from embeddingtables_tpu.optim import _dense_grad as jax_dense_grad
 from embeddingtables_tpu_torch import optim as P
 from embeddingtables_tpu_torch.ops.cuda import segsum as H
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 COMPUTE = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
            "float32": (jnp.float32, torch.float32)}

@@ -20,6 +20,8 @@ from embeddingtables_tpu.serving import make_dlrm_service as jax_service
 import embeddingtables_tpu_torch as ett
 from embeddingtables_tpu_torch.serving import (MicroBatcher, _bucket,
                                                make_dlrm_service, serve_http)
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 T, D = 3, 4
 

@@ -4,8 +4,9 @@
     of `_block_interaction_fn`, and against `torch.autograd.gradcheck` in
     float64.
   - `make_train_step` against JAX's for three steps from one state (weights
-    and the AdaGrad accumulator carried by `dlrm_from_arrays`): tables,
-    accumulator, towers and losses.
+    and the optimizer state carried by `dlrm_from_arrays`) with SGD,
+    row-wise AdaGrad, lazy Adam and FTRL: tables, every state leaf, towers
+    and losses.
   - `SyntheticCriteo`, `auc`, `log_loss` and `train_dlrm` against JAX's.
 
 Tolerances: f32 towers agree up to the order of f32 sums (matmuls, the
@@ -37,6 +38,8 @@ from embeddingtables_tpu_torch import optim as P
 from embeddingtables_tpu_torch.data import SyntheticCriteo
 from embeddingtables_tpu_torch.models import dlrm as PD
 from embeddingtables_tpu_torch.models.train import train_dlrm
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,6 +104,8 @@ def _opts(name):
                                                      initial_accum=0.1),
                               P.SparseRowWiseAdaGrad(0.1, method="dense",
                                                      initial_accum=0.1)),
+            "lazy_adam": (J.SparseLazyAdam(0.05), P.SparseLazyAdam(0.05)),
+            "ftrl": (J.SparseFTRL(0.1, l1=0.01), P.SparseFTRL(0.1, l1=0.01)),
             }[name]
 
 
@@ -114,10 +119,10 @@ def _pair(opt_name, compute="float32", **kw):
     jcfg = JaxConfig(**cfg_kw, compute_dtype=JAX_DT[compute])
     pcfg = ett.DLRMConfig(**cfg_kw, compute_dtype=TORCH_DT[compute])
     jm = jax_init_dlrm(jax.random.key(0), jcfg, sparse_opt=jopt)
-    accum = np.asarray(jm.emb_state.accum) if opt_name != "sgd" else None
+    state = jm.emb_state if opt_name != "sgd" else None
     pm = ett.dlrm_from_arrays(pcfg, _arrays(jm.bottom), _arrays(jm.top),
                               np.asarray(jm.tables.data), jm.tables.offsets,
-                              device="cpu", emb_accum=accum)
+                              device="cpu", emb_state=state)
     return (jcfg, jopt, jm), (pcfg, popt, pm)
 
 
@@ -142,6 +147,8 @@ STEPS = {
     "cat_interaction_sgd": ("sgd", dict(interaction="cat")),
     "self_interaction_adagrad": ("adagrad_indexer",
                                  dict(self_interaction=True)),
+    "onehot_lazy_adam": ("lazy_adam", {}),
+    "bag_mean_pad_ftrl": ("ftrl", dict(bag=3, combiner="mean", pad_idx=-1)),
 }
 
 
@@ -168,8 +175,9 @@ def test_train_step_matches_jax_f32(case):
     np.testing.assert_allclose(pl, jl, **tol)
     np.testing.assert_allclose(pm.tables.data.numpy(),
                                np.asarray(jm.tables.data), **tol)
-    np.testing.assert_allclose(pm.emb_state.accum.numpy(),
-                               np.asarray(jm.emb_state.accum), **tol)
+    assert type(pm.emb_state).__name__ == type(jm.emb_state).__name__
+    for p, j in zip(pm.emb_state, jm.emb_state):
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), **tol)
     for (jw, jb), (pw, pb) in zip(jm.bottom + jm.top, pm.bottom + pm.top):
         np.testing.assert_allclose(pw.detach().numpy(), np.asarray(jw), **tol)
         np.testing.assert_allclose(pb.detach().numpy(), np.asarray(jb), **tol)
@@ -291,3 +299,48 @@ def test_init_dlrm_takes_the_optimizer_state():
     assert torch.equal(m.emb_state.accum,
                        torch.full((sum(SMALL["vocab_sizes"]),), 0.5))
     assert ett.init_dlrm(cfg, device="cpu").emb_state.accum.numel() == 0
+    # Adam and FTRL state: registered buffers, one per field.
+    rows = (sum(SMALL["vocab_sizes"]), SMALL["dim"])
+    m = ett.init_dlrm(cfg, device="cpu", sparse_opt=P.SparseLazyAdam())
+    assert isinstance(m.emb_state, P.SparseAdamState)
+    assert m.emb_m.shape == m.emb_v.shape == rows
+    assert m.emb_m.data_ptr() != m.emb_v.data_ptr()
+    assert m.emb_count.dtype == torch.int32 and m.emb_count.dim() == 0
+    assert {"emb_m", "emb_v", "emb_count"} <= dict(m.named_buffers()).keys()
+    m = ett.init_dlrm(cfg, device="cpu", sparse_opt=P.SparseFTRL(l1=0.1))
+    assert isinstance(m.emb_state, P.SparseFTRLState)
+    assert {"emb_z", "emb_n"} <= dict(m.named_buffers()).keys()
+    with pytest.raises(TypeError, match="holds a SparseFTRLState"):
+        m.emb_state = P.SparseOptState(torch.zeros(0))
+    with pytest.raises(ValueError, match="fields"):
+        ett.dlrm_from_arrays(cfg, [], [], np.zeros(rows, np.float32),
+                             (0, rows[0]), device="cpu",
+                             emb_state={"q": np.zeros(3)})
+
+
+def test_train_dlrm_refuses_a_schedule_with_ftrl_where_jax_does():
+    # JAX's jitted step compares a traced lr with FTRL's alpha and raises at
+    # its first step (a TypeError, the tracer's bool); the port raises a
+    # ValueError before its first step.
+    (jcfg, jopt, jm), (pcfg, popt, pm) = _pair("ftrl")
+    data = dict(vocab_sizes=SMALL["vocab_sizes"], num_dense=5, batch_size=B,
+                seed=3)
+    sched = P.warmup_constant_lr(popt.lr, 0)
+    with pytest.raises(TypeError):
+        jax_train_dlrm(jcfg, JaxCriteo(**data).batches(), 2, sparse_opt=jopt,
+                       model=jm, lr_schedule=sched, verbose=False)
+    before = pm.tables.data.clone()
+    with pytest.raises(ValueError, match="cannot change lr"):
+        train_dlrm(pcfg, SyntheticCriteo(**data).batches(), 2,
+                   sparse_opt=popt, model=pm, lr_schedule=sched,
+                   verbose=False)
+    assert torch.equal(pm.tables.data, before)
+    # Without a schedule FTRL trains, and a refused step changes nothing.
+    res = train_dlrm(pcfg, SyntheticCriteo(**data).batches(), 2,
+                     sparse_opt=popt, model=pm, log_every=1, verbose=False)
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    step = ett.make_train_step(pcfg, sparse_opt=popt)
+    towers = [p.detach().clone() for p in pm.parameters()]
+    with pytest.raises(ValueError, match="cannot change lr"):
+        step(pm, *_batch(np.random.default_rng(0), pcfg), lr=0.5)
+    assert all(torch.equal(a, b) for a, b in zip(towers, pm.parameters()))

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --run-window-sweep   # only the run-scatter's L sweep
     python3 chip_smoke.py --per-table          # only the per-table comparison
     python3 chip_smoke.py --ensemble           # only the ensemble API phase
+    python3 chip_smoke.py --families           # only the model-family phase
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -50,9 +51,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     six features of 250,000 rows as `SplitEmbedding`s of 65,536-row shards
     under indexer AdaGrad (4 run-scatter launches a table), against the same
     update on `SimpleEmbedding`s; and `index()` timed on the card.
-10. A `kernels` JSON line (every hand kernel, its launches on its paths and
-    its times; the run-scatter's Zipf time beside its uniform one), the card
-    line again, and the final JSON status line.
+10. The other model families, on the stacked training batches: DCN-v2
+    (`dcn_small_config(vocab=250_000)`) and DeepFM
+    (`deepfm_small_config(vocab=250_000)`, the fused (6.5M, 129) stack, and
+    the unfolded layout with its (6.5M, 1) first-order stack) each trained
+    by `train_dcn` / `train_deepfm` for 12 steps per recipe (run-scatter
+    launches = steps x stacks, a falling loss, one step held against the
+    plain versions: SGD bitwise, AdaGrad to rtol 1e-6) and served by their
+    services to 8 closed-loop clients (gather launches = served batches, the
+    kernel path = the plain path with f32 towers, a bag-8 batch through
+    `gather_bags`); `fuse_deepfm` of the unfolded model scoring as it did;
+    `gather_rows` and the run-scatter checked at D = 129 and D = 1 and timed
+    at D = 129 beside D = 128; and the two-tower retriever (1M / 100k / 1k
+    query rows, 2M items, dim 64, B = 16,384) through `train_two_tower`
+    (2 run-scatters a step, recall@10), `build_item_index` (31
+    `gather_rows`) and `make_retrieval_service` against the plain path.
+11. A `kernels` JSON line (every hand kernel, its launches on its paths and
+    its times; the run-scatter's Zipf time beside its uniform one, and the
+    D = 129 times of `gather_rows` and the run-scatter), the card line
+    again, and the final JSON status line.
 
 With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
 the run-scatter's window length (`run_window_sweep`). With `--per-table` it
@@ -60,7 +77,7 @@ runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
 phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
-phases 1-2 and phase 9.
+phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -455,6 +472,11 @@ def multihot_phase(ett, G, model, cfg):
 B_TRAIN = 65_536                   # bench.py's single-chip batch
 VOCAB = 250_000                    # the serving model's rows per table
 SHARD_ROWS = 65_536                # the ensemble phase's SplitEmbedding shards
+# The two-tower retriever: query and item rows, its batch and eval batches.
+TT_QUERY_VOCABS = (1_000_000, 100_000, 1_000)
+TT_ITEMS = 2_000_000
+TT_BATCH = 16_384
+TT_EVAL_BATCH = 1024
 # Criteo Kaggle (Display Advertising Challenge) per-feature cardinalities, as
 # facebookresearch/dlrm lists them for the Kaggle data set.
 CRITEO_KAGGLE_CARDINALITIES = (
@@ -823,19 +845,22 @@ class plain_kernels:
 
 
 class plain_gathers:
-    """Route the forward lookup (`ops.lookup`) to the plain gathers."""
+    """Route the forward lookups (`ops.lookup`, and `SimpleEmbedding.rows`
+    in `tables`) to the plain gathers."""
 
     def __init__(self, G):
         self.G = G
         self.L = sys.modules["embeddingtables_tpu_torch.ops.lookup"]
+        self.T = sys.modules["embeddingtables_tpu_torch.tables"]
 
     def __enter__(self):
-        self.saved = (self.L.gather_rows, self.L.gather_bags)
-        self.L.gather_rows = self.G.gather_rows_plain
+        self.saved = (self.L.gather_rows, self.L.gather_bags,
+                      self.T.gather_rows)
+        self.L.gather_rows = self.T.gather_rows = self.G.gather_rows_plain
         self.L.gather_bags = self.G.gather_bags_plain
 
     def __exit__(self, *exc):
-        self.L.gather_rows, self.L.gather_bags = self.saved
+        self.L.gather_rows, self.L.gather_bags, self.T.gather_rows = self.saved
 
 
 class plain_segsum:
@@ -933,13 +958,10 @@ def card_parity(ett, S, G, model, cfg, batch):
     emit({"phase": "train_card_parity", "n": flat.numel(), **out})
 
 
-def step_times(step, model, batches, generator=None, steps: int = 5) -> dict:
-    """Per-step device time (CUDA events over back-to-back steps), host wall,
-    examples/s, and the kernel profile of one step."""
-    def run(i):
-        b = batches[i % len(batches)]
-        return step(model, b["dense"], b["cat"], b["label"],
-                    generator=generator)
+def step_times(run, examples: int, steps: int = 5) -> dict:
+    """Per-step device time (CUDA events over back-to-back calls of
+    `run(i)`, the i-th step), host wall, examples/s, and the kernel profile
+    of one step."""
     run(0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -953,14 +975,22 @@ def step_times(step, model, batches, generator=None, steps: int = 5) -> dict:
     ms = start.elapsed_time(end) / steps
     return {"step_ms": ms,
             "host_wall_ms": (time.perf_counter() - t0) / steps * 1e3,
-            "examples_per_s": B_TRAIN / (ms / 1e3),
+            "examples_per_s": examples / (ms / 1e3),
             **kernel_profile(lambda: run(0), ms, reps=2)}
 
 
-def stacked_training_phase(ett, S, H, G):
+def ctr_runner(step, model, batches, generator=None):
+    """`run(i)`: one CTR train step on the i-th of the cycled batches."""
+    def run(i):
+        b = batches[i % len(batches)]
+        return step(model, b["dense"], b["cat"], b["label"],
+                    generator=generator)
+    return run
+
+
+def stacked_training_phase(ett, S, H, G, batches):
     t0 = time.perf_counter()
     cfg = ett.dlrm_small_config(vocab=VOCAB)
-    batches = criteo_batches(ett, cfg.vocab_sizes, 4, SEED + 6)
     cfg16 = dataclasses.replace(cfg, table_dtype=torch.bfloat16)
     # The 4 batches are cycled, so the last 4 steps see the first 4 steps'
     # batches again; the synthetic labels are near balanced and their signal
@@ -1013,7 +1043,7 @@ def stacked_training_phase(ett, S, H, G):
               "table_dtype": str(rcfg.tables_dtype).split(".")[1],
               "steps": steps, "losses": losses, "launches": counts,
               "train_dlrm_examples_per_s": res.examples_per_sec,
-              **step_times(step, model, batches, gen),
+              **step_times(ctr_runner(step, model, batches, gen), B_TRAIN),
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "seconds": time.perf_counter() - r0})
         del model, res, step
@@ -1136,6 +1166,28 @@ def per_table_phase(ett, S, H, gen):
 # Phase 9: the ensemble API
 # ---------------------------------------------------------------------------
 
+class LaunchCounter:
+    """The four hand kernels' launch counts: `run(fn)` sets every count to 0
+    just before `fn`, reads them just after, and adds them to `total`."""
+
+    def __init__(self, S, H, G):
+        self.wrappers = {"gather_rows": G.gather_rows,
+                         "gather_bags": G.gather_bags,
+                         "scatter_add_rows_sorted": S.scatter_add_rows_sorted,
+                         "hot_accumulate": H.hot_accumulate}
+        self.total = dict.fromkeys(self.wrappers, 0)
+
+    def run(self, fn):
+        for w in self.wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in self.wrappers.items()}
+        for k, n in got.items():
+            self.total[k] += n
+        return out, got
+
+
 def events_ms(fn, reps: int = 3) -> list:
     """CUDA-event time of each of `reps` calls of `fn`."""
     out = []
@@ -1167,22 +1219,8 @@ def ensemble_phase(ett, S, H, G, gen):
                 for j in range(nt)]
     (batch,) = criteo_batches(ett, vocabs, 1, SEED + 8)
     cat = batch["cat"]                                     # (26, B) int32
-    wrappers = {"gather_rows": G.gather_rows, "gather_bags": G.gather_bags,
-                "scatter_add_rows_sorted": S.scatter_add_rows_sorted,
-                "hot_accumulate": H.hot_accumulate}
-    launches = dict.fromkeys(wrappers, 0)
-
-    def counted(fn):
-        """Run `fn` with every launch count set to 0 just before; returns
-        its result and the counts read just after."""
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {k: w.launches for k, w in wrappers.items()}
-        for k, n in got.items():
-            launches[k] += n
-        return out, got
+    counter = LaunchCounter(S, H, G)
+    counted = counter.run
 
     # 1. maplookup under PreallocationStrategy(128): a list, a StackedTables,
     #    and bags of 8; each bitwise the plain path.
@@ -1343,8 +1381,436 @@ def ensemble_phase(ett, S, H, G, gen):
     del base, delta, tables, batch, cat, bags
     torch.cuda.empty_cache()
     emit({"phase": "ensemble_done", "seconds": time.perf_counter() - t0,
-          "launches": launches})
-    return launches
+          "launches": counter.total})
+    return counter.total
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the other model families (DCN-v2, DeepFM, two-tower)
+# ---------------------------------------------------------------------------
+
+class config_as:
+    """Serve or evaluate `model` under another config (f32 towers, bags)
+    for the length of a block; the eval steps read `model.config`."""
+
+    def __init__(self, model, cfg):
+        self.model, self.cfg = model, cfg
+
+    def __enter__(self):
+        self.saved, self.model.config = self.model.config, self.cfg
+        return self.model
+
+    def __exit__(self, *exc):
+        self.model.config = self.saved
+
+
+def latency_ms(lats) -> dict:
+    ms = sorted(1e3 * x for x in lats)
+    return {"latency_samples": len(ms),
+            "latency_ms_p50": float(np.percentile(ms, 50)),
+            "latency_ms_p95": float(np.percentile(ms, 95)),
+            "latency_ms_p99": float(np.percentile(ms, 99))}
+
+
+def closed_loop(svc, make_req, clients: int = 8, per_client: int = 8):
+    """`clients` threads, each sending `per_client` requests of 1-256
+    examples one after another and waiting for each: [(request, result,
+    latency_s)]."""
+    served, lock = [], threading.Lock()
+
+    def client(k):
+        rng = np.random.default_rng(SEED + 3000 + k)
+        for _ in range(per_client):
+            req = make_req(rng, int(rng.integers(1, 257)))
+            t0 = time.perf_counter()
+            out = svc.predict(*req, timeout=300)
+            lat = time.perf_counter() - t0
+            with lock:
+                served.append((req, out, lat))
+
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        for f in [pool.submit(client, k) for k in range(clients)]:
+            f.result()
+    return served
+
+
+def step_parity(S, G, step, model, args, rtol=None):
+    """One train step from the same state through the kernels and through
+    the plain versions (deep copies of `model`): the towers bitwise, the
+    tables and row states bitwise (`rtol=None`) or to `rtol`. Returns the
+    largest table and state error."""
+    import copy
+    mk, mp = copy.deepcopy(model), copy.deepcopy(model)
+    step(mk, *args)
+    with plain_kernels(S, G), plain_gathers(G):
+        step(mp, *args)
+    torch.cuda.synchronize()
+    for (name, a), (_, b) in zip(mk.named_parameters(),
+                                 mp.named_parameters()):
+        require(torch.equal(bits(a.detach()), bits(b.detach())),
+                f"step parity: tower {name} differs")
+    err = 0.0
+    for (name, a), (_, b) in zip(mk.named_buffers(), mp.named_buffers()):
+        if not a.is_floating_point() or a.numel() == 0:
+            require(torch.equal(a, b), f"step parity: {name} differs")
+        elif rtol is None:
+            require(torch.equal(bits(a), bits(b)),
+                    f"step parity: {name} not bitwise")
+        else:
+            torch.testing.assert_close(a, b, rtol=rtol, atol=1e-7)
+        if a.is_floating_point() and a.numel():
+            err = max(err, max_abs_err(a, b))
+    del mk, mp
+    torch.cuda.empty_cache()
+    return err
+
+
+def ctr_family_serving(ett, G, counter, name, mod, model, make_service):
+    """A CTR family's service at full width: 8 closed-loop clients, 64
+    requests of 1-256 examples, `gather_rows` launches = served batches;
+    then one batch through the kernels against the plain gathers with f32
+    towers (rtol 1e-5), and a bag-8 batch through `gather_bags`."""
+    cfg = model.config
+    svc = make_service(model, max_batch=2048, max_latency_ms=2.0)
+    try:
+        warm = np.random.default_rng(SEED + 98)
+        for b in (1, 256, 2048):
+            svc.predict(*make_request(warm, cfg, b), timeout=300)
+        before = svc.stats_snapshot()["batches"]
+        t0 = time.perf_counter()
+        served, got = counter.run(lambda: closed_loop(
+            svc, lambda rng, b: make_request(rng, cfg, b)))
+        wall = time.perf_counter() - t0
+        stats = svc.stats_snapshot()
+        batches = stats["batches"] - before
+    finally:
+        svc.stop()
+    require(len(served) == 64 and all(
+        np.isfinite(o).all() and o.shape == (r[0].shape[0],)
+        for r, o, _ in served), f"{name}: non-finite or missing scores")
+    require(got["gather_rows"] == batches > 0,
+            f"{name}: gather_rows launches {got['gather_rows']} != served "
+            f"batches {batches}")
+    sample = served[:16]
+    dense = np.concatenate([r[0] for r, _, _ in sample])
+    cat = np.concatenate([r[1] for r, _, _ in sample], axis=1)
+    service = np.concatenate([o for _, o, _ in sample])
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    ev = mod.make_eval_step(cfg32)
+    with config_as(model, cfg32):
+        kern32 = ev(model, dense, cat)
+        with plain_gathers(G):
+            ref = ev(model, dense, cat)
+        torch.testing.assert_close(kern32, ref, rtol=1e-5, atol=1e-6)
+    ref = ref.cpu().numpy()
+    cfgb = dataclasses.replace(cfg32, bag=8)
+    db, cb = make_request(np.random.default_rng(SEED + 97), cfgb, 2048, 8)
+    with config_as(model, cfgb):
+        outb, gotb = counter.run(lambda: ev(model, db, cb))
+        with plain_gathers(G):
+            refb = ev(model, db, cb)
+    require(gotb["gather_bags"] == 1 and gotb["gather_rows"] == 0
+            and bool(torch.isfinite(outb).all()),
+            f"{name}: bag-8 launches {gotb}")
+    torch.testing.assert_close(outb, refb, rtol=1e-5, atol=1e-6)
+    emit({"phase": "family_serve", "family": name,
+          "requests": len(served),
+          "examples": sum(r[0].shape[0] for r, _, _ in served),
+          "wall_s": wall, "batches": batches, "launches": got,
+          **latency_ms([lat for _, _, lat in served]), "batcher_stats": stats,
+          "kernel_f32_vs_plain_f32_max_abs": float(
+              np.abs(kern32.cpu().numpy() - ref).max()),
+          "service_bf16_vs_plain_f32_max_abs": float(
+              np.abs(service - ref).max()),
+          "max_abs_logit": float(np.abs(ref).max()),
+          "bag8_launches": gotb,
+          "bag8_kernel_vs_plain_max_abs": float((outb - refb).abs().max())})
+
+
+def ctr_family_training(ett, S, G, counter, name, mod, train, recipes,
+                        batches, steps: int = 12):
+    """Each recipe `(label, cfg, optimizer, stacks, parity rtol)`: one step
+    held against the plain versions, then `train` for `steps` steps of the
+    cycled batches with run-scatter launches = steps x stacks and a falling
+    loss, then step times, idle share and peak memory. Returns the last
+    recipe's model and each recipe's step ms."""
+    step_ms, model = {}, None
+    for label, cfg, opt, stacks, rtol in recipes:
+        r0 = time.perf_counter()
+        del model
+        torch.cuda.empty_cache()
+        init = getattr(ett, f"init_{name}")
+        model = init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     device="cuda", sparse_opt=opt)
+        step = mod.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1)
+        b0 = batches[0]
+        err = step_parity(S, G, step, model,
+                          (b0["dense"], b0["cat"], b0["label"]), rtol)
+        torch.cuda.reset_peak_memory_stats()
+        res, got = counter.run(lambda: train(
+            cfg, itertools.cycle(batches), steps, sparse_opt=opt,
+            dense_lr=0.1, model=model, seed=SEED, log_every=1,
+            verbose=False))
+        losses = res.losses
+        require(len(losses) == steps and all(math.isfinite(x)
+                                             for x in losses),
+                f"{name} {label}: non-finite losses {losses}")
+        require(statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+                f"{name} {label}: losses did not fall {losses}")
+        require(got["scatter_add_rows_sorted"] == steps * stacks
+                and got["hot_accumulate"] == 0,
+                f"{name} {label}: launches {got}, want "
+                f"{steps * stacks} run-scatters")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t = step_times(ctr_runner(step, model, batches), B_TRAIN)
+        step_ms[label] = t["step_ms"]
+        emit({"phase": "family_train", "family": name, "recipe": label,
+              "batch": B_TRAIN, "stack_width": model.tables.data.shape[1],
+              "steps": steps, "losses": losses, "launches": got,
+              "launches_per_step": {k: v / steps for k, v in got.items()},
+              "parity": "bitwise" if rtol is None else f"rtol {rtol}",
+              "parity_max_abs_err": err,
+              "train_examples_per_s": res.examples_per_sec, **t,
+              "peak_memory_gb": peak, "seconds": time.perf_counter() - r0})
+    return model, step_ms
+
+
+def time_gather(G, gen, sets, v, d, label):
+    """`gather_rows` at one shape, f32 table: its time beside its plain
+    version, `F.embedding` and the byte bound U*D*4 (each unique row read
+    once) + n*4 (ids) + n*D*4 (the output)."""
+    table = torch.randn((v, d), generator=gen, device="cuda")
+    n = sets[0].numel()
+    uniq = statistics.mean(int(torch.unique(s).numel()) for s in sets)
+    nbytes = uniq * d * 4 + n * 4 + n * d * 4
+    t = {"kernel_ms": time_each_ms(lambda i: G.gather_rows(table, i),
+                                   [(s,) for s in sets], reps=20),
+         "plain_ms": time_each_ms(lambda i: G.gather_rows_plain(table, i),
+                                  [(s,) for s in sets], reps=10),
+         "library_ms": time_each_ms(
+             lambda i: torch.nn.functional.embedding(i, table),
+             [(s.long(),) for s in sets], reps=20),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit({"phase": "kernel_time", "kernel": "gather_rows", "stream": label,
+          "dtype": "float32", "V": v, "D": d, "n": n, "unique_rows": uniq,
+          "bytes": nbytes, **t})
+    return t
+
+
+def family_width_kernels(S, G, gen, batches):
+    """The kernels at DeepFM's widths, D + 1 = 129 (the fused stack) and
+    D = 1 (the unfolded first-order stack), on the card: `gather_rows`
+    bitwise, the run-scatter's SGD epilogue bitwise on f32 and bf16 tables
+    and its AdaGrad epilogue to rtol 1e-6, on Zipf streams with padding and
+    rows >= V and on the window-edge stream; then both timed at D = 129
+    (and D = 128 beside them) on the training path's Zipf ids."""
+    v = 26 * VOCAB
+    zipf = [stacked_rows(b, VOCAB) for b in batches[:3]]
+    errs = {"gather_rows": 0.0, "scatter_add_rows_sorted": 0.0}
+    for d in (129, 1):
+        t32 = torch.randn((v, d), generator=gen, device="cuda")
+        for tab in (t32, t32.to(torch.bfloat16)):
+            ids = with_specials(zipf[0].clone(), v, gen)
+            got, want = G.gather_rows(tab, ids), G.gather_rows_plain(tab, ids)
+            torch.cuda.synchronize()
+            require(torch.equal(bits(got), bits(want)),
+                    f"gather_rows D={d} {tab.dtype} not bitwise")
+            emit({"phase": "kernel_check", "kernel": "gather_rows",
+                  "dtype": str(tab.dtype).split(".")[1], "V": v, "D": d,
+                  "n": ids.numel(), "bitwise": True,
+                  "nan_rows": int(got.isnan().any(1).sum())})
+            del got, want
+        del t32
+        errs["scatter_add_rows_sorted"] = max(
+            errs["scatter_add_rows_sorted"], check_scatter(
+                S, gen, {"zipf": with_padding(zipf[1], v, gen),
+                         "window_edges": window_edge_stream(S.RUN_WINDOW, v)},
+                v, d))
+        torch.cuda.empty_cache()
+    timings = {}
+    for d in (129, 128):
+        timings[f"gather_rows_d{d}"] = time_gather(G, gen, zipf, v, d,
+                                                   f"zipf_d{d}")
+        timings[f"scatter_d{d}"] = time_scatter(S, G, gen, zipf, v, d,
+                                                f"zipf_d{d}")
+        torch.cuda.empty_cache()
+    emit({"phase": "family_width_times", "n": zipf[0].numel(),
+          **{k: {"kernel_ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+                 "share_of_bound": t["bound_ms"] / t["kernel_ms"],
+                 "library_ms": t["library_ms"]} for k, t in timings.items()}})
+    return errs, timings
+
+
+def two_tower_phase(ett, S, G, counter):
+    """The retriever at the repo's two-tower shape (dim 64, MLPs 256-64, 4
+    dense features, f32) with 1M / 100k / 1k query rows and 2M items,
+    B = 16,384: one step bitwise the plain step, `train_two_tower` for 12
+    steps (2 run-scatters a step, falling loss, recall@10 over 2 eval
+    batches of 1,024), the item index (31 `gather_rows`), and
+    `make_retrieval_service` against the plain path."""
+    t0 = time.perf_counter()
+    tt = ett.models.two_tower
+    cfg = ett.TwoTowerConfig(query_vocab_sizes=TT_QUERY_VOCABS,
+                             item_vocab=TT_ITEMS, num_dense=4, dim=64,
+                             embed_dim=64, query_mlp=(256, 64),
+                             item_mlp=(256, 64))
+    bsz, steps = TT_BATCH, 12
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in ett.SyntheticRetrieval(
+                   cfg.query_vocab_sizes, cfg.item_vocab, num_dense=4,
+                   batch_size=bsz, seed=SEED + 20).batches(4)]
+    evals = list(ett.SyntheticRetrieval(
+        cfg.query_vocab_sizes, cfg.item_vocab, num_dense=4,
+        batch_size=TT_EVAL_BATCH, seed=SEED + 21).batches(2))
+    opt = ett.SparseSGD(0.05)
+    model = ett.init_two_tower(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda",
+        sparse_opt=opt)
+    step = tt.make_train_step(cfg, sparse_opt=opt)
+
+    def run(i):
+        b = batches[i % len(batches)]
+        return step(model, b["dense"], b["q_cat"], b["item_ids"])
+    b0 = batches[0]
+    step_parity(S, G, step, model, (b0["dense"], b0["q_cat"],
+                                    b0["item_ids"]))
+    torch.cuda.reset_peak_memory_stats()
+    res, got = counter.run(lambda: ett.train_two_tower(
+        cfg, itertools.cycle(batches), steps, sparse_opt=opt, model=model,
+        seed=SEED, eval_batches=evals, eval_every=steps, k=10, log_every=1,
+        verbose=False))
+    losses = res.losses
+    require(all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+            f"two-tower losses did not fall {losses}")
+    require(got["scatter_add_rows_sorted"] == 2 * steps
+            and got["hot_accumulate"] == 0, f"two-tower launches {got}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    times = step_times(run, bsz)          # trains on: the index comes after
+    index, got_index = counter.run(lambda: tt.build_item_index(model))
+    require(got_index["gather_rows"] == -(-cfg.item_vocab // 65_536),
+            f"build_item_index launches {got_index}")
+    index_ms = events_ms(lambda: tt.build_item_index(model))
+    emit({"phase": "two_tower_train", "batch": bsz, "steps": steps,
+          "losses": losses, "in_batch_accs": res.accs,
+          "recall_at_10": res.recalls, "eval_queries": 2 * TT_EVAL_BATCH,
+          "launches": got, "train_examples_per_s": res.examples_per_sec,
+          "index_launches": got_index, "build_item_index_ms": index_ms,
+          "parity": "bitwise",
+          **times, "peak_memory_gb": peak})
+
+    # Retrieval: the kernel path and the plain path on one batch (bitwise),
+    # then the service against the plain path.
+    run10 = tt.make_retriever(model, k=10)
+    with plain_gathers(G):
+        index_p = tt.build_item_index(model)
+    require(torch.equal(bits(index), bits(index_p)), "item index not bitwise")
+    e = evals[0]
+    ks, ki = run10(index, e["dense"][:256], e["q_cat"][:, :256])
+    with plain_gathers(G):
+        ps, pi = run10(index_p, e["dense"][:256], e["q_cat"][:, :256])
+    require(torch.equal(ki, pi) and torch.equal(bits(ks), bits(ps)),
+            "retrieval kernel path != plain path")
+    svc = ett.make_retrieval_service(model, k=10, max_batch=256,
+                                     max_latency_ms=2.0)
+    rng_q = np.random.default_rng(SEED + 22)
+
+    def make_req(rng, b):
+        return (rng.standard_normal((b, 4)).astype(np.float32),
+                np.stack([rng.integers(0, v, b) for v in
+                          cfg.query_vocab_sizes]).astype(np.int32))
+    try:
+        for b in (1, 256):
+            svc.predict(*make_req(rng_q, b), timeout=300)
+        before = svc.stats_snapshot()["batches"]
+        served, got_s = counter.run(lambda: closed_loop(svc, make_req))
+        stats = svc.stats_snapshot()
+        batches_served = stats["batches"] - before
+    finally:
+        svc.stop()
+    require(len(served) == 64 and got_s["gather_rows"] == batches_served,
+            f"retrieval service launches {got_s}, batches {batches_served}")
+    # Each request's batch was scored inside a padded bucket, so its
+    # product may round differently from the plain path's: ids are held
+    # equal except where two plain scores lie within 1e-5 of each other.
+    near_ties, err = 0, 0.0
+    for (dense, q_cat), (scores, ids), _ in served[:16]:
+        with plain_gathers(G):
+            ps, pi = run10(index_p, dense, q_cat)
+        ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+        np.testing.assert_allclose(scores, ps, rtol=1e-5, atol=1e-6)
+        err = max(err, float(np.abs(scores - ps).max()))
+        gap = np.abs(np.diff(ps, axis=1)) <= 1e-5 * np.abs(ps[:, 1:])
+        tied = np.zeros_like(pi, dtype=bool)
+        tied[:, 1:] |= gap
+        tied[:, :-1] |= gap
+        near_ties += int(tied.sum())
+        require(bool(((ids == pi) | tied).all()),
+                "retrieval service ids differ from the plain path's")
+    emit({"phase": "two_tower_serve", "k": 10, "requests": len(served),
+          "queries": sum(r[0].shape[0] for r, _, _ in served),
+          "batches": batches_served, "launches": got_s,
+          **latency_ms([lat for _, _, lat in served]),
+          "scores_max_abs_vs_plain": err, "near_tie_positions": near_ties,
+          "batcher_stats": stats, "seconds": time.perf_counter() - t0})
+    del model, index, index_p, batches
+    torch.cuda.empty_cache()
+
+
+def families_phase(ett, S, H, G, gen, batches):
+    """DCN-v2 and DeepFM (folded and unfolded) at the Criteo-shaped width
+    (26 x 250,000 rows, dim 128) on the stacked training batches, the
+    kernels at DeepFM's widths, and the two-tower retriever. Returns the
+    launches of each kernel in the counted runs, the width checks' errors
+    and the D = 129 times."""
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    M = ett.models
+    sgd, ada = ett.SparseSGD(1e-4), ett.SparseRowWiseAdaGrad(
+        1e-3, method="indexer")
+
+    dcn_cfg = ett.dcn_small_config(vocab=VOCAB)
+    model, dcn_ms = ctr_family_training(
+        ett, S, G, counter, "dcn", M.dcn, ett.train_dcn,
+        (("sgd", dcn_cfg, sgd, 1, None),
+         ("adagrad_indexer", dcn_cfg, ada, 1, 1e-6)), batches)
+    ctr_family_serving(ett, G, counter, "dcn", M.dcn, model,
+                       ett.make_dcn_service)
+    del model
+    torch.cuda.empty_cache()
+
+    fm_cfg = ett.deepfm_small_config(vocab=VOCAB)
+    unfolded = dataclasses.replace(fm_cfg, fold_fm_w=False)
+    model, fm_ms = ctr_family_training(
+        ett, S, G, counter, "deepfm", M.deepfm, ett.train_deepfm,
+        (("folded_sgd", fm_cfg, sgd, 1, None),
+         ("folded_adagrad_indexer", fm_cfg, ada, 1, 1e-6),
+         ("unfolded_sgd", unfolded, sgd, 2, None)), batches)
+    # The unfolded model, fused, scores as it did (f32 towers).
+    cfg32 = dataclasses.replace(unfolded, compute_dtype=torch.float32)
+    d, c = make_request(np.random.default_rng(SEED + 96), cfg32, 2048)
+    with config_as(model, cfg32):
+        want = M.deepfm.make_eval_step(cfg32)(model, d, c)
+        fused = ett.fuse_deepfm(model)           # f32 towers, folded
+    got = M.deepfm.make_eval_step(fused.config)(fused, d, c)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    emit({"phase": "deepfm_fuse", "fused_stack": list(fused.tables.data.shape),
+          "max_abs_vs_unfolded": float((got - want).abs().max()),
+          "step_ms_folded_sgd": fm_ms["folded_sgd"],
+          "step_ms_unfolded_sgd": fm_ms["unfolded_sgd"]})
+    del model
+    fused.config = fm_cfg
+    ctr_family_serving(ett, G, counter, "deepfm", M.deepfm, fused,
+                       ett.make_deepfm_service)
+    del fused
+    torch.cuda.empty_cache()
+
+    errs, timings = family_width_kernels(S, G, gen, batches)
+    two_tower_phase(ett, S, G, counter)
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t0,
+          "launches": counter.total, "dcn_step_ms": dcn_ms,
+          "deepfm_step_ms": fm_ms})
+    return counter.total, errs, timings
 
 
 def main() -> int:
@@ -1392,6 +1858,13 @@ def main() -> int:
         ensemble_phase(ett, S, H, G, gen)
         print(card_line(), flush=True)
         return 0
+    # The stacked training batches (26 x 250,000-row vocabularies, B =
+    # 65,536): the DLRM, DCN and DeepFM recipes all train on them.
+    train_batches = criteo_batches(ett, (VOCAB,) * 26, 4, SEED + 6)
+    if "--families" in sys.argv[1:]:
+        families_phase(ett, S, H, G, gen, train_batches)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -1418,21 +1891,32 @@ def main() -> int:
     update_errs, update_timings = update_kernel_phase(ett, S, H, G, gen)
     errs.update(update_errs)
     timings.update(update_timings)
-    scatter_launches = stacked_training_phase(ett, S, H, G)
+    scatter_launches = stacked_training_phase(ett, S, H, G, train_batches)
     hot_launches = per_table_phase(ett, S, H, gen)
     ens = ensemble_phase(ett, S, H, G, gen)
+    fam, fam_errs, fam_times = families_phase(ett, S, H, G, gen,
+                                              train_batches)
+    for name, e in fam_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("gather_rows", "scatter"):
+        t = fam_times[f"{name}_d129"]
+        key = "gather_rows" if name == "gather_rows" else \
+            "scatter_add_rows_sorted"
+        timings[key].update(d129_ms=t["kernel_ms"], d129_bound_ms=t["bound_ms"],
+                            d129_library_ms=t["library_ms"])
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
     paths = {
-        "gather_rows": (serve_launches["gather_rows"] + ens["gather_rows"],
-                        "gather.cu", "gather.py:116"),
-        "gather_bags": (bag_launches["gather_bags"] + ens["gather_bags"],
-                        "gather.cu", "gather.py:258"),
+        "gather_rows": (serve_launches["gather_rows"] + ens["gather_rows"]
+                        + fam["gather_rows"], "gather.cu", "gather.py:116"),
+        "gather_bags": (bag_launches["gather_bags"] + ens["gather_bags"]
+                        + fam["gather_bags"], "gather.cu", "gather.py:258"),
         "scatter_add_rows_sorted": (
-            scatter_launches + ens["scatter_add_rows_sorted"], "scatter.cu",
-            "scatter.py:144"),
-        "hot_accumulate": (hot_launches + ens["hot_accumulate"], "segsum.cu",
+            scatter_launches + ens["scatter_add_rows_sorted"]
+            + fam["scatter_add_rows_sorted"], "scatter.cu", "scatter.py:144"),
+        "hot_accumulate": (hot_launches + ens["hot_accumulate"]
+                           + fam["hot_accumulate"], "segsum.cu",
                            "segsum.py:135")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source,
@@ -1442,8 +1926,9 @@ def main() -> int:
          "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],
          "library_ms": timings[name]["library_ms"],
-         **{k: timings[name][k] for k in ("zipf_ms", "zipf_bound_ms")
-            if k in timings[name]}}
+         **{k: timings[name][k] for k in (
+             "zipf_ms", "zipf_bound_ms", "d129_ms", "d129_bound_ms",
+             "d129_library_ms") if k in timings[name]}}
         for name, (launches, source, where) in paths.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

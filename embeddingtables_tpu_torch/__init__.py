@@ -3,16 +3,21 @@
 The port of `embeddingtables_tpu` (JAX, the reference) to an NVIDIA H100. Its
 module names mirror the JAX package's. Every op dispatches on its tensor's
 device: CUDA tensors go to the hand-written kernels in `csrc/`, CPU tensors
-to their plain PyTorch versions. Entry points that create state (`init_dlrm`,
-`dlrm_from_arrays`) run on CUDA unless the caller passes `device="cpu"`.
+to their plain PyTorch versions. Entry points that create state (the `init_*`
+functions, the `*_from_arrays` builders and the `train_*` loops) run on CUDA
+unless the caller passes `device="cpu"`.
 
 Training: `lookup_vjp` (one table) and `maplookup_vjp` (an ensemble) give
 lazy `SparseEmbeddingUpdate`s, which `SparseSGD`, `SparseRowWiseAdaGrad`,
 `SparseLazyAdam` and `SparseFTRL` (`optim`) apply in place, on a
 `SimpleEmbedding` or shard by shard on a `SplitEmbedding`
 (`ensemble_update`); `sgd_update` and `ensemble_sgd_update` take an
-`Indexer`'s result. The DLRM train step is `make_train_step` and its loop
-`train_dlrm`.
+`Indexer`'s result.
+
+Models (`models`): the DLRM, DCN-v2 and DeepFM CTR rankers and the
+two-tower retriever, each an `nn.Module` with its train step, its loop
+(`train_dlrm`, `train_dcn`, `train_deepfm`, `train_two_tower`) and its
+service (`serving`).
 
 Layout convention: tables are row-major `(vocab, dim)`;
 `lookup(A, I)[i, :] == A[I[i], :]`.
@@ -30,16 +35,25 @@ from .types import (Dynamic, Forward, IndexingContext, NoContext, Static,
                     TableSpec, Update, cdiv, featuresize)
 from .tables import (SimpleEmbedding, SplitEmbedding, as_table, destination,
                      example, is_table)
-from .models import (DLRM, DLRMConfig, TrainResult, dlrm_forward,
-                     dlrm_small_config, init_dlrm, make_eval_step,
-                     make_train_step, train_dlrm)
+from .models import (DCN, DLRM, DCNConfig, DeepFM, DeepFMConfig, DLRMConfig,
+                     RetrievalTrainResult, TrainResult, TwoTower,
+                     TwoTowerConfig, build_item_index, dcn_forward,
+                     dcn_small_config, deepfm_forward, deepfm_small_config,
+                     dlrm_forward, dlrm_small_config, evaluate_metrics,
+                     fuse_deepfm, in_batch_softmax_loss, init_dcn,
+                     init_deepfm, init_dlrm, init_two_tower, make_eval_step,
+                     make_retriever, make_train_step, retrieve, train_dcn,
+                     train_deepfm, train_dlrm, train_two_tower,
+                     two_tower_scores, unfuse_deepfm)
 from .optim import (SparseAdamState, SparseFTRL, SparseFTRLState,
                     SparseLazyAdam, SparseOptState, SparseRowWiseAdaGrad,
                     SparseSGD, warmup_constant_lr, warmup_cosine_lr)
 from .rounding import stochastic_cast, stochastic_round_to_bf16
-from .data import SyntheticCriteo
-from .interop import dlrm_from_arrays
-from .serving import MicroBatcher, make_dlrm_service, serve_http
+from .data import SyntheticCriteo, SyntheticRetrieval
+from .interop import (dcn_from_arrays, deepfm_from_arrays, dlrm_from_arrays,
+                      two_tower_from_arrays)
+from .serving import (MicroBatcher, make_dcn_service, make_deepfm_service,
+                      make_dlrm_service, make_retrieval_service, serve_http)
 
 __all__ = [
     "Static", "Dynamic", "TableSpec", "IndexingContext", "NoContext",
@@ -60,7 +74,16 @@ __all__ = [
     "stochastic_cast", "stochastic_round_to_bf16",
     "DLRM", "DLRMConfig", "dlrm_small_config", "init_dlrm", "dlrm_forward",
     "make_eval_step", "make_train_step", "train_dlrm", "TrainResult",
-    "SyntheticCriteo", "dlrm_from_arrays",
-    "MicroBatcher", "make_dlrm_service", "serve_http",
+    "DCN", "DCNConfig", "dcn_small_config", "init_dcn", "dcn_forward",
+    "train_dcn", "DeepFM", "DeepFMConfig", "deepfm_small_config",
+    "init_deepfm", "deepfm_forward", "fuse_deepfm", "unfuse_deepfm",
+    "train_deepfm", "TwoTower", "TwoTowerConfig", "init_two_tower",
+    "two_tower_scores", "in_batch_softmax_loss", "build_item_index",
+    "make_retriever", "retrieve", "train_two_tower", "RetrievalTrainResult",
+    "evaluate_metrics",
+    "SyntheticCriteo", "SyntheticRetrieval", "dlrm_from_arrays",
+    "dcn_from_arrays", "deepfm_from_arrays", "two_tower_from_arrays",
+    "MicroBatcher", "make_dlrm_service", "make_dcn_service",
+    "make_deepfm_service", "make_retrieval_service", "serve_http",
     "config",
 ]

@@ -1,12 +1,16 @@
-"""Synthetic Criteo-shaped click logs for DLRM training (the port's copy of
-`SyntheticCriteo` from `embeddingtables_tpu/data.py`).
+"""Synthetic training data (the port's copy of `SyntheticCriteo` and
+`SyntheticRetrieval` from `embeddingtables_tpu/data.py`).
 
 The code is the JAX package's numpy code, so the same seed gives bitwise the
-same batches in both packages. Batches are dicts of host numpy arrays:
+same batches in both packages. `SyntheticCriteo` batches (CTR models) are
+dicts of host numpy arrays:
 
   dense:  (B, num_dense) float32   log1p-normalized
   cat:    (T, B) int32             per-table local row ids ((T, B, bag) bags)
   label:  (B,) float32             {0, 1}
+
+`SyntheticRetrieval` batches (the two-tower model): `dense (B, num_dense)`
+float32, `q_cat (T, B)` int32 and `item_ids (B,)` int32.
 """
 from __future__ import annotations
 
@@ -132,4 +136,38 @@ class SyntheticCriteo:
             prob = 1.0 / (1.0 + np.exp(-logit))
             label = (rng.random(b) < prob).astype(np.float32)
             yield dict(dense=dense, cat=cat, label=label)
+            i += 1
+
+
+@dataclasses.dataclass
+class SyntheticRetrieval:
+    """Seeded synthetic retrieval stream for two-tower training.
+
+    Planted structure: item j "belongs to" query feature cluster `j % vocab`
+    per query table, so queries carrying those features click that item and
+    recall@k is learnable far above chance. `unique_items=True` samples each
+    batch's positives without replacement (a duplicate positive is a false
+    negative under the in-batch softmax)."""
+
+    query_vocab_sizes: Sequence[int]
+    item_vocab: int
+    num_dense: int = 4
+    batch_size: int = 512
+    unique_items: bool = True
+    seed: int = 0
+
+    def batches(self, num_batches: Optional[int] = None) -> Iterator[dict]:
+        rng = np.random.default_rng(self.seed)
+        b = self.batch_size
+        i = 0
+        while num_batches is None or i < num_batches:
+            if self.unique_items and b <= self.item_vocab:
+                items = rng.choice(self.item_vocab, b,
+                                   replace=False).astype(np.int32)
+            else:
+                items = rng.integers(0, self.item_vocab, b).astype(np.int32)
+            q_cat = np.stack([items % v for v in self.query_vocab_sizes]
+                             ).astype(np.int32)
+            dense = rng.normal(size=(b, self.num_dense)).astype(np.float32)
+            yield dict(dense=dense, q_cat=q_cat, item_ids=items)
             i += 1

@@ -1,10 +1,18 @@
-"""Carry a DLRM's weights into the port from plain numpy arrays.
+"""Carry the models' weights into the port from plain numpy arrays.
 
-The arrays are what `np.asarray` gives for the JAX package's parameters, so a
-model trained there can be served here, and the tests can hold both packages
-to the same weights. bfloat16 arrays arrive as the `ml_dtypes` bfloat16
-numpy type, which `torch.from_numpy` refuses; they are reinterpreted bit for
-bit through uint16.
+The arrays are what `np.asarray` gives for the JAX package's parameters and
+optimizer states, so a model trained there can be served or trained on
+here, and the tests can hold both packages to the same weights. bfloat16
+arrays arrive as the `ml_dtypes` bfloat16 numpy type, which
+`torch.from_numpy` refuses; they are reinterpreted bit for bit through
+uint16.
+
+Each builder puts the model on `device` (CUDA unless given). Layers are
+lists of tuples of arrays (`(W (fan_in, fan_out), b)`; DCN's low-rank cross
+layers `(U, V, b)`). A sparse optimizer's state (`emb_state=` and the
+like) is any object with named fields, a NamedTuple such as the JAX
+package's or a dict: `accum` (SGD's zero-size one, or row-wise AdaGrad's);
+`m`, `v`, `count` (lazy Adam); or `z`, `n` (FTRL). None: SGD's empty state.
 """
 from __future__ import annotations
 
@@ -14,7 +22,10 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .models.dcn import DCN, DCNConfig
+from .models.deepfm import DeepFM, DeepFMConfig
 from .models.dlrm import _STATE_TYPES, DLRM, DLRMConfig
+from .models.two_tower import TwoTower, TwoTowerConfig
 from .ops.ensemble import StackedTables
 from .optim import SparseOptState
 
@@ -30,36 +41,86 @@ def tensor_from_array(arr, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _layers(layers, device) -> list:
+    return [tuple(tensor_from_array(a, device) for a in layer)
+            for layer in layers]
+
+
+def _state(state, device):
+    """A sparse optimizer's state from named arrays; None stays None."""
+    if state is None:
+        return None
+    fields = state if isinstance(state, dict) else state._asdict()
+    cls = _STATES.get(tuple(fields))
+    if cls is None:
+        raise ValueError(f"no optimizer state has the fields {tuple(fields)}")
+    return cls(**{k: tensor_from_array(v, device) for k, v in fields.items()})
+
+
+def _stack(data, offsets, device) -> StackedTables:
+    t = tensor_from_array(data, device)
+    return StackedTables(t, tuple(offsets), t.shape[1])
+
+
 def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
                      table_data, offsets: Sequence[int],
                      device=None, emb_accum=None, emb_state=None) -> DLRM:
-    """Build the port's `DLRM` on `device` (CUDA unless given) from numpy
-    arrays: `bottom`/`top` are lists of `(W (fan_in, fan_out), b)` pairs,
+    """The port's `DLRM` from numpy arrays: `bottom`/`top` the towers,
     `table_data` the stacked `(sum V, dim)` table, `offsets` its T+1 row
     offsets, and the sparse optimizer's state, so both packages train from
-    one state. `emb_accum` is the row-wise-AdaGrad accumulator `(sum V,)`;
-    `emb_state` any optimizer state with named fields (a NamedTuple such as
-    the JAX package's, or a dict): `accum`; `m`, `v`, `count` (lazy Adam);
-    or `z`, `n` (FTRL). Neither: SGD's empty state."""
+    one state: `emb_accum`, the row-wise-AdaGrad accumulator `(sum V,)`, or
+    `emb_state` (module docstring)."""
     device = resolve_device(device)
     if emb_accum is not None and emb_state is not None:
         raise ValueError("pass emb_accum= or emb_state=, not both")
+    if emb_accum is not None:
+        emb_state = SparseOptState(accum=tensor_from_array(emb_accum, device))
+    else:
+        emb_state = _state(emb_state, device)
+    return DLRM(cfg, _layers(bottom, device), _layers(top, device),
+                _stack(table_data, offsets, device), emb_state)
 
-    def mlp(layers):
-        return [(tensor_from_array(w, device), tensor_from_array(b, device))
-                for w, b in layers]
 
-    tables = StackedTables(tensor_from_array(table_data, device),
-                           tuple(offsets), cfg.dim)
-    state = None if emb_accum is None else \
-        SparseOptState(accum=tensor_from_array(emb_accum, device))
-    if emb_state is not None:
-        fields = (emb_state if isinstance(emb_state, dict)
-                  else emb_state._asdict())
-        cls = _STATES.get(tuple(fields))
-        if cls is None:
-            raise ValueError(f"no optimizer state has the fields "
-                             f"{tuple(fields)}")
-        state = cls(**{k: tensor_from_array(v, device)
-                       for k, v in fields.items()})
-    return DLRM(cfg, mlp(bottom), mlp(top), tables, state)
+def dcn_from_arrays(cfg: DCNConfig, cross: Sequence, deep: Sequence, head,
+                    table_data, offsets: Sequence[int], device=None,
+                    emb_state=None) -> DCN:
+    """The port's `DCN` from numpy arrays: `cross` the cross layers, `deep`
+    the tower, `head` one `(W, b)`, the stacked table, its offsets and its
+    optimizer state."""
+    device = resolve_device(device)
+    return DCN(cfg, _layers(cross, device), _layers(deep, device),
+               _layers([head], device)[0],
+               _stack(table_data, offsets, device), _state(emb_state, device))
+
+
+def deepfm_from_arrays(cfg: DeepFMConfig, deep: Sequence, head, dense_w,
+                       bias, table_data, offsets: Sequence[int],
+                       fm_w_data=None, device=None, emb_state=None,
+                       fm_state=None) -> DeepFM:
+    """The port's `DeepFM` from numpy arrays, in either layout: `table_data`
+    is the fused `(sum V, D+1)` stack when `cfg.folded`, else the D-wide
+    vectors with the `(sum V, 1)` first-order weights in `fm_w_data` and
+    their state in `fm_state`."""
+    device = resolve_device(device)
+    if cfg.use_fm and not cfg.folded and fm_w_data is None:
+        raise ValueError("the unfolded layout needs fm_w_data=")
+    fm_w = None if fm_w_data is None else _stack(fm_w_data, offsets, device)
+    return DeepFM(cfg, _layers(deep, device), _layers([head], device)[0],
+                  tensor_from_array(dense_w, device),
+                  tensor_from_array(bias, device),
+                  _stack(table_data, offsets, device), fm_w,
+                  _state(emb_state, device), _state(fm_state, device))
+
+
+def two_tower_from_arrays(cfg: TwoTowerConfig, query_mlp: Sequence,
+                          item_mlp: Sequence, query_table_data,
+                          offsets: Sequence[int], item_data, device=None,
+                          q_state=None, i_state=None) -> TwoTower:
+    """The port's `TwoTower` from numpy arrays: the two MLPs, the stacked
+    query table and its offsets, the `(item_vocab, dim)` item table, and
+    each table's optimizer state."""
+    device = resolve_device(device)
+    return TwoTower(cfg, _stack(query_table_data, offsets, device),
+                    tensor_from_array(item_data, device),
+                    _layers(query_mlp, device), _layers(item_mlp, device),
+                    _state(q_state, device), _state(i_state, device))

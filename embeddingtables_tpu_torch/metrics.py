@@ -1,6 +1,7 @@
-"""Training-quality metrics in numpy (the port's copy of `auc` and
-`log_loss` from `embeddingtables_tpu/metrics.py`; evaluation is a host-side
-concern)."""
+"""Training-quality metrics in numpy (the port's copy of the host metrics
+of `embeddingtables_tpu/metrics.py`: `auc`, `log_loss`,
+`normalized_entropy`, `calibration`, `accuracy`, `recall_at_k`; evaluation
+is a host-side concern)."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,3 +45,40 @@ def log_loss(labels, logits, eps: float = 1e-7) -> float:
     bce = np.logaddexp(0.0, logits) - labels * logits
     del eps  # kept for signature stability with probability-space callers
     return float(bce.mean())
+
+
+def normalized_entropy(labels, logits) -> float:
+    """Log loss normalized by the entropy of the base CTR (He et al.,
+    "Practical Lessons from Predicting Clicks on Ads at Facebook", ADKDD
+    2014). NE < 1 means the model beats the best constant predictor."""
+    labels = np.asarray(labels, np.float64).reshape(-1)
+    p = labels.mean()
+    if p <= 0.0 or p >= 1.0:
+        return float("nan")
+    base = -(p * np.log(p) + (1.0 - p) * np.log(1.0 - p))
+    return float(log_loss(labels, logits) / base)
+
+
+def calibration(labels, logits) -> float:
+    """Mean predicted CTR / empirical CTR; 1.0 is calibrated in aggregate."""
+    labels = np.asarray(labels, np.float64).reshape(-1)
+    logits = np.asarray(logits, np.float64).reshape(-1)
+    p = 1.0 / (1.0 + np.exp(-logits))
+    actual = labels.mean()
+    if actual <= 0.0:
+        return float("nan")
+    return float(p.mean() / actual)
+
+
+def accuracy(labels, scores, threshold: float = 0.0) -> float:
+    labels = np.asarray(labels).reshape(-1)
+    scores = np.asarray(scores).reshape(-1)
+    return float(((scores > threshold) == (labels > 0.5)).mean())
+
+
+def recall_at_k(true_ids, retrieved_ids) -> float:
+    """Fraction of queries whose positive item appears in the retrieved
+    top k. true_ids: (B,); retrieved_ids: (B, k)."""
+    true_ids = np.asarray(true_ids).reshape(-1, 1)
+    retrieved_ids = np.asarray(retrieved_ids)
+    return float((retrieved_ids == true_ids).any(axis=1).mean())

@@ -1,8 +1,25 @@
 """Model families built on the embedding engine."""
+from .dcn import (DCN, DCNConfig, dcn_forward, dcn_small_config, init_dcn)
+from .deepfm import (DeepFM, DeepFMConfig, deepfm_forward,
+                     deepfm_small_config, fuse_deepfm, init_deepfm,
+                     unfuse_deepfm)
 from .dlrm import (DLRM, DLRMConfig, bce_loss, dlrm_forward, dlrm_small_config,
                    init_dlrm, make_eval_step, make_train_step)
-from .train import TrainResult, evaluate_auc, train_dlrm
+from .train import (RetrievalTrainResult, TrainResult, evaluate_auc,
+                    evaluate_metrics, train_dcn, train_deepfm, train_dlrm,
+                    train_two_tower)
+from .two_tower import (TwoTower, TwoTowerConfig, build_item_index,
+                        in_batch_softmax_loss, init_two_tower, make_retriever,
+                        retrieve, two_tower_scores)
 
 __all__ = ["DLRM", "DLRMConfig", "dlrm_small_config", "init_dlrm",
            "dlrm_forward", "make_eval_step", "make_train_step", "bce_loss",
-           "train_dlrm", "TrainResult", "evaluate_auc"]
+           "DCN", "DCNConfig", "dcn_small_config", "init_dcn", "dcn_forward",
+           "DeepFM", "DeepFMConfig", "deepfm_small_config", "init_deepfm",
+           "deepfm_forward", "fuse_deepfm", "unfuse_deepfm",
+           "TwoTower", "TwoTowerConfig", "init_two_tower", "two_tower_scores",
+           "in_batch_softmax_loss", "build_item_index", "make_retriever",
+           "retrieve",
+           "train_dlrm", "train_dcn", "train_deepfm", "train_two_tower",
+           "TrainResult", "RetrievalTrainResult", "evaluate_auc",
+           "evaluate_metrics"]

@@ -98,9 +98,63 @@ def _pairs(params: nn.ParameterList):
     return [(p[i], p[i + 1]) for i in range(0, len(p), 2)]
 
 
-# The sparse optimizers' state types; `DLRM` keeps each field as a buffer
-# named `emb_<field>` (SGD and AdaGrad: `emb_accum`).
+def _param_list(layers) -> nn.ParameterList:
+    """`[(W, b), ...]` (or any tuples of tensors) -> one flat ParameterList."""
+    return nn.ParameterList([nn.Parameter(t) for layer in layers
+                             for t in layer])
+
+
+# The sparse optimizers' state types; a model holds each of its states as
+# buffers named `<prefix>_<field>` (`RowState`).
 _STATE_TYPES = (SparseOptState, SparseAdamState, SparseFTRLState)
+
+
+class RowState:
+    """A sparse optimizer's row state, held by an `nn.Module` as one buffer
+    per field, `<prefix>_<field>` (SGD and AdaGrad: `<prefix>_accum`). The
+    first assignment picks the state type; later ones must keep it. An
+    optional state (DeepFM's `fm_state`) may be None, and stays None."""
+
+    def __init__(self, prefix: str, optional: bool = False):
+        self.prefix, self.optional = prefix, optional
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def _type(self, obj):
+        return obj.__dict__.get("_state_types", {}).get(self.prefix)
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        cls = self._type(obj)
+        if cls is None:
+            return None
+        return cls(*[getattr(obj, f"{self.prefix}_{f}") for f in cls._fields])
+
+    def __set__(self, obj, state) -> None:
+        types = obj.__dict__.setdefault("_state_types", {})
+        if self.prefix in types:
+            held = types[self.prefix]
+            if (held is None) != (state is None) or (
+                    state is not None and type(state) is not held):
+                raise TypeError(f"the model holds a "
+                                f"{getattr(held, '__name__', 'None')} as "
+                                f"{self.name}, got a {type(state).__name__}")
+            if state is not None:
+                for name, value in zip(state._fields, state):
+                    setattr(obj, f"{self.prefix}_{name}", value)
+            return
+        if state is None and self.optional:
+            types[self.prefix] = None
+            return
+        if type(state) not in _STATE_TYPES:
+            raise TypeError(f"{self.name} must be one of "
+                            f"{[c.__name__ for c in _STATE_TYPES]}, got "
+                            f"{type(state).__name__}")
+        types[self.prefix] = type(state)
+        for name, value in zip(state._fields, state):
+            obj.register_buffer(f"{self.prefix}_{name}", value)
 
 
 class DLRM(nn.Module):
@@ -109,37 +163,17 @@ class DLRM(nn.Module):
     (`emb_state`: a `SparseOptState`, with a zero-size accumulator for SGD,
     a `SparseAdamState` or a `SparseFTRLState`), held as buffers."""
 
+    emb_state = RowState("emb")
+
     def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables,
                  emb_state=None):
         super().__init__()
         self.config = config
-        self.bottom_params = nn.ParameterList(
-            [nn.Parameter(t) for wb in bottom for t in wb])
-        self.top_params = nn.ParameterList(
-            [nn.Parameter(t) for wb in top for t in wb])
+        self.bottom_params = _param_list(bottom)
+        self.top_params = _param_list(top)
         self.tables = tables
-        if emb_state is None:
-            emb_state = SparseSGD().init(tables.data)
-        if type(emb_state) not in _STATE_TYPES:
-            raise TypeError(f"emb_state must be one of "
-                            f"{[c.__name__ for c in _STATE_TYPES]}, got "
-                            f"{type(emb_state).__name__}")
-        self._state_type = type(emb_state)
-        for name, value in zip(emb_state._fields, emb_state):
-            self.register_buffer("emb_" + name, value)
-
-    @property
-    def emb_state(self):
-        cls = self._state_type
-        return cls(*[getattr(self, "emb_" + f) for f in cls._fields])
-
-    @emb_state.setter
-    def emb_state(self, state) -> None:
-        if type(state) is not self._state_type:
-            raise TypeError(f"the model holds a {self._state_type.__name__}, "
-                            f"got a {type(state).__name__}")
-        for name, value in zip(state._fields, state):
-            setattr(self, "emb_" + name, value)
+        self.emb_state = (SparseSGD().init(tables.data) if emb_state is None
+                          else emb_state)
 
     @property
     def bottom(self):
@@ -163,6 +197,24 @@ def _init_mlp(sizes, dtype, generator, device):
     return layers
 
 
+def uniform_rows(rows: int, dim: int, dtype, generator, device
+                 ) -> torch.Tensor:
+    """A `(rows, dim)` table uniform in [-1, 1) / sqrt(dim), drawn in f32
+    and stored as `dtype`."""
+    data = torch.empty((rows, dim), dtype=torch.float32, device=device)
+    data.uniform_(-1.0, 1.0, generator=generator)
+    data /= float(dim) ** 0.5
+    return data.to(dtype)
+
+
+def stacked_table_init(vocab_sizes, dim: int, dtype, generator, device
+                       ) -> StackedTables:
+    """The stacked ensemble of `vocab_sizes` rows (`uniform_rows`)."""
+    offs = np.concatenate([[0], np.cumsum(vocab_sizes)]).tolist()
+    return StackedTables(uniform_rows(offs[-1], dim, dtype, generator,
+                                      device), offs, dim)
+
+
 def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
               device=None, sparse_opt=None) -> DLRM:
     """Random DLRM on `device` (CUDA unless given): Glorot-normal towers,
@@ -176,12 +228,8 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
                        generator, device)
     top = _init_mlp((cfg.interaction_features,) + cfg.top_mlp,
                     cfg.param_dtype, generator, device)
-    data = torch.empty((sum(cfg.vocab_sizes), cfg.dim), dtype=torch.float32,
-                       device=device)
-    data.uniform_(-1.0, 1.0, generator=generator)
-    data /= float(cfg.dim) ** 0.5
-    offs = np.concatenate([[0], np.cumsum(cfg.vocab_sizes)]).tolist()
-    tables = StackedTables(data.to(cfg.tables_dtype), offs, cfg.dim)
+    tables = stacked_table_init(cfg.vocab_sizes, cfg.dim, cfg.tables_dtype,
+                                generator, device)
     state = (sparse_opt or SparseSGD()).init(tables.data)
     return DLRM(cfg, bottom, top, tables, state)
 
@@ -452,6 +500,39 @@ def make_eval_step(cfg: DLRMConfig):
     return step
 
 
+def lazy_stack_update(flat, valid, delta_t: torch.Tensor, dim: int,
+                      combiner: str) -> SparseEmbeddingUpdate:
+    """The lazy update of a stacked ensemble from its flat ids and validity
+    mask (`stacked_flat_indices`) and the `(T, B, dim)` activation
+    cotangent, weighted as the forward combined the bags."""
+    w = stacked_update_weights(valid, combiner, flat.shape)
+    return SparseEmbeddingUpdate(
+        delta=delta_t.reshape(-1, dim).float(), indices=flat,
+        weights=None if w is None else w.to(flat.device))
+
+
+def refuse_unported_step_options(dense_tx, microbatch) -> None:
+    """The train steps' options that wait for later slices."""
+    if dense_tx is not None:
+        raise NotImplementedError(
+            "dense_tx waits for the port's torch.optim support")
+    if microbatch and microbatch > 1:
+        raise NotImplementedError(
+            "microbatch waits for the port's models/microbatch.py")
+
+
+def step_generator(sparse_opt, generator, loop: str) -> dict:
+    """`apply`'s stochastic-rounding keywords for one step: the generator
+    when `sparse_opt` rounds stochastically (required then), else none."""
+    if not getattr(sparse_opt, "stochastic_rounding", False):
+        return {}
+    if generator is None:
+        raise ValueError(
+            "sparse_opt.stochastic_rounding=True: pass a torch.Generator "
+            f"as generator= ({loop} passes one)")
+    return {"generator": generator}
+
+
 def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
                     dense_tx=None, microbatch: Optional[int] = None):
     """The single-device train step,
@@ -467,20 +548,11 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
     overrides `sparse_opt.lr` for this step; `generator` feeds stochastic
     rounding and is required when `sparse_opt.stochastic_rounding` is set.
     `dense_tx` and `microbatch` are not ported yet."""
-    if dense_tx is not None:
-        raise NotImplementedError(
-            "dense_tx waits for the port's torch.optim support")
-    if microbatch and microbatch > 1:
-        raise NotImplementedError(
-            "microbatch waits for the port's models/microbatch.py")
+    refuse_unported_step_options(dense_tx, microbatch)
     sparse_opt = sparse_opt or SparseSGD()
-    use_sr = bool(getattr(sparse_opt, "stochastic_rounding", False))
 
     def step(model: DLRM, dense, cat, label, lr=None, generator=None):
-        if use_sr and generator is None:
-            raise ValueError(
-                "sparse_opt.stochastic_rounding=True: pass a torch.Generator "
-                "as generator= (train_dlrm passes one)")
+        kw = step_generator(sparse_opt, generator, "train_dlrm")
         tables = model.tables
         device = tables.data.device
         dense = torch.as_tensor(dense).to(device)
@@ -498,11 +570,7 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
             loss = bce_loss(logits, label)
             *dense_grads, delta_t = torch.autograd.grad(loss,
                                                         params + [emb_t])
-        w = stacked_update_weights(valid, cfg.combiner, flat.shape)
-        upd = SparseEmbeddingUpdate(
-            delta=delta_t.reshape(-1, cfg.dim).float(), indices=flat,
-            weights=None if w is None else w.to(device))
-        kw = {"generator": generator} if use_sr else {}
+        upd = lazy_stack_update(flat, valid, delta_t, cfg.dim, cfg.combiner)
         tables.data, model.emb_state = sparse_opt.apply(
             tables.data, upd, model.emb_state, lr=lr, **kw)
         apply_dense_tx(params, dense_grads, None, None, dense_lr)

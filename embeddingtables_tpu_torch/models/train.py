@@ -1,32 +1,44 @@
-"""The single-device DLRM training loop (counterpart of
-`embeddingtables_tpu/models/train.py::train_dlrm`).
+"""The single-device training loops (counterpart of
+`embeddingtables_tpu/models/train.py`): one loop behind four thin entry
+points.
 
-Per step: fetch a host batch, move it to the model's device, run
-`make_train_step` (which updates the model in place), and at the log cadence
-read the loss back. Eval AUC runs at `eval_every`. The JAX loop's mesh,
-planner, eviction, checkpoint, guard and prefetch options are not ported yet:
-setting one raises `NotImplementedError`.
+  - `_Family` names one CTR family's init, train-step and eval-step
+    factories and its `*_from_arrays` builder; `_train_ctr` trains any of
+    them on `dense`/`cat`/`label` batches. `train_dlrm`, `train_dcn` and
+    `train_deepfm` are thin calls.
+  - `_run_loop` owns the per-step cadence for every family: fetch a host
+    batch, move it to the model's device, run the step (which updates the
+    model in place), read the loss back at the log cadence, evaluate at
+    `eval_every`. `train_two_tower` runs it with its own batches, step and
+    recall@k eval.
+
+The JAX loops' mesh, planner, eviction, checkpoint, guard, prefetch,
+microbatch and `dense_tx` options are not ported yet: setting one raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..metrics import auc
-from ..optim import SparseFTRL
-from .dlrm import DLRMConfig, init_dlrm, make_eval_step, make_train_step
+from ..metrics import (auc, calibration, log_loss, normalized_entropy,
+                       recall_at_k)
+from ..optim import SparseFTRL, SparseSGD
+from .dlrm import DLRMConfig
 
-# Options of the JAX `train_dlrm` that the port does not have yet, with the
-# value that leaves each off.
-_NOT_PORTED = {"mesh": None, "plan": None, "exchange": "gather",
-               "evict_every": 0, "delta_ckpt": None, "ckpt_manager": None,
-               "guard": None, "device_prefetch": 0, "microbatch": None,
-               "dense_tx": None}
+# Options of the JAX CTR loops that the port does not have yet, with the
+# value that leaves each off; `train_dlrm` also has `exchange`.
+_NOT_PORTED = {"mesh": None, "plan": None, "evict_every": 0,
+               "delta_ckpt": None, "ckpt_manager": None, "guard": None,
+               "device_prefetch": 0, "microbatch": None, "dense_tx": None}
+_NOT_PORTED_DLRM = {**_NOT_PORTED, "exchange": "gather"}
+_NOT_PORTED_TWO_TOWER = {k: _NOT_PORTED[k] for k in (
+    "mesh", "plan", "delta_ckpt", "ckpt_manager", "device_prefetch")}
 
 
 @dataclasses.dataclass
@@ -38,14 +50,46 @@ class TrainResult:
     evicted_rows: int = 0
 
 
-def evaluate_auc(eval_step, model, batches) -> float:
-    """AUC of `eval_step`'s logits over host `batches`."""
+@dataclasses.dataclass
+class RetrievalTrainResult:
+    model: object
+    losses: list
+    accs: list               # in-batch top-1 accuracy at the log cadence
+    recalls: list            # [(step, recall@k)]
+    examples_per_sec: float
+
+
+def _refuse_not_ported(loop: str, not_ported: dict, allowed: dict) -> None:
+    for name, value in not_ported.items():
+        if name not in allowed:
+            raise TypeError(f"{loop}() got an unexpected keyword argument "
+                            f"{name!r}")
+        if value != allowed[name]:
+            raise NotImplementedError(f"{loop}({name}=...) is not ported yet")
+
+
+def _collect_scores(eval_step, model, batches):
+    """One pass of `eval_step` over host `batches` -> (labels, logits)."""
     labels, scores = [], []
     for b in batches:
         labels.append(b["label"])
         scores.append(eval_step(model, b["dense"], b["cat"]).float().cpu()
                       .numpy())
-    return auc(np.concatenate(labels), np.concatenate(scores))
+    return np.concatenate(labels), np.concatenate(scores)
+
+
+def evaluate_auc(eval_step, model, batches) -> float:
+    """AUC of `eval_step`'s logits over host `batches`."""
+    return auc(*_collect_scores(eval_step, model, batches))
+
+
+def evaluate_metrics(eval_step, model, batches) -> dict:
+    """The CTR eval sweep: AUC, log loss, normalized entropy and
+    calibration of `eval_step`'s logits over host `batches`."""
+    y, z = _collect_scores(eval_step, model, batches)
+    return dict(auc=auc(y, z), log_loss=log_loss(y, z),
+                normalized_entropy=normalized_entropy(y, z),
+                calibration=calibration(y, z))
 
 
 def _sr_generator_for(sparse_opt, seed: int, device: torch.device):
@@ -57,63 +101,255 @@ def _sr_generator_for(sparse_opt, seed: int, device: torch.device):
     return None
 
 
+def _run_loop(*, model, device, step, put, train_iter, num_steps,
+              batch_count, lr_schedule=None, generator=None, split_out=None,
+              log_every=100, verbose=True, on_log=None, eval_every=0,
+              eval_batches=None, eval_fn=None):
+    """The shared per-step cadence. Hooks:
+
+      put(batch) -> args              the step's positional inputs
+      split_out(out) -> loss          default: the output is the loss
+      on_log(i, loss_value)           replaces the default log line
+      eval_fn(model) -> (value, line) at the eval_every cadence
+
+    Returns (losses, evals, examples_per_sec)."""
+    losses, evals = [], []
+    examples = 0
+    t_start = time.perf_counter()
+    for i in range(num_steps):
+        batch = next(train_iter)
+        kw = {} if generator is None else {"generator": generator}
+        if lr_schedule is not None:
+            kw["lr"] = lr_schedule(i)
+        out = step(model, *put(batch), **kw)
+        loss = out if split_out is None else split_out(out)
+        examples += batch_count(batch)
+        if log_every and (i % log_every == 0 or i == num_steps - 1):
+            lv = float(loss)       # waits for the step: keeps the rate honest
+            losses.append(lv)
+            if on_log is not None:
+                on_log(i, lv)
+            elif verbose:
+                print(f"step {i:6d}  loss {lv:.5f}", flush=True)
+        if eval_every and eval_batches and (i + 1) % eval_every == 0:
+            value, line = eval_fn(model)
+            evals.append((i + 1, value))
+            if verbose:
+                print(f"step {i + 1:6d}  {line}", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return losses, evals, examples / (time.perf_counter() - t_start)
+
+
+# ---------------------------------------------------------------------------
+# The CTR families and their loop
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Family:
+    """One CTR family on one device: its init, train-step and eval-step
+    factories, and its builder from numpy arrays (`model=` may be the
+    builder's keyword arguments, a model trained by the JAX package)."""
+
+    name: str
+    init: Callable         # (cfg, generator, device=, sparse_opt=) -> model
+    train_step: Callable   # (cfg, sparse_opt=, dense_lr=) -> step
+    eval_step: Callable    # (cfg) -> step
+    from_arrays: Callable  # (cfg, device=, **arrays) -> model
+
+
+def _dlrm_family() -> _Family:
+    from . import dlrm
+    from ..interop import dlrm_from_arrays
+    return _Family("dlrm", dlrm.init_dlrm, dlrm.make_train_step,
+                   dlrm.make_eval_step, dlrm_from_arrays)
+
+
+def _dcn_family() -> _Family:
+    from . import dcn
+    from ..interop import dcn_from_arrays
+    return _Family("dcn", dcn.init_dcn, dcn.make_train_step,
+                   dcn.make_eval_step, dcn_from_arrays)
+
+
+def _deepfm_family() -> _Family:
+    from . import deepfm
+    from ..interop import deepfm_from_arrays
+    return _Family("deepfm", deepfm.init_deepfm, deepfm.make_train_step,
+                   deepfm.make_eval_step, deepfm_from_arrays)
+
+
+def _model_for(init, from_arrays, cfg, model, seed: int, device,
+               sparse_opt):
+    """The model to train in place: `model` itself, one built from numpy
+    arrays (`model` a dict of `from_arrays`'s keyword arguments), or a fresh
+    `init` from `seed` on `device` (CUDA unless given)."""
+    if isinstance(model, dict):
+        return from_arrays(cfg, device=resolve_device(device), **model)
+    if model is not None:
+        return model
+    device = resolve_device(device)
+    return init(cfg, torch.Generator(device=device).manual_seed(seed),
+                device=device, sparse_opt=sparse_opt)
+
+
+def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
+               dense_lr, model, seed, eval_batches, eval_every, eval_metrics,
+               log_every, lr_schedule, verbose, device, not_ported,
+               allowed=_NOT_PORTED) -> TrainResult:
+    """The CTR (dense/cat/label) training run of any family."""
+    _refuse_not_ported(f"train_{fam.name}", not_ported, allowed)
+    if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
+        raise ValueError(
+            "SparseFTRL cannot change lr per step: alpha is baked into the "
+            "accumulated z state, so it takes no lr_schedule")
+    model = _model_for(fam.init, fam.from_arrays, cfg, model, seed, device,
+                       sparse_opt)
+    device = model.tables.data.device
+    step = fam.train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
+    eval_step = fam.eval_step(cfg)
+
+    def put(b):
+        return tuple(torch.as_tensor(b[k]).to(device)
+                     for k in ("dense", "cat", "label"))
+
+    def eval_fn(m):
+        if eval_metrics:
+            met = evaluate_metrics(eval_step, m, eval_batches)
+            return met["auc"], (
+                f"eval AUC {met['auc']:.4f}  logloss {met['log_loss']:.5f}  "
+                f"NE {met['normalized_entropy']:.4f}  calib "
+                f"{met['calibration']:.3f}")
+        a = evaluate_auc(eval_step, m, eval_batches)
+        return a, f"eval AUC {a:.4f}"
+
+    losses, aucs, eps = _run_loop(
+        model=model, device=device, step=step, put=put, train_iter=train_iter,
+        num_steps=num_steps, batch_count=lambda b: b["label"].shape[0],
+        lr_schedule=lr_schedule,
+        generator=_sr_generator_for(sparse_opt, seed, device),
+        log_every=log_every, verbose=verbose, eval_every=eval_every,
+        eval_batches=eval_batches, eval_fn=eval_fn)
+    return TrainResult(model=model, losses=losses, aucs=aucs,
+                       examples_per_sec=eps)
+
+
 def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
                sparse_opt=None, dense_lr: float = 0.01, model=None,
                seed: int = 0, eval_batches: Optional[list] = None,
-               eval_every: int = 0, log_every: int = 100, lr_schedule=None,
-               verbose: bool = True, device=None,
-               **not_ported) -> TrainResult:
+               eval_every: int = 0, eval_metrics: bool = False,
+               log_every: int = 100, lr_schedule=None, verbose: bool = True,
+               device=None, **not_ported) -> TrainResult:
     """Train a DLRM for `num_steps` batches from `train_iter` on one device.
 
     `model` is trained in place; without one, `init_dlrm` builds one on
     `device` (CUDA unless given) from `seed`. `lr_schedule(step)` sets the
     sparse optimizer's lr per step. `losses` holds the loss at every
     `log_every`-th step and the last; `aucs` the eval AUC every `eval_every`
-    steps. The options of `_NOT_PORTED` raise when set, and so does an
-    `lr_schedule` with `SparseFTRL` (alpha is baked into its state), before
-    the first step, as the JAX loop's first step does."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"train_dlrm() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value != _NOT_PORTED[name]:
-            raise NotImplementedError(
-                f"train_dlrm({name}=...) is not ported yet")
-    if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
-        raise ValueError(
-            "SparseFTRL cannot change lr per step: alpha is baked into the "
-            "accumulated z state, so it takes no lr_schedule")
-    if model is None:
-        device = resolve_device(device)
-        model = init_dlrm(cfg, torch.Generator(device=device).manual_seed(seed),
-                          device=device, sparse_opt=sparse_opt)
-    device = model.tables.data.device
-    step = make_train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
-    eval_step = make_eval_step(cfg)
-    generator = _sr_generator_for(sparse_opt, seed, device)
-    losses, aucs = [], []
-    examples = 0
-    t_start = time.perf_counter()
-    for i in range(num_steps):
-        batch = next(train_iter)
-        lr = None if lr_schedule is None else lr_schedule(i)
-        loss = step(model, torch.as_tensor(batch["dense"]).to(device),
-                    torch.as_tensor(batch["cat"]).to(device),
-                    torch.as_tensor(batch["label"]).to(device), lr=lr,
-                    generator=generator)
-        examples += batch["label"].shape[0]
-        if log_every and (i % log_every == 0 or i == num_steps - 1):
-            lv = float(loss)       # waits for the step: keeps the rate honest
-            losses.append(lv)
-            if verbose:
-                print(f"step {i:6d}  loss {lv:.5f}", flush=True)
-        if eval_every and eval_batches and (i + 1) % eval_every == 0:
-            a = evaluate_auc(eval_step, model, eval_batches)
-            aucs.append((i + 1, a))
-            if verbose:
-                print(f"step {i + 1:6d}  eval AUC {a:.4f}", flush=True)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t_start
-    return TrainResult(model=model, losses=losses, aucs=aucs,
-                       examples_per_sec=examples / dt)
+    steps (`eval_metrics=True` also prints log loss, normalized entropy and
+    calibration). The options of `_NOT_PORTED` raise when set, and so does
+    an `lr_schedule` with `SparseFTRL` (alpha is baked into its state),
+    before the first step, as the JAX loop's first step does."""
+    return _train_ctr(
+        _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
+        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        not_ported=not_ported, allowed=_NOT_PORTED_DLRM)
+
+
+def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
+              sparse_opt=None, dense_lr: float = 0.01, model=None,
+              seed: int = 0, eval_batches: Optional[list] = None,
+              eval_every: int = 0, eval_metrics: bool = False,
+              log_every: int = 100, lr_schedule=None, verbose: bool = True,
+              device=None, **not_ported) -> TrainResult:
+    """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches and
+    cadence."""
+    return _train_ctr(
+        _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
+        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        not_ported=not_ported)
+
+
+def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
+                 sparse_opt=None, dense_lr: float = 0.01, model=None,
+                 seed: int = 0, eval_batches: Optional[list] = None,
+                 eval_every: int = 0, eval_metrics: bool = False,
+                 log_every: int = 100, lr_schedule=None,
+                 verbose: bool = True, device=None,
+                 **not_ported) -> TrainResult:
+    """Train a DeepFM (`models/deepfm.py`, either layout) on `train_dlrm`'s
+    batches and cadence."""
+    return _train_ctr(
+        _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
+        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        not_ported=not_ported)
+
+
+# ---------------------------------------------------------------------------
+# Retrieval
+# ---------------------------------------------------------------------------
+
+def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
+                    sparse_opt=None, dense_lr: float = 0.05, model=None,
+                    seed: int = 0, eval_batches=None, eval_every: int = 0,
+                    k: int = 10, log_every: int = 100, verbose: bool = True,
+                    device=None, **not_ported) -> RetrievalTrainResult:
+    """Train a two-tower retriever for `num_steps` batches from `train_iter`
+    (dicts with dense/q_cat/item_ids, `data.SyntheticRetrieval`'s layout)
+    on one device. `accs` holds the in-batch top-1 accuracy at the log
+    cadence; every `eval_every` steps the item index is rebuilt and the
+    recall@k of the positive item over `eval_batches` joins `recalls`."""
+    from . import two_tower as tt
+    from ..interop import two_tower_from_arrays
+    _refuse_not_ported("train_two_tower", not_ported, _NOT_PORTED_TWO_TOWER)
+    sparse_opt = sparse_opt or SparseSGD(0.05)
+    model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg, model,
+                       seed, device, sparse_opt)
+    device = model.item_data.device
+    step = tt.make_train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
+
+    def put(b):
+        return tuple(torch.as_tensor(b[key]).to(device)
+                     for key in ("dense", "q_cat", "item_ids"))
+
+    def eval_fn(m):
+        index = tt.build_item_index(m)
+        retriever = tt.make_retriever(m, k=k)
+        hits, total = 0.0, 0
+        for b in eval_batches:
+            _, ids = retriever(index, b["dense"], b["q_cat"])
+            n = b["item_ids"].shape[0]
+            hits += recall_at_k(b["item_ids"], ids.cpu().numpy()) * n
+            total += n
+        r = hits / max(total, 1)
+        return r, f"recall@{k} {r:.4f}"
+
+    # The step returns (loss, in-batch accuracy); the loop logs the loss,
+    # on_log records and prints the accuracy.
+    accs, last_acc = [], {}
+
+    def split_out(out):
+        last_acc["acc"] = out[1]
+        return out[0]
+
+    def on_log(i, lv):
+        accs.append(float(last_acc["acc"]))
+        if verbose:
+            print(f"step {i:6d}  loss {lv:.5f}  in-batch acc {accs[-1]:.3f}",
+                  flush=True)
+
+    losses, recalls, eps = _run_loop(
+        model=model, device=device, step=step, put=put, train_iter=train_iter,
+        num_steps=num_steps, batch_count=lambda b: b["item_ids"].shape[0],
+        generator=_sr_generator_for(sparse_opt, seed, device),
+        split_out=split_out, log_every=log_every, verbose=verbose,
+        on_log=on_log, eval_every=eval_every, eval_batches=eval_batches,
+        eval_fn=eval_fn)
+    return RetrievalTrainResult(model=model, losses=losses, accs=accs,
+                                recalls=recalls, examples_per_sec=eps)

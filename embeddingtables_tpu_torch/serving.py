@@ -7,7 +7,9 @@ of `embeddingtables_tpu/serving.py`).
     `max_latency_ms` elapses since the oldest queued request. Flushed
     batches are padded up to power-of-two buckets, so the device sees
     O(log max_batch) distinct batch shapes.
-  - `make_dlrm_service`: glue from a DLRM to a `MicroBatcher`.
+  - `make_dlrm_service`, `make_dcn_service`, `make_deepfm_service`: glue
+    from a CTR model to a `MicroBatcher`; `make_retrieval_service` serves a
+    two-tower model's top-k retrieval the same way.
   - `serve_http`: a stdlib `ThreadingHTTPServer` JSON endpoint
     (`POST /predict`) over a `MicroBatcher`.
 
@@ -28,7 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .models.dlrm import make_eval_step
+from .models import dcn, deepfm, dlrm, two_tower
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -212,17 +214,7 @@ class MicroBatcher:
             off += p.size
 
 
-def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
-                      max_batch: int = 1024,
-                      max_latency_ms: float = 5.0) -> MicroBatcher:
-    """Batched DLRM scoring service on the model's device.
-
-    Each flushed batch is copied to the device, scored by `dlrm_forward`
-    under `torch.inference_mode()`, and copied back as numpy float32. Nothing
-    synchronises explicitly: the copy back is where the worker waits for the
-    batch. Returns a running `MicroBatcher`; use `.predict`/`.submit`,
-    `.stop()` when done.
-    """
+def _refuse_unported_serving(quantized: bool, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving waits for the port's multi-device slice "
@@ -231,6 +223,15 @@ def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
         raise NotImplementedError(
             "quantized serving waits for the port of quant.py "
             "(ROADMAP.md queue 1, item 8: Table variants)")
+
+
+def _scoring_service(model, make_eval_step, *, quantized, mesh, max_batch,
+                     max_latency_ms) -> MicroBatcher:
+    """A CTR model's eval step behind a `MicroBatcher`: each flushed batch
+    is copied to the model's device, scored under `torch.inference_mode()`
+    and copied back as numpy float32. Nothing synchronises explicitly: the
+    copy back is where the worker waits for the batch."""
+    _refuse_unported_serving(quantized, mesh)
     step = make_eval_step(model.config)
     device = model.tables.data.device
 
@@ -238,6 +239,59 @@ def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
         d = torch.from_numpy(dense).to(device)
         c = torch.from_numpy(cat).to(device)
         return step(model, d, c).cpu().numpy()
+
+    return MicroBatcher(predict, max_batch=max_batch,
+                        max_latency_ms=max_latency_ms)
+
+
+def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
+                      max_batch: int = 1024,
+                      max_latency_ms: float = 5.0) -> MicroBatcher:
+    """Batched DLRM scoring service on the model's device: `dlrm_forward`
+    per flushed batch (`_scoring_service`). Returns a running
+    `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
+    `quantized=` and `mesh=` are not ported yet."""
+    return _scoring_service(model, dlrm.make_eval_step, quantized=quantized,
+                            mesh=mesh, max_batch=max_batch,
+                            max_latency_ms=max_latency_ms)
+
+
+def make_dcn_service(model, *, quantized: bool = False, mesh=None,
+                     max_batch: int = 1024,
+                     max_latency_ms: float = 5.0) -> MicroBatcher:
+    """Batched DCN-v2 scoring service, `make_dlrm_service`'s contract for a
+    `models.dcn.DCN`."""
+    return _scoring_service(model, dcn.make_eval_step, quantized=quantized,
+                            mesh=mesh, max_batch=max_batch,
+                            max_latency_ms=max_latency_ms)
+
+
+def make_deepfm_service(model, *, quantized: bool = False, mesh=None,
+                        max_batch: int = 1024,
+                        max_latency_ms: float = 5.0) -> MicroBatcher:
+    """Batched DeepFM scoring service (either layout),
+    `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`."""
+    return _scoring_service(model, deepfm.make_eval_step, quantized=quantized,
+                            mesh=mesh, max_batch=max_batch,
+                            max_latency_ms=max_latency_ms)
+
+
+def make_retrieval_service(model, *, k: int = 10, mesh=None,
+                           max_batch: int = 1024,
+                           max_latency_ms: float = 5.0) -> MicroBatcher:
+    """Batched two-tower top-k retrieval service on the model's device.
+
+    Builds the item index once (`build_item_index`) and one retriever
+    (`make_retriever`); requests coalesce through the MicroBatcher, the
+    `cat` argument of `submit`/`predict` being the `(T, b)` query features.
+    Each request resolves to `(scores (b, k) float32, item_ids (b, k)
+    int32)`. `mesh=` is not ported yet."""
+    _refuse_unported_serving(False, mesh)
+    index = two_tower.build_item_index(model)
+    run = two_tower.make_retriever(model, k=k)
+
+    def predict(dense, cat):
+        return tuple(o.cpu().numpy() for o in run(index, dense, cat))
 
     return MicroBatcher(predict, max_batch=max_batch,
                         max_latency_ms=max_latency_ms)

@@ -429,3 +429,134 @@ def test_cuda_split_adagrad_runs_one_run_scatter_per_shard(cuda_device):
     torch.testing.assert_close(split.materialize(), simple.data, rtol=1e-6,
                                atol=1e-6)
     torch.testing.assert_close(ps.accum, ss.accum, rtol=1e-6, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The model families' widths: DeepFM's fused stack (D + 1 = 129) and its
+# unfolded first-order stack (D = 1), and one train step of each family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [129, 1])
+def test_cuda_family_widths_gather_bitwise(cuda_device, dtype, d):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    v = 5000
+    tab = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(-v - 3, v + 3, (40_001,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    got = G.gather_rows(tab, idx)
+    want = G.gather_rows_plain(tab, idx)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("adagrad", [False, True])
+@pytest.mark.parametrize("d", [129, 1])
+def test_cuda_family_widths_scatter_matches_plain(cuda_device, dtype,
+                                                  adagrad, d):
+    # Zipf runs over many windows, padding and rows >= V, at the two widths
+    # that leave the kernel's vector path: every column of a 129-wide row
+    # (the tail lane) and the one column of a 1-wide row.
+    g = torch.Generator(device=cuda_device).manual_seed(3 * d + adagrad)
+    v, n = 3000, 20_000
+    rows = _sorted_rows(g, cuda_device, n, v, True)
+    vals = torch.randn((n, d), generator=g, device=cuda_device)
+    table = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
+    accum = (torch.rand((v,), generator=g, device=cuda_device)
+             if adagrad else None)
+    t_k, t_p = table.clone(), table.clone()
+    a_k = None if accum is None else accum.clone()
+    a_p = None if accum is None else accum.clone()
+    S.scatter_add_rows_sorted(t_k, rows, vals, -0.05, accum=a_k, eps=1e-8)
+    S.scatter_add_rows_sorted_plain(t_p, rows, vals, -0.05, accum=a_p, eps=1e-8)
+    torch.cuda.synchronize()
+    if not adagrad:
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(t_k.view(bits), t_p.view(bits))
+    else:
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(t_k.float(), t_p.float(), rtol=tol,
+                                   atol=1e-6)
+        torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
+
+
+class _plain_forward_gathers:
+    """Route the forward lookups (`ops.lookup` and `SimpleEmbedding.rows`)
+    to the plain gathers, on the card."""
+
+    def __enter__(self):
+        import sys
+        self.mods = [sys.modules["embeddingtables_tpu_torch.ops.lookup"],
+                     sys.modules["embeddingtables_tpu_torch.tables"]]
+        self.saved = [(m, n, getattr(m, n)) for m in self.mods
+                      for n in ("gather_rows", "gather_bags") if hasattr(m, n)]
+        for m, n, _ in self.saved:
+            setattr(m, n, getattr(G, n + "_plain"))
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _family_case(ett, family, device):
+    """(model on the card, its train step, one batch, stacks a step)."""
+    g = torch.Generator().manual_seed(1)
+    vocabs, b = (300, 500, 200), 256
+    dense = torch.randn((b, 5), generator=g)
+    cat = torch.stack([torch.randint(0, v, (b,), generator=g,
+                                     dtype=torch.int32) for v in vocabs])
+    if family == "two_tower":
+        cfg = ett.TwoTowerConfig(query_vocab_sizes=vocabs, item_vocab=5000,
+                                 num_dense=5, dim=64, embed_dim=32,
+                                 query_mlp=(64, 32), item_mlp=(64, 32))
+        model = ett.init_two_tower(cfg, g, device="cpu").to(device)
+        items = torch.randperm(5000, generator=g)[:b].to(torch.int32)
+        step = ett.models.two_tower.make_train_step(cfg)
+        return model, step, (dense, cat, items), 2
+    kw = dict(vocab_sizes=vocabs, num_dense=5, dim=128,
+              compute_dtype=torch.float32)
+    label = (torch.rand((b,), generator=g) < 0.5).float()
+    if family == "dcn":
+        cfg = ett.DCNConfig(**kw, deep_mlp=(64, 32), cross_rank=16)
+        model = ett.init_dcn(cfg, g, device="cpu")
+        step = ett.models.dcn.make_train_step(cfg)
+    else:
+        cfg = ett.DeepFMConfig(**kw, deep_mlp=(64, 32),
+                               fold_fm_w=family == "deepfm_folded")
+        model = ett.init_deepfm(cfg, g, device="cpu")
+        step = ett.models.deepfm.make_train_step(cfg)
+    stacks = 2 if family == "deepfm_unfolded" else 1
+    return model.to(device), step, (dense, cat, label), stacks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dcn", "deepfm_folded",
+                                    "deepfm_unfolded", "two_tower"])
+def test_cuda_family_train_step_is_bitwise_the_plain_step(cuda_device,
+                                                          family):
+    # SparseSGD through the run-scatter on every stack (none is a tiny
+    # table), the towers in f32: the kernels' step equals the plain
+    # versions' step bit for bit.
+    import copy
+    import embeddingtables_tpu_torch as ett
+    model, step, batch, stacks = _family_case(ett, family, cuda_device)
+    plain = copy.deepcopy(model)
+    before = S.scatter_add_rows_sorted.launches
+    out = step(model, *batch)
+    assert S.scatter_add_rows_sorted.launches == before + stacks
+    with _plain_update_path(), _plain_forward_gathers():
+        out_p = step(plain, *batch)
+    torch.cuda.synchronize()
+    assert S.scatter_add_rows_sorted.launches == before + stacks
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    out_p if isinstance(out_p, tuple) else (out_p,)):
+        assert torch.equal(a, b)
+    for (name, a), (_, b) in zip(model.named_buffers(),
+                                 plain.named_buffers()):
+        assert torch.equal(a, b), name
+    for (name, a), (_, b) in zip(model.named_parameters(),
+                                 plain.named_parameters()):
+        assert torch.equal(a, b), name

@@ -38,21 +38,78 @@ def test_no_source_file_names_jax_in_an_import():
     assert len(files) > 10 and not offenders, offenders
 
 
-@pytest.mark.parametrize("entry", ["init_dlrm", "dlrm_from_arrays"])
+def _no_device_calls():
+    """Each entry point that creates state, called without `device=`."""
+    dlrm = ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                          bottom_mlp=(4,), top_mlp=(3, 1))
+    dcn = ett.DCNConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                        deep_mlp=(3,), cross_rank=2)
+    dfm = ett.DeepFMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                           deep_mlp=(3,), fold_fm_w=False)
+    tt = ett.TwoTowerConfig(query_vocab_sizes=(5, 6), item_vocab=7,
+                            num_dense=1, dim=4, embed_dim=2,
+                            query_mlp=(2,), item_mlp=(2,))
+
+    def arrays(layers):
+        return [tuple(t.detach().numpy() for t in layer) for layer in layers]
+
+    def from_cpu(name, cfg):
+        return getattr(ett, "init_" + name)(cfg, device="cpu")
+
+    def dlrm_arrays():
+        m = from_cpu("dlrm", dlrm)
+        ett.dlrm_from_arrays(dlrm, arrays(m.bottom), arrays(m.top),
+                             np.zeros((11, 4), np.float32),
+                             m.tables.offsets)
+
+    def dcn_arrays():
+        m = from_cpu("dcn", dcn)
+        ett.dcn_from_arrays(dcn, arrays(m.cross), arrays(m.deep),
+                            arrays([m.head])[0], np.zeros((11, 4), np.float32),
+                            m.tables.offsets)
+
+    def deepfm_arrays():
+        m = from_cpu("deepfm", dfm)
+        ett.deepfm_from_arrays(dfm, arrays(m.deep), arrays([m.head])[0],
+                               np.zeros(2, np.float32), np.float32(0),
+                               np.zeros((11, 4), np.float32),
+                               m.tables.offsets,
+                               fm_w_data=np.zeros((11, 1), np.float32))
+
+    def two_tower_arrays():
+        m = from_cpu("two_tower", tt)
+        ett.two_tower_from_arrays(tt, arrays(m.query_mlp),
+                                  arrays(m.item_mlp),
+                                  np.zeros((11, 4), np.float32),
+                                  m.query_tables.offsets,
+                                  np.zeros((7, 4), np.float32))
+
+    return {
+        "init_dlrm": lambda: ett.init_dlrm(dlrm),
+        "init_dcn": lambda: ett.init_dcn(dcn),
+        "init_deepfm": lambda: ett.init_deepfm(dfm),
+        "init_two_tower": lambda: ett.init_two_tower(tt),
+        "dlrm_from_arrays": dlrm_arrays,
+        "dcn_from_arrays": dcn_arrays,
+        "deepfm_from_arrays": deepfm_arrays,
+        "two_tower_from_arrays": two_tower_arrays,
+        "train_dlrm": lambda: ett.train_dlrm(dlrm, iter(()), 0),
+        "train_dcn": lambda: ett.train_dcn(dcn, iter(()), 0),
+        "train_deepfm": lambda: ett.train_deepfm(dfm, iter(()), 0),
+        "train_two_tower": lambda: ett.train_two_tower(tt, iter(()), 0),
+    }
+
+
+@pytest.mark.parametrize("entry", ["init_dlrm", "dlrm_from_arrays",
+                                   "init_dcn", "dcn_from_arrays",
+                                   "init_deepfm", "deepfm_from_arrays",
+                                   "init_two_tower", "two_tower_from_arrays",
+                                   "train_dlrm", "train_dcn", "train_deepfm",
+                                   "train_two_tower"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
-                         bottom_mlp=(4,), top_mlp=(3, 1))
+    call = _no_device_calls()[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry == "init_dlrm":
-            ett.init_dlrm(cfg)
-        else:
-            model = ett.init_dlrm(cfg, device="cpu")
-            def arrays(layers):
-                return [(w.detach().numpy(), b.detach().numpy())
-                        for w, b in layers]
-            ett.dlrm_from_arrays(cfg, arrays(model.bottom), arrays(model.top),
-                                 np.zeros((11, 4), np.float32),
-                                 model.tables.offsets)
+        call()
     assert ett.config.resolve_device("cpu") == torch.device("cpu")

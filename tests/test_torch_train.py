@@ -30,6 +30,10 @@ from embeddingtables_tpu.models import init_dlrm as jax_init_dlrm
 from embeddingtables_tpu.models.dlrm import \
     _block_interaction_fn as jax_block_fn
 from embeddingtables_tpu.models.dlrm import make_train_step as jax_train_step
+from embeddingtables_tpu import metrics as JM
+from embeddingtables_tpu.models.dlrm import make_eval_step as jax_eval_step
+from embeddingtables_tpu.models.train import \
+    evaluate_metrics as jax_evaluate_metrics
 from embeddingtables_tpu.models.train import train_dlrm as jax_train_dlrm
 from embeddingtables_tpu import optim as J
 import embeddingtables_tpu_torch as ett
@@ -264,6 +268,45 @@ def test_train_dlrm_losses_match_jax(opt_name):
     assert [s for s, _ in pres.aucs] == [2, 4]
     assert all(0.0 <= a <= 1.0 for _, a in pres.aucs)
     assert pres.examples_per_sec > 0
+
+
+def test_ctr_metrics_match_jax():
+    rng = np.random.default_rng(10)
+    labels = (rng.random(300) < 0.3).astype(np.float32)
+    logits = rng.standard_normal(300).astype(np.float32)
+    for name in ("normalized_entropy", "calibration", "accuracy"):
+        assert getattr(PM, name)(labels, logits) == \
+            getattr(JM, name)(labels, logits), name
+    true = rng.integers(0, 50, 40)
+    got = rng.integers(0, 50, (40, 10))
+    assert PM.recall_at_k(true, got) == JM.recall_at_k(true, got)
+    assert np.isnan(PM.normalized_entropy(np.ones(3), logits[:3]))
+
+
+def test_train_dlrm_eval_metrics_match_jax_evaluate_metrics():
+    # train_dlrm runs on the shared CTR loop; eval_metrics=True records the
+    # AUC of the same sweep JAX's evaluate_metrics makes.
+    (jcfg, jopt, jm), (pcfg, popt, pm) = _pair("sgd")
+    data = dict(vocab_sizes=SMALL["vocab_sizes"], num_dense=5, batch_size=B,
+                seed=6)
+    evals = list(SyntheticCriteo(**data, stream_seed=8).batches(2))
+    jres = jax_train_dlrm(jcfg, JaxCriteo(**data).batches(), 2,
+                          sparse_opt=jopt, dense_lr=0.05, model=jm,
+                          log_every=1, verbose=False, eval_batches=evals,
+                          eval_every=2, eval_metrics=True)
+    pres = train_dlrm(pcfg, SyntheticCriteo(**data).batches(), 2,
+                      sparse_opt=popt, dense_lr=0.05, model=pm, log_every=1,
+                      verbose=False, eval_batches=evals, eval_every=2,
+                      eval_metrics=True)
+    np.testing.assert_allclose(pres.losses, jres.losses, rtol=1e-4, atol=1e-4)
+    want = jax_evaluate_metrics(jax_eval_step(jcfg), jres.model, evals)
+    got = ett.evaluate_metrics(ett.make_eval_step(pcfg), pres.model, evals)
+    assert set(got) == set(want) == {"auc", "log_loss", "normalized_entropy",
+                                     "calibration"}
+    for key in want:
+        assert abs(got[key] - want[key]) <= 1e-4, key
+    assert pres.aucs == [(2, got["auc"])] and jres.aucs[0][0] == 2
+    assert abs(pres.aucs[0][1] - jres.aucs[0][1]) <= 1e-4
 
 
 def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --run-window-sweep   # only the run-scatter's L sweep
+    python3 chip_smoke.py --gather-sweep       # only the gathers' R sweep
     python3 chip_smoke.py --per-table          # only the per-table comparison
     python3 chip_smoke.py --ensemble           # only the ensemble API phase
     python3 chip_smoke.py --families           # only the model-family phase
@@ -61,18 +62,23 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     services to 8 closed-loop clients (gather launches = served batches, the
     kernel path = the plain path with f32 towers, a bag-8 batch through
     `gather_bags`); `fuse_deepfm` of the unfolded model scoring as it did;
-    `gather_rows` and the run-scatter checked at D = 129 and D = 1 and timed
-    at D = 129 beside D = 128; and the two-tower retriever (1M / 100k / 1k
+    `gather_rows`, `gather_bags` and the run-scatter checked at D = 129 and
+    D = 1 (`gather_rows` also on tables whose base is 4 or 2 bytes off the
+    16-byte grid), `gather_rows` and the run-scatter timed at D = 129, 128
+    and 1 and `gather_bags` at D = 129; and the two-tower retriever (1M / 100k / 1k
     query rows, 2M items, dim 64, B = 16,384) through `train_two_tower`
     (2 run-scatters a step, recall@10), `build_item_index` (31
     `gather_rows`) and `make_retrieval_service` against the plain path.
 11. A `kernels` JSON line (every hand kernel, its launches on its paths and
-    its times; the run-scatter's Zipf time beside its uniform one, and the
-    D = 129 times of `gather_rows` and the run-scatter), the card line
-    again, and the final JSON status line.
+    its times; the run-scatter's Zipf time beside its uniform one, the
+    D = 129 times of both gathers and the run-scatter, and the D = 1 times
+    of `gather_rows` and the run-scatter), the card line again, and the
+    final JSON status line.
 
 With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
-the run-scatter's window length (`run_window_sweep`). With `--per-table` it
+the run-scatter's window length (`run_window_sweep`); with `--gather-sweep`
+only phases 1-2 and the sweep that chose the gathers' rows in flight
+(`gather_sweep`). With `--per-table` it
 runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
 phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
@@ -406,8 +412,8 @@ def throughput(ett, model, cfg, bag=None, b=2048, steps=20):
 
 # The hand kernels' device-function names, as the profiler shows them.
 HAND_KERNELS = {"scatter_add_rows_sorted": "runscatter_",
-                "hot_accumulate": "segsum_", "gather_rows": "gather_rows_kernel",
-                "gather_bags": "gather_bags_kernel"}
+                "hot_accumulate": "segsum_", "gather_rows": "gather_rows_",
+                "gather_bags": "gather_bags_"}
 
 
 def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
@@ -822,6 +828,158 @@ def run_window_sweep(ett, S, gen, windows=(128, 256, 512, 1024)):
         results.append(row)
     emit({"phase": "run_window_sweep", "n_stacked": 26 * B_TRAIN,
           "per_table_calls": len(per_table), "chosen": S.RUN_WINDOW,
+          "rows": results})
+
+
+def gather_bound_ms(sets, d: int, itemsize: int = 4) -> float:
+    """The byte bound of a gather or bag-sum over `sets` (one id set a
+    call): each unique row read once, the ids read once, the output
+    written once. A bag-sum's adds (n * bag * D) are far below the f32
+    rate, so bytes bound both."""
+    ids = sets[0]
+    uniq = statistics.mean(int(torch.unique(s).numel()) for s in sets)
+    rows = ids.shape[0]
+    return (uniq * d * itemsize + ids.numel() * 4 + rows * d * itemsize) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def gather_sweep(ett, G, gen, rows_in_flight=(1, 2, 4, 8),
+                 grid_vec_min_bytes=(0, 1 << 40)):
+    """How `gather.cu`'s rows in flight R, and which rows on the 16-byte grid
+    take the vector kernel, were chosen: the source built with each R in
+    `rows_in_flight` (its kRowsInFlight replaced in a copy), and with the
+    built R and each grid threshold in `grid_vec_min_bytes` (its
+    kGridVecMinBytes: 0 sends every grid row to the vector kernel, 2^40
+    none); each build checked bitwise against the plain versions, then timed
+    on the training path's Zipf ids (n = 1,703,936) at D = 129, 128 and 1
+    (f32 and bf16), at the serving shape (n = 53,248 uniform ids) at D = 128,
+    64 and 36, and as bag-8 sums at D = 129 and 128, beside `F.embedding` /
+    `F.embedding_bag` and the byte bounds. A source that declares neither
+    constant (an older commit) is built and timed as it is. Run with
+    `python3 chip_smoke.py --gather-sweep`."""
+    import ctypes
+    import re
+    from embeddingtables_tpu_torch import config
+    from embeddingtables_tpu_torch.ops.cuda import _lib
+    F = torch.nn.functional
+    src = (_lib.CSRC / "gather.cu").read_text()
+    r_line = re.compile(r"constexpr int kRowsInFlight = (\d+);")
+    g_line = re.compile(r"constexpr int64_t kGridVecMinBytes = (\d+);")
+    built = {"rows_in_flight": None, "grid_vec_min_bytes": None}
+    variants = {}
+    if r_line.search(src) and g_line.search(src):
+        r0 = int(r_line.search(src).group(1))
+        g0 = int(g_line.search(src).group(1))
+        built = {"rows_in_flight": r0, "grid_vec_min_bytes": g0}
+        for r, g in [(r, g0) for r in rows_in_flight] + [
+                (r0, g) for g in grid_vec_min_bytes]:
+            variants[(r, g)] = g_line.sub(
+                f"constexpr int64_t kGridVecMinBytes = {g};",
+                r_line.sub(f"constexpr int kRowsInFlight = {r};", src))
+    else:
+        variants[(None, None)] = src
+    out = config.KERNEL_BUILD_DIR / "gather_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for (r, g), text in variants.items():
+        cu, so = out / f"gather_R{r}_G{g}.cu", out / f"gather_R{r}_G{g}.so"
+        if so.exists() and cu.read_text() == text:
+            procs[(r, g)] = (so, None)
+            continue
+        cu.write_text(text)
+        procs[(r, g)] = (so, subprocess.Popen(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(_lib.CSRC), "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            require(proc.returncode == 0, f"nvcc for {key}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in G._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[key] = lib
+
+    def rows(lib, table, ids):
+        (n,), (v, d) = ids.shape, table.shape
+        o = torch.empty((n, d), dtype=table.dtype, device="cuda")
+        err = lib.et_gather_rows(table.data_ptr(), ids.data_ptr(), o.data_ptr(),
+                                 n, v, d, G._DTYPE_CODE[table.dtype],
+                                 _lib.sm_count(table), _lib.stream_of(table))
+        require(err == 0, f"gather_rows: CUDA error {err}")
+        return o
+
+    def bags(lib, table, ids):
+        (n, bag), (v, d) = ids.shape, table.shape
+        o = torch.empty((n, d), dtype=table.dtype, device="cuda")
+        err = lib.et_gather_bags(table.data_ptr(), ids.data_ptr(), o.data_ptr(),
+                                 n, bag, v, d, G._DTYPE_CODE[table.dtype],
+                                 _lib.sm_count(table), _lib.stream_of(table))
+        require(err == 0, f"gather_bags: CUDA error {err}")
+        return o
+
+    v = 26 * VOCAB
+    n_serve = 26 * 2048
+    zipf = [stacked_rows(b, VOCAB) for b in criteo_batches(
+        ett, (VOCAB,) * 26, 3, SEED + 5)]
+    uniform = [torch.randint(0, v, (n_serve,), generator=gen, device="cuda",
+                             dtype=torch.int32) for _ in range(10)]
+    bag8 = [torch.randint(0, v, (n_serve, 8), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(10)]
+    small = [torch.randint(0, 1_000_000, (n_serve,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+             for _ in range(10)]
+    tables = {d: torch.randn((v, d), generator=gen, device="cuda")
+              for d in (129, 128, 1)}
+    tables["1_bf16"] = tables[1].to(torch.bfloat16)
+    for d in (64, 36):
+        tables[d] = torch.randn((1_000_000, d), generator=gen, device="cuda")
+    # name: (table, id sets, rows or bags)
+    shapes = {"d129_zipf": (129, zipf, rows), "d128_zipf": (128, zipf, rows),
+              "d1_zipf": (1, zipf, rows), "d1_bf16_zipf": ("1_bf16", zipf, rows),
+              "d128_serving": (128, uniform, rows),
+              "d64_serving": (64, small, rows), "d36_serving": (36, small, rows),
+              "d129_bag8": (129, bag8, bags), "d128_bag8": (128, bag8, bags)}
+    reference = {}
+    for name, (t, sets, kind) in shapes.items():
+        tab = tables[t]
+        lib_fn = (lambda i, tab=tab: F.embedding(i, tab)) if kind is rows \
+            else (lambda i, tab=tab: F.embedding_bag(i, tab, mode="sum"))
+        reference[name] = {
+            "library_ms": (time_each_ms(lib_fn, [(s.long(),) for s in sets],
+                                        reps=20)
+                           if tab.dtype == torch.float32 else None),
+            "bound_ms": gather_bound_ms(sets, tab.shape[1],
+                                        tab.element_size())}
+    checks = {"d129_rows": (tables[129], with_specials(zipf[0].clone(), v, gen)),
+              "d1_bf16_rows": (tables["1_bf16"],
+                               with_specials(zipf[1].clone(), v, gen)),
+              "d129_bags": (tables[129], with_specials(bag8[0].clone(), v, gen))}
+    results = []
+    for (r, g), lib in libs.items():
+        for what, (tab, ids) in checks.items():
+            if what.endswith("bags"):
+                got, want = bags(lib, tab, ids), G.gather_bags_plain(tab, ids)
+            else:
+                got, want = rows(lib, tab, ids), G.gather_rows_plain(tab, ids)
+            torch.cuda.synchronize()
+            require(torch.equal(bits(got), bits(want)),
+                    f"gather sweep R = {r}, grid threshold {g}: {what} "
+                    "not bitwise")
+            del got, want
+        row = {"rows_in_flight": r, "grid_vec_min_bytes": g, "bitwise": True}
+        for name, (t, sets, kind) in shapes.items():
+            tab = tables[t]
+            ms = time_each_ms(lambda i, lib=lib, tab=tab, kind=kind:
+                              kind(lib, tab, i), [(s,) for s in sets], reps=20)
+            row[f"{name}_ms"] = ms
+            row[f"{name}_share_of_bound"] = reference[name]["bound_ms"] / ms
+        results.append(row)
+        emit({"phase": "gather_sweep_row", **row})
+    emit({"phase": "gather_sweep", "n_zipf": zipf[0].numel(),
+          "n_serving": n_serve, "built": built, "reference": reference,
           "rows": results})
 
 
@@ -1597,28 +1755,66 @@ def time_gather(G, gen, sets, v, d, label):
     return t
 
 
+def time_gather_bags(G, gen, v, d, n=26 * 2048, bag=8):
+    """`gather_bags` at one shape, f32 table, uniform ids: its time beside
+    its plain version, `F.embedding_bag` and the byte bound."""
+    table = torch.randn((v, d), generator=gen, device="cuda")
+    sets = [torch.randint(0, v, (n, bag), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(10)]
+    t = {"kernel_ms": time_each_ms(lambda i: G.gather_bags(table, i),
+                                   [(s,) for s in sets], reps=20),
+         "plain_ms": time_each_ms(lambda i: G.gather_bags_plain(table, i),
+                                  [(s,) for s in sets], reps=10),
+         "library_ms": time_each_ms(
+             lambda i: torch.nn.functional.embedding_bag(i, table, mode="sum"),
+             [(s.long(),) for s in sets], reps=20),
+         "bound_ms": gather_bound_ms(sets, d), "bound_by": "bytes"}
+    emit({"phase": "kernel_time", "kernel": "gather_bags", "stream": "uniform",
+          "dtype": "float32", "V": v, "D": d, "n": n, "bag": bag, **t})
+    return t
+
+
 def family_width_kernels(S, G, gen, batches):
     """The kernels at DeepFM's widths, D + 1 = 129 (the fused stack) and
     D = 1 (the unfolded first-order stack), on the card: `gather_rows`
-    bitwise, the run-scatter's SGD epilogue bitwise on f32 and bf16 tables
-    and its AdaGrad epilogue to rtol 1e-6, on Zipf streams with padding and
-    rows >= V and on the window-edge stream; then both timed at D = 129
-    (and D = 128 beside them) on the training path's Zipf ids."""
+    bitwise (also on tables whose base is 4 or 2 bytes off the 16-byte
+    grid), `gather_bags` (bags of 8) within rtol 1e-6, the run-scatter's SGD
+    epilogue bitwise on f32 and bf16 tables and its AdaGrad epilogue to rtol
+    1e-6, on Zipf streams with padding and rows >= V and on the window-edge
+    stream; then `gather_rows` and the run-scatter timed at D = 129, 128 and
+    1 on the training path's Zipf ids, and `gather_bags` at D = 129 on
+    uniform bags of 8 at the serving shape."""
     v = 26 * VOCAB
     zipf = [stacked_rows(b, VOCAB) for b in batches[:3]]
-    errs = {"gather_rows": 0.0, "scatter_add_rows_sorted": 0.0}
+    errs = {"gather_rows": 0.0, "gather_bags": 0.0,
+            "scatter_add_rows_sorted": 0.0}
     for d in (129, 1):
         t32 = torch.randn((v, d), generator=gen, device="cuda")
         for tab in (t32, t32.to(torch.bfloat16)):
+            dt = str(tab.dtype).split(".")[1]
             ids = with_specials(zipf[0].clone(), v, gen)
             got, want = G.gather_rows(tab, ids), G.gather_rows_plain(tab, ids)
             torch.cuda.synchronize()
             require(torch.equal(bits(got), bits(want)),
                     f"gather_rows D={d} {tab.dtype} not bitwise")
             emit({"phase": "kernel_check", "kernel": "gather_rows",
-                  "dtype": str(tab.dtype).split(".")[1], "V": v, "D": d,
-                  "n": ids.numel(), "bitwise": True,
-                  "nan_rows": int(got.isnan().any(1).sum())})
+                  "dtype": dt, "V": v, "D": d, "n": ids.numel(),
+                  "bitwise": True, "nan_rows": int(got.isnan().any(1).sum())})
+            del got, want
+            ids = with_specials(torch.randint(
+                0, v, (26 * 2048, 8), generator=gen, device="cuda",
+                dtype=torch.int32), v, gen)
+            got, want = G.gather_bags(tab, ids), G.gather_bags_plain(tab, ids)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-6,
+                                       atol=0.0, equal_nan=True)
+            err = max_abs_err(got, want)
+            errs["gather_bags"] = max(errs["gather_bags"], err)
+            emit({"phase": "kernel_check", "kernel": "gather_bags",
+                  "dtype": dt, "V": v, "D": d, "n": ids.shape[0], "bag": 8,
+                  "max_abs_err": err, "rtol": 1e-6,
+                  "bitwise_outside_nan_rows": torch.equal(
+                      bits(got)[~want.isnan()], bits(want)[~want.isnan()])})
             del got, want
         del t32
         errs["scatter_add_rows_sorted"] = max(
@@ -1627,13 +1823,36 @@ def family_width_kernels(S, G, gen, batches):
                          "window_edges": window_edge_stream(S.RUN_WINDOW, v)},
                 v, d))
         torch.cuda.empty_cache()
+    # Tables whose base lies 4 (f32, bf16) or 2 (bf16) bytes past the
+    # 16-byte grid: a contiguous (V, 129) view one or two elements into
+    # its buffer.
+    vs = 1_000_000
+    for dtype, offset in ((torch.float32, 1), (torch.bfloat16, 2),
+                          (torch.bfloat16, 1)):
+        buf = torch.randn((vs * 129 + offset,), generator=gen,
+                          device="cuda").to(dtype)
+        tab = buf[offset:].view(vs, 129)
+        ids = with_specials(torch.randint(0, vs, (zipf[0].numel(),),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32), vs, gen)
+        got, want = G.gather_rows(tab, ids), G.gather_rows_plain(tab, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(got), bits(want)),
+                f"gather_rows {dtype} base +{offset} elements not bitwise")
+        emit({"phase": "kernel_check", "kernel": "gather_rows",
+              "dtype": str(dtype).split(".")[1], "V": vs, "D": 129,
+              "n": ids.numel(), "base_offset_bytes": offset * buf.element_size(),
+              "bitwise": True})
+        del buf, tab, got, want
     timings = {}
-    for d in (129, 128):
+    for d in (129, 128, 1):
         timings[f"gather_rows_d{d}"] = time_gather(G, gen, zipf, v, d,
                                                    f"zipf_d{d}")
         timings[f"scatter_d{d}"] = time_scatter(S, G, gen, zipf, v, d,
                                                 f"zipf_d{d}")
         torch.cuda.empty_cache()
+    timings["gather_bags_d129"] = time_gather_bags(G, gen, v, 129)
+    torch.cuda.empty_cache()
     emit({"phase": "family_width_times", "n": zipf[0].numel(),
           **{k: {"kernel_ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
                  "share_of_bound": t["bound_ms"] / t["kernel_ms"],
@@ -1848,6 +2067,10 @@ def main() -> int:
         run_window_sweep(ett, S, gen)
         print(card_line(), flush=True)
         return 0
+    if "--gather-sweep" in sys.argv[1:]:
+        gather_sweep(ett, G, gen)
+        print(card_line(), flush=True)
+        return 0
     if "--per-table" in sys.argv[1:]:
         for segments in (128, 512):
             time_hot_accumulate(H, gen, segments)
@@ -1898,12 +2121,15 @@ def main() -> int:
                                               train_batches)
     for name, e in fam_errs.items():
         errs[name] = max(errs[name], e)
-    for name in ("gather_rows", "scatter"):
-        t = fam_times[f"{name}_d129"]
-        key = "gather_rows" if name == "gather_rows" else \
-            "scatter_add_rows_sorted"
-        timings[key].update(d129_ms=t["kernel_ms"], d129_bound_ms=t["bound_ms"],
-                            d129_library_ms=t["library_ms"])
+    for key, name, d in (("gather_rows", "gather_rows", 129),
+                         ("gather_rows", "gather_rows", 1),
+                         ("gather_bags", "gather_bags", 129),
+                         ("scatter_add_rows_sorted", "scatter", 129),
+                         ("scatter_add_rows_sorted", "scatter", 1)):
+        t = fam_times[f"{name}_d{d}"]
+        timings[key].update({f"d{d}_ms": t["kernel_ms"],
+                             f"d{d}_bound_ms": t["bound_ms"],
+                             f"d{d}_library_ms": t["library_ms"]})
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
@@ -1928,7 +2154,8 @@ def main() -> int:
          "library_ms": timings[name]["library_ms"],
          **{k: timings[name][k] for k in (
              "zipf_ms", "zipf_bound_ms", "d129_ms", "d129_bound_ms",
-             "d129_library_ms") if k in timings[name]}}
+             "d129_library_ms", "d1_ms", "d1_bound_ms", "d1_library_ms")
+            if k in timings[name]}}
         for name, (launches, source, where) in paths.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -33,6 +33,7 @@ from ..ops.sparse_update import SparseEmbeddingUpdate
 from ..optim import (SparseAdamState, SparseFTRLState, SparseOptState,
                      SparseSGD, apply_dense_tx)
 from ..tables import SimpleEmbedding
+from ..unported import refuse_unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -512,13 +513,10 @@ def lazy_stack_update(flat, valid, delta_t: torch.Tensor, dim: int,
 
 
 def refuse_unported_step_options(dense_tx, microbatch) -> None:
-    """The train steps' options that wait for later slices."""
-    if dense_tx is not None:
-        raise NotImplementedError(
-            "dense_tx waits for the port's torch.optim support")
-    if microbatch and microbatch > 1:
-        raise NotImplementedError(
-            "microbatch waits for the port's models/microbatch.py")
+    """The train steps' options that wait for later slices
+    (`unported.py`)."""
+    refuse_unported("make_train_step", dense_tx=dense_tx,
+                    microbatch=microbatch)
 
 
 def step_generator(sparse_opt, generator, loop: str) -> dict:

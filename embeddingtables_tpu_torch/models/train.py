@@ -12,9 +12,10 @@ points.
     `eval_every`. `train_two_tower` runs it with its own batches, step and
     recall@k eval.
 
-The JAX loops' mesh, planner, eviction, checkpoint, guard, prefetch,
-microbatch and `dense_tx` options are not ported yet: setting one raises
-`NotImplementedError`.
+Every loop takes every parameter of its JAX counterpart. The mesh,
+planner, eviction, checkpoint, guard, prefetch, microbatch and `dense_tx`
+options are not ported yet: `unported.py` holds their table, and a value
+other than the one that leaves an option off raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -29,16 +30,8 @@ from ..config import resolve_device
 from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD
+from ..unported import check_jax_combinations, refuse_unported
 from .dlrm import DLRMConfig
-
-# Options of the JAX CTR loops that the port does not have yet, with the
-# value that leaves each off; `train_dlrm` also has `exchange`.
-_NOT_PORTED = {"mesh": None, "plan": None, "evict_every": 0,
-               "delta_ckpt": None, "ckpt_manager": None, "guard": None,
-               "device_prefetch": 0, "microbatch": None, "dense_tx": None}
-_NOT_PORTED_DLRM = {**_NOT_PORTED, "exchange": "gather"}
-_NOT_PORTED_TWO_TOWER = {k: _NOT_PORTED[k] for k in (
-    "mesh", "plan", "delta_ckpt", "ckpt_manager", "device_prefetch")}
 
 
 @dataclasses.dataclass
@@ -59,13 +52,16 @@ class RetrievalTrainResult:
     examples_per_sec: float
 
 
-def _refuse_not_ported(loop: str, not_ported: dict, allowed: dict) -> None:
-    for name, value in not_ported.items():
-        if name not in allowed:
-            raise TypeError(f"{loop}() got an unexpected keyword argument "
-                            f"{name!r}")
-        if value != allowed[name]:
-            raise NotImplementedError(f"{loop}({name}=...) is not ported yet")
+def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_every=0,
+            **unported) -> None:
+    """JAX's own errors on `unported`'s combinations first, then the
+    unported options that are set (the rest of JAX's options are ignored,
+    as `unported.py` says)."""
+    check_jax_combinations(
+        mesh=unported.get("mesh"), plan=unported.get("plan"),
+        delta_ckpt=unported.get("delta_ckpt"), delta_every=delta_every,
+        wire_dtype=wire_dtype, exchange=exchange)
+    refuse_unported(loop, **unported)
 
 
 def _collect_scores(eval_step, model, batches):
@@ -78,14 +74,17 @@ def _collect_scores(eval_step, model, batches):
     return np.concatenate(labels), np.concatenate(scores)
 
 
-def evaluate_auc(eval_step, model, batches) -> float:
-    """AUC of `eval_step`'s logits over host `batches`."""
+def evaluate_auc(eval_step, model, batches, *, to_device=None) -> float:
+    """AUC of `eval_step`'s logits over host `batches`. `to_device` is
+    JAX's batch placement and is ignored: the eval step moves its inputs to
+    the model's device."""
     return auc(*_collect_scores(eval_step, model, batches))
 
 
-def evaluate_metrics(eval_step, model, batches) -> dict:
+def evaluate_metrics(eval_step, model, batches, *, to_device=None) -> dict:
     """The CTR eval sweep: AUC, log loss, normalized entropy and
-    calibration of `eval_step`'s logits over host `batches`."""
+    calibration of `eval_step`'s logits over host `batches` (`to_device` as
+    in `evaluate_auc`)."""
     y, z = _collect_scores(eval_step, model, batches)
     return dict(auc=auc(y, z), log_loss=log_loss(y, z),
                 normalized_entropy=normalized_entropy(y, z),
@@ -195,10 +194,8 @@ def _model_for(init, from_arrays, cfg, model, seed: int, device,
 
 def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
                dense_lr, model, seed, eval_batches, eval_every, eval_metrics,
-               log_every, lr_schedule, verbose, device, not_ported,
-               allowed=_NOT_PORTED) -> TrainResult:
+               log_every, lr_schedule, verbose, device) -> TrainResult:
     """The CTR (dense/cat/label) training run of any family."""
-    _refuse_not_ported(f"train_{fam.name}", not_ported, allowed)
     if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
         raise ValueError(
             "SparseFTRL cannot change lr per step: alpha is baked into the "
@@ -235,11 +232,18 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
 
 
 def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
-               sparse_opt=None, dense_lr: float = 0.01, model=None,
-               seed: int = 0, eval_batches: Optional[list] = None,
-               eval_every: int = 0, eval_metrics: bool = False,
-               log_every: int = 100, lr_schedule=None, verbose: bool = True,
-               device=None, **not_ported) -> TrainResult:
+               sparse_opt=None, dense_lr: float = 0.01, dense_tx=None,
+               model=None, seed: int = 0, eval_batches: Optional[list] = None,
+               eval_every: int = 0, ckpt_manager=None, ckpt_every: int = 0,
+               log_every: int = 100, mesh=None, axis: str = "data",
+               exchange: str = "gather", capacity_factor: float = 2.0,
+               auto_capacity: bool = False, wire_dtype=None, guard=None,
+               evict_every: int = 0, evict_threshold: float = 1e-3,
+               freq_decay: float = 0.99, microbatch=None,
+               device_prefetch: int = 0, plan=None,
+               eval_metrics: bool = False, lr_schedule=None,
+               delta_ckpt=None, delta_every: int = 0, verbose: bool = True,
+               device=None) -> TrainResult:
     """Train a DLRM for `num_steps` batches from `train_iter` on one device.
 
     `model` is trained in place; without one, `init_dlrm` builds one on
@@ -247,48 +251,68 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     sparse optimizer's lr per step. `losses` holds the loss at every
     `log_every`-th step and the last; `aucs` the eval AUC every `eval_every`
     steps (`eval_metrics=True` also prints log loss, normalized entropy and
-    calibration). The options of `_NOT_PORTED` raise when set, and so does
-    an `lr_schedule` with `SparseFTRL` (alpha is baked into its state),
-    before the first step, as the JAX loop's first step does."""
+    calibration). JAX's other options follow `unported.py`: set, an unported
+    one raises, as does an `lr_schedule` with `SparseFTRL` (alpha is baked
+    into its state), before the first step, as the JAX loop's first step
+    does."""
+    _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
+            delta_every=delta_every, mesh=mesh, plan=plan,
+            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
+            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
+            microbatch=microbatch, device_prefetch=device_prefetch)
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device,
-        not_ported=not_ported, allowed=_NOT_PORTED_DLRM)
+        lr_schedule=lr_schedule, verbose=verbose, device=device)
 
 
 def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
-              sparse_opt=None, dense_lr: float = 0.01, model=None,
-              seed: int = 0, eval_batches: Optional[list] = None,
-              eval_every: int = 0, eval_metrics: bool = False,
-              log_every: int = 100, lr_schedule=None, verbose: bool = True,
-              device=None, **not_ported) -> TrainResult:
-    """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches and
-    cadence."""
+              sparse_opt=None, dense_lr: float = 0.01, dense_tx=None,
+              model=None, seed: int = 0, eval_batches: Optional[list] = None,
+              eval_every: int = 0, ckpt_manager=None, ckpt_every: int = 0,
+              log_every: int = 100, mesh=None, axis: str = "data",
+              microbatch=None, guard=None, device_prefetch: int = 0,
+              plan=None, evict_every: int = 0, evict_threshold: float = 1e-3,
+              freq_decay: float = 0.99, eval_metrics: bool = False,
+              lr_schedule=None, delta_ckpt=None, delta_every: int = 0,
+              verbose: bool = True, device=None) -> TrainResult:
+    """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches, cadence
+    and options."""
+    _refuse("train_dcn", delta_every=delta_every, mesh=mesh, plan=plan,
+            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
+            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
+            microbatch=microbatch, device_prefetch=device_prefetch)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device,
-        not_ported=not_ported)
+        lr_schedule=lr_schedule, verbose=verbose, device=device)
 
 
 def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
-                 sparse_opt=None, dense_lr: float = 0.01, model=None,
-                 seed: int = 0, eval_batches: Optional[list] = None,
-                 eval_every: int = 0, eval_metrics: bool = False,
-                 log_every: int = 100, lr_schedule=None,
-                 verbose: bool = True, device=None,
-                 **not_ported) -> TrainResult:
+                 sparse_opt=None, dense_lr: float = 0.01, dense_tx=None,
+                 model=None, seed: int = 0,
+                 eval_batches: Optional[list] = None, eval_every: int = 0,
+                 ckpt_manager=None, ckpt_every: int = 0,
+                 log_every: int = 100, mesh=None, axis: str = "data",
+                 guard=None, device_prefetch: int = 0, plan=None,
+                 evict_every: int = 0, evict_threshold: float = 1e-3,
+                 freq_decay: float = 0.99, eval_metrics: bool = False,
+                 microbatch=None, lr_schedule=None, delta_ckpt=None,
+                 delta_every: int = 0, verbose: bool = True,
+                 device=None) -> TrainResult:
     """Train a DeepFM (`models/deepfm.py`, either layout) on `train_dlrm`'s
-    batches and cadence."""
+    batches, cadence and options."""
+    _refuse("train_deepfm", delta_every=delta_every, mesh=mesh, plan=plan,
+            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
+            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
+            microbatch=microbatch, device_prefetch=device_prefetch)
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device,
-        not_ported=not_ported)
+        lr_schedule=lr_schedule, verbose=verbose, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -298,16 +322,22 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
 def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
                     sparse_opt=None, dense_lr: float = 0.05, model=None,
                     seed: int = 0, eval_batches=None, eval_every: int = 0,
-                    k: int = 10, log_every: int = 100, verbose: bool = True,
-                    device=None, **not_ported) -> RetrievalTrainResult:
+                    k: int = 10, ckpt_manager=None, ckpt_every: int = 0,
+                    log_every: int = 100, mesh=None, axis: str = "data",
+                    device_prefetch: int = 0, plan=None, delta_ckpt=None,
+                    delta_every: int = 0, verbose: bool = True,
+                    device=None) -> RetrievalTrainResult:
     """Train a two-tower retriever for `num_steps` batches from `train_iter`
     (dicts with dense/q_cat/item_ids, `data.SyntheticRetrieval`'s layout)
     on one device. `accs` holds the in-batch top-1 accuracy at the log
     cadence; every `eval_every` steps the item index is rebuilt and the
-    recall@k of the positive item over `eval_batches` joins `recalls`."""
+    recall@k of the positive item over `eval_batches` joins `recalls`.
+    JAX's other options follow `unported.py`."""
     from . import two_tower as tt
     from ..interop import two_tower_from_arrays
-    _refuse_not_ported("train_two_tower", not_ported, _NOT_PORTED_TWO_TOWER)
+    _refuse("train_two_tower", delta_every=delta_every, mesh=mesh, plan=plan,
+            delta_ckpt=delta_ckpt, ckpt_manager=ckpt_manager,
+            device_prefetch=device_prefetch)
     sparse_opt = sparse_opt or SparseSGD(0.05)
     model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg, model,
                        seed, device, sparse_opt)

@@ -12,8 +12,11 @@ sums to NaN. Tables are float32 or bfloat16.
 
 A CUDA tensor goes to the kernel in `csrc/gather.cu`; a CPU tensor goes to the
 plain PyTorch version (`gather_rows_plain`, `gather_bags_plain`), which is
-also what the kernel is checked against on the card. Each wrapper counts its
-launches in `<wrapper>.launches`.
+also what the kernel is checked against on the card. The kernels take any
+width and any table base aligned to its element: rows off the 16-byte grid
+(DeepFM's fused D + 1 = 129, a table viewed from inside its buffer) take the
+realigning vector kernels. Each wrapper counts its launches in
+`<wrapper>.launches`.
 """
 from __future__ import annotations
 

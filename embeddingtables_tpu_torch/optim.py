@@ -37,6 +37,7 @@ from .ops.cuda.segsum import hot_accumulate
 from .ops.sparse_update import (SparseEmbeddingUpdate, dense_scatter,
                                 occurrence_values, resolve_rows)
 from .rounding import stochastic_cast
+from .unported import refuse_unported
 
 
 class SparseOptState(NamedTuple):
@@ -243,9 +244,7 @@ def ftrl_dense_body(data, z, n, rows, g, alpha, beta, l1, l2,
 def apply_dense_tx(params, grads, dense_tx, state, lr):
     """Tower update: plain SGD `p -= lr * g` in place when `dense_tx` is
     None. Returns `(params, state)`."""
-    if dense_tx is not None:
-        raise NotImplementedError(
-            "dense_tx waits for the port's torch.optim support")
+    refuse_unported("apply_dense_tx", dense_tx=dense_tx)
     for p, g in zip(params, grads):
         p.copy_((p - lr * g).to(p.dtype))
     return params, state

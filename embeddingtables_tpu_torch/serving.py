@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .models import dcn, deepfm, dlrm, two_tower
+from .unported import refuse_unported
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -214,24 +215,12 @@ class MicroBatcher:
             off += p.size
 
 
-def _refuse_unported_serving(quantized: bool, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving waits for the port's multi-device slice "
-            "(ROADMAP.md queue 1, item 11: Multi-device)")
-    if quantized:
-        raise NotImplementedError(
-            "quantized serving waits for the port of quant.py "
-            "(ROADMAP.md queue 1, item 8: Table variants)")
-
-
-def _scoring_service(model, make_eval_step, *, quantized, mesh, max_batch,
+def _scoring_service(model, make_eval_step, *, max_batch,
                      max_latency_ms) -> MicroBatcher:
     """A CTR model's eval step behind a `MicroBatcher`: each flushed batch
     is copied to the model's device, scored under `torch.inference_mode()`
     and copied back as numpy float32. Nothing synchronises explicitly: the
     copy back is where the worker waits for the batch."""
-    _refuse_unported_serving(quantized, mesh)
     step = make_eval_step(model.config)
     device = model.tables.data.device
 
@@ -244,39 +233,43 @@ def _scoring_service(model, make_eval_step, *, quantized, mesh, max_batch,
                         max_latency_ms=max_latency_ms)
 
 
-def make_dlrm_service(model, *, quantized: bool = False, mesh=None,
+def make_dlrm_service(model, *, quantized: bool = False,
+                      quantize_bits: int = 8, mesh=None, axis="data",
                       max_batch: int = 1024,
                       max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DLRM scoring service on the model's device: `dlrm_forward`
     per flushed batch (`_scoring_service`). Returns a running
     `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
-    `quantized=` and `mesh=` are not ported yet."""
-    return _scoring_service(model, dlrm.make_eval_step, quantized=quantized,
-                            mesh=mesh, max_batch=max_batch,
+    `quantized=True` and a `mesh` are not ported yet (`unported.py`);
+    `quantize_bits` and `axis` are ignored without them, as in JAX."""
+    refuse_unported("make_dlrm_service", mesh=mesh, quantized=quantized)
+    return _scoring_service(model, dlrm.make_eval_step, max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
-def make_dcn_service(model, *, quantized: bool = False, mesh=None,
+def make_dcn_service(model, *, quantized: bool = False,
+                     quantize_bits: int = 8, mesh=None, axis="data",
                      max_batch: int = 1024,
                      max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DCN-v2 scoring service, `make_dlrm_service`'s contract for a
     `models.dcn.DCN`."""
-    return _scoring_service(model, dcn.make_eval_step, quantized=quantized,
-                            mesh=mesh, max_batch=max_batch,
+    refuse_unported("make_dcn_service", mesh=mesh, quantized=quantized)
+    return _scoring_service(model, dcn.make_eval_step, max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
-def make_deepfm_service(model, *, quantized: bool = False, mesh=None,
+def make_deepfm_service(model, *, quantized: bool = False,
+                        quantize_bits: int = 8, mesh=None, axis="data",
                         max_batch: int = 1024,
                         max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DeepFM scoring service (either layout),
     `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`."""
-    return _scoring_service(model, deepfm.make_eval_step, quantized=quantized,
-                            mesh=mesh, max_batch=max_batch,
+    refuse_unported("make_deepfm_service", mesh=mesh, quantized=quantized)
+    return _scoring_service(model, deepfm.make_eval_step, max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
-def make_retrieval_service(model, *, k: int = 10, mesh=None,
+def make_retrieval_service(model, *, k: int = 10, mesh=None, axis="data",
                            max_batch: int = 1024,
                            max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched two-tower top-k retrieval service on the model's device.
@@ -285,8 +278,9 @@ def make_retrieval_service(model, *, k: int = 10, mesh=None,
     (`make_retriever`); requests coalesce through the MicroBatcher, the
     `cat` argument of `submit`/`predict` being the `(T, b)` query features.
     Each request resolves to `(scores (b, k) float32, item_ids (b, k)
-    int32)`. `mesh=` is not ported yet."""
-    _refuse_unported_serving(False, mesh)
+    int32)`. A `mesh` is not ported yet (`unported.py`); `axis` is ignored
+    without one, as in JAX."""
+    refuse_unported("make_retrieval_service", mesh=mesh)
     index = two_tower.build_item_index(model)
     run = two_tower.make_retriever(model, k=k)
 

@@ -1,0 +1,71 @@
+"""The JAX package's options that the port does not have yet: one table for
+every training loop, train step and service.
+
+Each loop and service accepts every parameter of its JAX counterpart. An
+option of `UNPORTED` at one of its off values does nothing; any other value
+raises `NotImplementedError` naming what it waits for. Options that JAX
+reads only together with another one are accepted and ignored as JAX
+ignores them, since the one that gives them a meaning is unported:
+
+  - `axis` (`mesh`), `exchange`, `capacity_factor`, `auto_capacity`
+    (`mesh` with `exchange="a2a"`);
+  - `ckpt_every` (`ckpt_manager`), `delta_every` (`delta_ckpt`);
+  - `evict_threshold`, `freq_decay` (`evict_every`);
+  - `quantize_bits` (`quantized`).
+
+Where JAX raises on a combination, the callers raise the same exception
+class first (`plan` without `mesh`, `wire_dtype` without an `a2a` mesh,
+`delta_ckpt` without `delta_every`: `ValueError`; `plan` with another
+exchange than "gather": `NotImplementedError`).
+"""
+from __future__ import annotations
+
+# option: (the values at which it is off, what it waits for)
+UNPORTED = {
+    "mesh": ((None,), "multi-device placement (ROADMAP.md queue 1, item I)"),
+    "plan": ((None,), "the planner (ROADMAP.md queue 1, item I)"),
+    "quantized": ((False,), "quant.py (ROADMAP.md queue 1, item B)"),
+    "evict_every": ((0,), "utils/rowstats.py (ROADMAP.md queue 1, item D)"),
+    "ckpt_manager": ((None,), "checkpoints (ROADMAP.md queue 1, item E)"),
+    "delta_ckpt": ((None,), "delta checkpoints (ROADMAP.md queue 1, item E)"),
+    "guard": ((None,), "utils/resilience.py (ROADMAP.md queue 1, item E)"),
+    "device_prefetch": ((0,), "io/loader.py (ROADMAP.md queue 1, item H)"),
+    "microbatch": ((None, 0, 1),
+                   "models/microbatch.py (ROADMAP.md queue 1, item F)"),
+    "dense_tx": ((None,),
+                 "the port's torch.optim support (ROADMAP.md queue 1, item F)"),
+}
+
+
+def _is_off(value, off) -> bool:
+    return any(value is o or (o is not None and value == o) for o in off)
+
+
+def refuse_unported(entry: str, **options) -> None:
+    """Raise `NotImplementedError`, naming each of `options` (names of
+    `UNPORTED`) that is set to a value that needs its unported feature."""
+    on = {name: value for name, value in options.items()
+          if not _is_off(value, UNPORTED[name][0])}
+    if on:
+        raise NotImplementedError(
+            f"{entry}({', '.join(f'{k}={v!r}' for k, v in on.items())}) "
+            f"waits for {', '.join(UNPORTED[k][1] for k in on)}")
+
+
+def check_jax_combinations(*, mesh=None, plan=None, delta_ckpt=None,
+                           delta_every=0, wire_dtype=None,
+                           exchange="gather") -> None:
+    """What JAX's loops raise on an invalid combination of options, in
+    JAX's order, before any unported option is refused."""
+    if plan is not None and exchange != "gather":
+        raise NotImplementedError(
+            "planner-placed training supports the gather exchange only")
+    if wire_dtype is not None and (mesh is None or exchange != "a2a"):
+        raise ValueError(
+            "wire_dtype requires mesh= with exchange='a2a' (it compresses "
+            "the butterfly's row payloads; other paths would silently "
+            "ignore it)")
+    if plan is not None and mesh is None:
+        raise ValueError("plan= requires mesh=")
+    if delta_ckpt is not None and not delta_every:
+        raise ValueError("delta_ckpt requires delta_every > 0")

@@ -436,19 +436,77 @@ def test_cuda_split_adagrad_runs_one_run_scatter_per_shard(cuda_device):
 # unfolded first-order stack (D = 1), and one train step of each family
 # ---------------------------------------------------------------------------
 
+def _table_at(g, device, v, d, dtype, offset):
+    """A contiguous (v, d) table whose base lies `offset` elements into its
+    buffer: offset 1 leaves a f32 base 4-byte and a bf16 base 2-byte
+    aligned, offset 2 a bf16 base 4-byte aligned."""
+    buf = torch.randn((v * d + offset,), generator=g, device=device)
+    return buf.to(dtype)[offset:].view(v, d)
+
+
+def _ids_with_specials(g, device, n, v):
+    idx = torch.randint(-v - 3, v + 3, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    special = torch.tensor([-v, v, 2**31 - 1, -2**31], dtype=torch.int32,
+                           device=device)
+    idx[:min(n, 4)] = special[:min(n, 4)]
+    return idx
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [129, 1])
-def test_cuda_family_widths_gather_bitwise(cuda_device, dtype, d):
-    g = torch.Generator(device=cuda_device).manual_seed(d)
+@pytest.mark.parametrize("d", [1, 3, 5, 36, 127, 129, 130, 257])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n", [1, 37, 40_001])
+def test_cuda_family_widths_gather_bitwise(cuda_device, dtype, d, offset, n):
+    # Widths on and off the 16-byte grid (DeepFM's fused 129 and its
+    # first-order 1 among them), tables whose base is only 4- or 2-byte
+    # aligned, one row, a count that no rows-in-flight divides, and the
+    # special ids (wrapped, out of range, the int32 extremes).
+    g = torch.Generator(device=cuda_device).manual_seed(1000 * d + n + offset)
     v = 5000
-    tab = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
-    idx = torch.randint(-v - 3, v + 3, (40_001,), generator=g,
-                        device=cuda_device, dtype=torch.int32)
+    tab = _table_at(g, cuda_device, v, d, dtype, offset)
+    assert tab.is_contiguous()
+    idx = _ids_with_specials(g, cuda_device, n, v)
+    before = G.gather_rows.launches
     got = G.gather_rows(tab, idx)
+    assert G.gather_rows.launches == before + 1
     want = G.gather_rows_plain(tab, idx)
+    torch.cuda.synchronize()
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 129, 130, 257])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("bag", [1, 3, 8])
+def test_cuda_family_widths_gather_bags_matches_plain(cuda_device, dtype, d,
+                                                       offset, bag):
+    # Off-grid widths take the realigning bag kernel: f32 sums in bag order
+    # and one rounding, as the plain version makes them, so bitwise outside
+    # the NaN rows. Those carry the canonical NaN (0x7fc00000, bf16 0x7fc0)
+    # as on the CPU; torch's f32 -> bf16 cast on the card gives 0x7fff.
+    g = torch.Generator(device=cuda_device).manual_seed(100 * d + bag + offset)
+    v, n = 3000, 2051
+    tab = _table_at(g, cuda_device, v, d, dtype, offset)
+    idx = torch.randint(-v, v, (n, bag), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    idx[:4, 0] = torch.tensor([v, -v - 1, 2**31 - 1, -2**31],
+                              dtype=torch.int32, device=cuda_device)
+    before = G.gather_bags.launches
+    got = G.gather_bags(tab, idx)
+    assert G.gather_bags.launches == before + 1
+    want = G.gather_bags_plain(tab, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-6, atol=0,
+                               equal_nan=True)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    nan = want.isnan()
+    assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+    canonical = 0x7FC00000 if dtype == torch.float32 else 0x7FC0
+    assert nan.any() and (got.view(bits)[nan] == canonical).all()
 
 
 @pytest.mark.cuda

@@ -278,9 +278,12 @@ def test_dcn_service_gives_the_eval_steps_results():
 def test_train_dcn_options_not_ported_raise(name):
     value = {"evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
+    extra = {"plan": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
     cfg = ett.DCNConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=name):
-        ett.train_dcn(cfg, iter(()), 1, device="cpu", **{name: value})
+        ett.train_dcn(cfg, iter(()), 1, device="cpu", **{name: value},
+                        **extra)
 
 
 def test_init_dcn_shapes_and_state():

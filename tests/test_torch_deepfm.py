@@ -315,9 +315,12 @@ def test_deepfm_service_gives_the_eval_steps_results():
 def test_train_deepfm_options_not_ported_raise(name):
     value = {"evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
+    extra = {"plan": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
     cfg = ett.DeepFMConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=name):
-        ett.train_deepfm(cfg, iter(()), 1, device="cpu", **{name: value})
+        ett.train_deepfm(cfg, iter(()), 1, device="cpu", **{name: value},
+                        **extra)
 
 
 @pytest.mark.parametrize("fold", [True, False])

@@ -152,3 +152,42 @@ def test_cpu_path_does_not_count_launches():
     G.gather_rows(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32))
     G.gather_bags(torch.zeros((4, 2)), torch.zeros((3, 2), dtype=torch.int32))
     assert (G.gather_rows.launches, G.gather_bags.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 129])
+@pytest.mark.parametrize("kind", ["gather_rows", "gather_bags", "lookup_rows",
+                                  "lookup_bags"])
+def test_odd_widths_match_jax_lookup(kind, d, dtype):
+    # The port's odd widths (DeepFM's first-order D = 1 and fused
+    # D + 1 = 129) against JAX's lookup on the same numpy inputs, special
+    # ids included. JAX takes its non-Pallas path here (jnp.take; the
+    # Pallas gathers need D % 128 == 0); the card holds the kernels to these
+    # plain versions. Rows move bits: exact. Bags: f32 sums in bag order,
+    # one rounding; XLA widens bf16 sums to f32 too, so within one bf16
+    # rounding (2^-8 relative, and absolute below 1).
+    import jax
+    import embeddingtables_tpu as et
+    import embeddingtables_tpu_torch as ett
+    rng = np.random.default_rng(10 * d + len(kind))
+    arr, tab = _table(rng, d, dtype)
+    bags = kind.endswith("bags")
+    idx = rng.integers(-V, V, (12, 4) if bags else (12,)).astype(np.int32)
+    bad = np.array([-V - 1, V, 2**31 - 1, -2**31], np.int32)
+    (idx[:4, 1] if bags else idx[:4])[:] = bad
+    want = np.asarray(jax.jit(lambda t, i: et.lookup(t, i, combiner="sum"))(
+        jnp.asarray(arr), jnp.asarray(idx))).astype(np.float32)
+    ids = torch.from_numpy(idx)
+    if kind == "gather_rows":
+        got = G.gather_rows_plain(tab, ids)
+    elif kind == "gather_bags":
+        got = G.gather_bags_plain(tab, ids)
+    else:
+        got = ett.lookup(ett.SimpleEmbedding(tab), ids, combiner="sum")
+    assert got.shape == (12, d) and got.dtype == tab.dtype
+    assert np.isnan(want[:4]).all() and not np.isnan(want[4:]).any()
+    if not bags or dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, rtol=1e-6 if bags else 0,
+                                   atol=0)
+    else:
+        np.testing.assert_allclose(_np(got), want, rtol=2 ** -8, atol=2 ** -8)

@@ -1,0 +1,195 @@
+"""Every loop and service of the port takes every parameter of its JAX
+counterpart (`embeddingtables_tpu_torch/unported.py`).
+
+Each entry point is called with every keyword parameter of the JAX
+function, read by `inspect.signature`, at JAX's default, on a 2-table
+configuration on the CPU for one step: it must run. Then: values JAX
+ignores are ignored, JAX's `ValueError`s on invalid combinations are raised,
+an unported value raises `NotImplementedError`, and an unknown name raises
+`TypeError` as Python does.
+"""
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import embeddingtables_tpu.models.train as jax_train
+import embeddingtables_tpu.serving as jax_serving
+import embeddingtables_tpu_torch as ett
+from embeddingtables_tpu_torch.data import SyntheticCriteo, SyntheticRetrieval
+from embeddingtables_tpu_torch.models import train as port_train
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+VOCABS = (13, 29)
+B = 8
+CTR = {
+    "dlrm": lambda: ett.DLRMConfig(vocab_sizes=VOCABS, num_dense=3, dim=8,
+                                   bottom_mlp=(16, 8), top_mlp=(16, 1)),
+    "dcn": lambda: ett.DCNConfig(vocab_sizes=VOCABS, num_dense=3, dim=8,
+                                 deep_mlp=(16, 8), num_cross=1),
+    "deepfm": lambda: ett.DeepFMConfig(vocab_sizes=VOCABS, num_dense=3, dim=8,
+                                       deep_mlp=(16, 8)),
+}
+INIT = {"dlrm": ett.init_dlrm, "dcn": ett.init_dcn, "deepfm": ett.init_deepfm}
+
+
+def _two_tower_cfg():
+    return ett.TwoTowerConfig(query_vocab_sizes=VOCABS, item_vocab=40,
+                              num_dense=3, dim=8, embed_dim=8,
+                              query_mlp=(16, 8), item_mlp=(16, 8))
+
+
+def _jax_defaults(fn):
+    """{name: default} of `fn`'s keyword parameters."""
+    return {name: p.default for name, p in inspect.signature(fn).parameters.items()
+            if p.kind is p.KEYWORD_ONLY}
+
+
+def _ctr_batches(cfg):
+    return SyntheticCriteo(vocab_sizes=cfg.vocab_sizes, num_dense=3,
+                           batch_size=B, seed=1).batches()
+
+
+def _tt_batches():
+    return SyntheticRetrieval(query_vocab_sizes=VOCABS, item_vocab=40,
+                              num_dense=3, batch_size=B, seed=1).batches()
+
+
+def _run_ctr(family, **kw):
+    cfg = CTR[family]()
+    loop = getattr(port_train, f"train_{family}")
+    return loop(cfg, _ctr_batches(cfg), 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("family", sorted(CTR))
+def test_ctr_loop_takes_every_jax_parameter_at_its_default(family):
+    kw = _jax_defaults(getattr(jax_train, f"train_{family}"))
+    kw["verbose"] = False
+    res = _run_ctr(family, **kw)
+    assert len(res.losses) == 1 and np.isfinite(res.losses).all()
+
+
+def test_two_tower_loop_takes_every_jax_parameter_at_its_default():
+    kw = _jax_defaults(jax_train.train_two_tower)
+    kw["verbose"] = False
+    res = port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                     device="cpu", **kw)
+    assert len(res.losses) == 1 and np.isfinite(res.losses).all()
+
+
+@pytest.mark.parametrize("name", ["evaluate_auc", "evaluate_metrics"])
+def test_evaluate_takes_every_jax_parameter_at_its_default(name):
+    cfg = CTR["dlrm"]()
+    model = ett.init_dlrm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batches = list(SyntheticCriteo(vocab_sizes=VOCABS, num_dense=3,
+                                   batch_size=64, seed=2).batches(1))
+    kw = _jax_defaults(getattr(jax_train, name))
+    out = getattr(port_train, name)(ett.make_eval_step(cfg), model, batches,
+                                    **kw)
+    value = out if name == "evaluate_auc" else out["auc"]
+    assert 0.0 <= value <= 1.0
+
+
+def _service_model(family):
+    if family == "retrieval":
+        return ett.init_two_tower(_two_tower_cfg(),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+    return INIT[family](CTR[family](), torch.Generator().manual_seed(0),
+                        device="cpu")
+
+
+def _serve_once(svc, family):
+    rng = np.random.default_rng(3)
+    dense = rng.standard_normal((2, 3)).astype(np.float32)
+    cat = np.stack([rng.integers(0, v, 2) for v in VOCABS]).astype(np.int32)
+    try:
+        out = svc.predict(dense, cat, timeout=30)
+    finally:
+        svc.stop()
+    scores = out[0] if family == "retrieval" else out
+    assert np.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("family", ["dlrm", "dcn", "deepfm", "retrieval"])
+def test_service_takes_every_jax_parameter_at_its_default(family):
+    fn = f"make_{family}_service"
+    kw = _jax_defaults(getattr(jax_serving, fn))
+    _serve_once(getattr(ett, fn)(_service_model(family), **kw), family)
+
+
+# What JAX ignores: each option whose meaning needs another option that is
+# not set (mesh, exchange="a2a", ckpt_manager, evict_every, delta_ckpt).
+IGNORED = {"axis": "model", "exchange": "a2a", "capacity_factor": 4.0,
+           "auto_capacity": True, "ckpt_every": 5, "evict_threshold": 0.5,
+           "freq_decay": 0.5, "delta_every": 3, "microbatch": 1}
+
+
+@pytest.mark.parametrize("family", sorted(CTR) + ["two_tower"])
+def test_values_jax_ignores_are_ignored(family):
+    jax_loop = getattr(jax_train, f"train_{family}")
+    kw = {k: v for k, v in IGNORED.items()
+          if k in inspect.signature(jax_loop).parameters}
+    if family == "two_tower":
+        res = port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                         device="cpu", verbose=False, **kw)
+    else:
+        res = _run_ctr(family, verbose=False, **kw)
+    assert np.isfinite(res.losses).all()
+
+
+@pytest.mark.parametrize("family", ["dlrm", "retrieval"])
+def test_service_values_jax_ignores_are_ignored(family):
+    kw = {"axis": "model"}
+    if family != "retrieval":
+        kw["quantize_bits"] = 4
+    fn = f"make_{family}_service"
+    _serve_once(getattr(ett, fn)(_service_model(family), **kw), family)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(wire_dtype=torch.bfloat16),
+    dict(wire_dtype=torch.bfloat16, exchange="a2a"),
+    dict(plan=object()),
+    dict(delta_ckpt=object()),
+], ids=["wire_dtype", "wire_dtype_a2a_without_mesh", "plan_without_mesh",
+        "delta_ckpt_without_delta_every"])
+def test_invalid_combinations_raise_what_jax_raises(kw):
+    # JAX's own checks (embeddingtables_tpu/models/train.py): ValueError.
+    with pytest.raises(ValueError):
+        _run_ctr("dlrm", **kw)
+
+
+def test_planner_with_another_exchange_raises_as_jax_does():
+    with pytest.raises(NotImplementedError, match="gather exchange"):
+        _run_ctr("dlrm", plan=object(), mesh=object(), exchange="a2a")
+
+
+@pytest.mark.parametrize("entry,kw", [
+    ("train_dlrm", dict(mesh=object())),
+    ("train_dcn", dict(delta_ckpt=object(), delta_every=2)),
+    ("train_deepfm", dict(microbatch=2)),
+    ("train_two_tower", dict(device_prefetch=2)),
+    ("make_deepfm_service", dict(quantized=True)),
+    ("make_retrieval_service", dict(mesh=object())),
+])
+def test_an_unported_value_raises_not_implemented(entry, kw):
+    name = next(iter(kw))
+    with pytest.raises(NotImplementedError, match=f"{entry}\\({name}="):
+        if entry == "train_two_tower":
+            port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                       device="cpu", **kw)
+        elif entry.startswith("train_"):
+            _run_ctr(entry[len("train_"):], **kw)
+        else:
+            family = entry[len("make_"):-len("_service")]
+            getattr(ett, entry)(_service_model(family), **kw)
+
+
+def test_an_unknown_name_raises_type_error():
+    with pytest.raises(TypeError, match="no_such_option"):
+        _run_ctr("dcn", no_such_option=1)
+    with pytest.raises(TypeError, match="guard"):
+        port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                   device="cpu", guard=object())

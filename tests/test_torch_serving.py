@@ -219,8 +219,8 @@ def test_dlrm_service_matches_jax_service(bag):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 11"),
-                                     (dict(quantized=True), "item 8")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item I"),
+                                     (dict(quantized=True), "item B")])
 def test_service_options_not_ported_yet_raise(kw, item):
     _, pm = _models()
     with pytest.raises(NotImplementedError, match=item):

@@ -326,13 +326,21 @@ def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_dlrm_options_not_ported_raise(name):
+    # Options that JAX reads only beside another come with it (plan and
+    # exchange with a mesh, delta_ckpt with delta_every): alone, JAX ignores
+    # exchange and raises ValueError on the other two
+    # (tests/test_torch_options.py).
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
+    extra = {"plan": {"mesh": object()}, "exchange": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
     cfg = ett.DLRMConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match=name):
-        train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value})
-    with pytest.raises(TypeError, match="axis"):
-        train_dlrm(cfg, iter(()), 1, device="cpu", axis="data")
+    with pytest.raises(NotImplementedError,
+                       match="mesh" if name == "exchange" else name):
+        train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value}, **extra)
+    # JAX's axis= at its default is taken and does nothing.
+    res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")
+    assert res.losses == []
 
 
 def test_init_dlrm_takes_the_optimizer_state():

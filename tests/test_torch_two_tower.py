@@ -295,8 +295,11 @@ def test_retrieval_service_gives_the_retrievers_results():
 def test_train_two_tower_options_not_ported_raise(name):
     cfg = ett.TwoTowerConfig(**SMALL)
     value = 2 if name == "device_prefetch" else object()
+    extra = {"plan": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
     with pytest.raises(NotImplementedError, match=name):
-        ett.train_two_tower(cfg, iter(()), 1, device="cpu", **{name: value})
+        ett.train_two_tower(cfg, iter(()), 1, device="cpu", **{name: value},
+                            **extra)
     with pytest.raises(TypeError, match="guard"):
         ett.train_two_tower(cfg, iter(()), 1, device="cpu", guard=object())
 

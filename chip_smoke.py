@@ -7,6 +7,7 @@
     python3 chip_smoke.py --per-table          # only the per-table comparison
     python3 chip_smoke.py --ensemble           # only the ensemble API phase
     python3 chip_smoke.py --families           # only the model-family phase
+    python3 chip_smoke.py --variants           # only the table-variant phase
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -69,7 +70,26 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     query rows, 2M items, dim 64, B = 16,384) through `train_two_tower`
     (2 run-scatters a step, recall@10), `build_item_index` (31
     `gather_rows`) and `make_retrieval_service` against the plain path.
-11. A `kernels` JSON line (every hand kernel, its launches on its paths and
+11. The table variants. Quantized serving through
+    `make_*_service(quantized=True)` to 8 closed-loop clients: the DLRM at
+    int8 and int4, DCN-v2 at int8, the folded DeepFM at int8 (int4 refused
+    on its D + 1 = 129 rows) and the unfolded one at int4, each within
+    JAX's quantized tolerance (rtol 0.1, atol 0.05) of the f32 tables'
+    scores and within rtol 1e-5 of the plain dequantize-then-f32 path, with
+    its bytes and eval time beside the f32 tables'; the quantized gather
+    timed against its byte bound; a bag-8 batch of the quantized DLRM beside
+    its f32 reference through `gather_bags`. QR, MD and TT at one table of
+    40,000,000 rows x 128 (JAX's default settings): one SGD step against the
+    plain path, 4 steps at B = 65,536 on Zipf(1.1) ids with the run-scatter
+    and hot_accumulate launches counted per sub-table, and the lookup timed
+    beside `gather_rows` on a dense table of that size. The stacked DLRM's
+    (6.5M, 128) stack in pinned host memory (`HostOffloadEmbedding`) and
+    tiered after a `FrequencyTracker` relayout (hot_rows 1,024 and
+    65,536): lookups bitwise a `SimpleEmbedding` on the card, updates to
+    rtol 1e-6, the copies timed. `train_dlrm(evict_every=2)` with SGD and
+    indexer AdaGrad for 8 steps: evicted rows > 0, those of the last
+    eviction zero in the table and the accumulator.
+12. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one, the
     D = 129 times of both gathers and the run-scatter, and the D = 1 times
     of `gather_rows` and the run-scatter), the card line again, and the
@@ -83,7 +103,8 @@ runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
 phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
-phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10.
+phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
+`--variants` phases 1-2 and phase 11.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -2032,6 +2053,547 @@ def families_phase(ett, S, H, G, gen, batches):
     return counter.total, errs, timings
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the table variants
+# ---------------------------------------------------------------------------
+
+# The MLPerf DLRM reference's Criteo Terabyte cap (--max-ind-range).
+COMPOSITIONAL_ROWS = 40_000_000
+COMPOSITIONAL_STEPS = 4
+TIERED_HOT_ROWS = (1024, 65_536)
+# JAX's own tolerances for quantized scores against f32 ones
+# (tests/test_serving.py: int8 rows in test_dlrm_service_matches_direct_eval,
+# int4 in test_dlrm_service_int4).
+QUANTIZED_TOL = {8: dict(rtol=0.1, atol=0.05), 4: dict(rtol=0.5, atol=0.3)}
+
+
+def zipf_ids(gen, vocab: int, n: int, k: int, a: float = 1.1) -> list:
+    """k sets of n Zipf(a) ids over `vocab` rows, drawn on the card: rank r
+    with probability proportional to r^-a (inverse CDF), through one seeded
+    random rank -> id permutation, as `SyntheticCriteo` draws them (its
+    alias tables take a Python loop over the vocab, too slow at 40M)."""
+    p = torch.arange(1, vocab + 1, device="cuda", dtype=torch.float64)
+    cdf = torch.cumsum(p.pow_(-a), 0)
+    cdf /= cdf[-1].clone()
+    perm = torch.randperm(vocab, generator=gen, device="cuda")
+    out = []
+    for _ in range(k):
+        u = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+        rank = torch.searchsorted(cdf, u).clamp_max(vocab - 1)
+        out.append(perm[rank].to(torch.int32))
+    del p, cdf, perm
+    return out
+
+
+def host_wall_ms(fn, arg_sets, reps: int = 5) -> float:
+    """Median host wall time of one call that ends in a synchronize (calls
+    that copy to the host wait for the card themselves)."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class swapped_tables:
+    """Score `model` with its stacked tables replaced by `data` for the
+    length of a block."""
+
+    def __init__(self, model, data):
+        self.model, self.data = model, data
+
+    def __enter__(self):
+        self.saved, self.model.tables.data = self.model.tables.data, self.data
+
+    def __exit__(self, *exc):
+        self.model.tables.data = self.saved
+
+
+def eval_ms(fn, dense, cat, steps: int = 20) -> float:
+    """Device time of one `fn(dense, cat)` at B = 2048: CUDA events over
+    `steps` back-to-back calls on device-resident inputs."""
+    for _ in range(3):
+        fn(dense, cat)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        out = fn(dense, cat)
+    end.record()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), "non-finite logits")
+    return start.elapsed_time(end) / steps
+
+
+def quantized_service_case(ett, G, counter, label, mod, model, make_service,
+                           quantize, bits):
+    """One quantized service at full width: 8 closed-loop clients, 64
+    requests of 1-256 examples, all answered and finite; its scores within
+    JAX's own quantized tolerance of the f32 tables' eval (QUANTIZED_TOL)
+    and within rtol 1e-5 of the plain dequantize-then-f32 path (the
+    dequantized stack through the plain gathers); the stored bytes and the
+    eval time at B = 2048 beside the f32 tables'."""
+    cfg = model.config
+    svc = make_service(model, quantized=True, quantize_bits=bits,
+                       max_batch=2048, max_latency_ms=2.0)
+    try:
+        warm = np.random.default_rng(SEED + 98)
+        for b in (1, 256, 2048):
+            svc.predict(*make_request(warm, cfg, b), timeout=300)
+        t0 = time.perf_counter()
+        served, got = counter.run(lambda: closed_loop(
+            svc, lambda rng, b: make_request(rng, cfg, b)))
+        wall = time.perf_counter() - t0
+        stats = svc.stats_snapshot()
+    finally:
+        svc.stop()
+    require(len(served) == 64 and all(
+        np.isfinite(o).all() and o.shape == (r[0].shape[0],)
+        for r, o, _ in served), f"{label}: non-finite or missing scores")
+    sample = served[:16]
+    dense = torch.from_numpy(np.concatenate([r[0] for r, _, _ in sample]))
+    cat = torch.from_numpy(np.concatenate([r[1] for r, _, _ in sample],
+                                          axis=1))
+    service = np.concatenate([o for _, o, _ in sample])
+    qt, eval_fn = quantize(model, bits=bits)
+    quant = eval_fn(dense, cat)
+    ev = mod.make_eval_step(cfg)
+    f32 = ev(model, dense, cat)
+    # The service's scores against the f32 tables' on the same requests,
+    # and the quantized eval of those requests, batched as one.
+    tol = QUANTIZED_TOL[bits]
+    np.testing.assert_allclose(service, f32.cpu().numpy(), **tol)
+    torch.testing.assert_close(quant, f32, **tol)
+    with swapped_tables(model, qt.dequantize()), plain_gathers(G):
+        plain = ev(model, dense, cat)
+    torch.testing.assert_close(quant, plain, rtol=1e-5, atol=1e-6)
+    d, c = make_request(np.random.default_rng(SEED + 5), cfg, 2048)
+    d, c = torch.from_numpy(d).cuda(), torch.from_numpy(c).cuda()
+    table = model.tables.data
+    out = {"phase": "quantized_serve", "model": label, "bits": bits,
+           "tolerance_vs_f32": tol,
+           "requests": len(served), "wall_s": wall, "launches": got,
+           **latency_ms([lat for _, _, lat in served]),
+           "batches": stats["batches"],
+           "nbytes": qt.nbytes,
+           "f32_nbytes": table.numel() * table.element_size(),
+           "eval_ms_b2048": eval_ms(eval_fn, d, c),
+           "f32_eval_ms_b2048": eval_ms(lambda x, y: ev(model, x, y), d, c),
+           "vs_f32_max_abs": max_abs_err(quant, f32),
+           "service_vs_f32_max_abs": float(np.abs(
+               service - f32.cpu().numpy()).max()),
+           "vs_plain_dequantized_max_abs": max_abs_err(quant, plain),
+           "max_abs_logit": float(f32.abs().max())}
+    emit(out)
+    del qt, eval_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def quantized_gather_times(G, gen, qt, f32_table, bits, n=26 * 2048):
+    """The quantized gather (`rows`: two `index_select`s, the unpack, one
+    multiply) at the serving shape beside its byte bound: each unique row's
+    stored bytes and scale read once, the ids read, the f32 rows written;
+    and `gather_rows` on the f32 table."""
+    v, d = f32_table.shape
+    sets = [torch.randint(0, v, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(10)]
+    uniq = statistics.mean(torch.unique(s).numel() for s in sets)
+    row_bytes = d if bits == 8 else d // 2
+    nbytes = uniq * (row_bytes + 4) + n * 4 + n * d * 4
+    t = {"kernel_ms": time_each_ms(lambda i: qt.rows(i), [(s,) for s in sets]),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "f32_gather_rows_ms": time_each_ms(
+             lambda i: G.gather_rows(f32_table, i), [(s,) for s in sets])}
+    emit({"phase": "quantized_gather_time", "bits": bits, "V": v, "D": d,
+          "n": n, "unique_rows": uniq, "bytes": nbytes, **t,
+          "share_of_bound": t["bound_ms"] / t["kernel_ms"]})
+
+
+def quantized_phase(ett, G, counter, gen):
+    """int8 and int4 serving of the 26 x 250,000 x 128 DLRM, int8 DCN-v2,
+    int8 folded DeepFM (int4 refused on its odd width), int4 unfolded
+    DeepFM, and a bag-8 batch through the quantized DLRM beside its f32
+    reference through `gather_bags`."""
+    from embeddingtables_tpu_torch import quant
+    M = ett.models
+    out = {}
+    cfg = ett.dlrm_small_config(vocab=VOCAB)
+    model = ett.init_dlrm(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    for bits in (8, 4):
+        out[f"dlrm_int{bits}"] = quantized_service_case(
+            ett, G, counter, "dlrm", M.dlrm, model, ett.make_dlrm_service,
+            quant.quantize_dlrm, bits)
+        qt, _ = quant.quantize_dlrm(model, bits=bits)
+        quantized_gather_times(G, gen, qt, model.tables.data, bits)
+        del qt
+    # A bag-8 batch: the quantized eval beside the f32 eval (one
+    # gather_bags launch) and the plain dequantized path, f32 towers (bag
+    # sums in another f32 order would flip bf16 roundings).
+    cfgb = dataclasses.replace(cfg, bag=8, compute_dtype=torch.float32)
+    db, cb = make_request(np.random.default_rng(SEED + 7), cfgb, 2048, 8)
+    db, cb = torch.from_numpy(db).cuda(), torch.from_numpy(cb).cuda()
+    with config_as(model, cfgb):
+        qt, eval_fn = quant.quantize_dlrm(model, bits=8)
+        qb, _ = counter.run(lambda: eval_fn(db, cb))
+        fb, gotb = counter.run(lambda: M.dlrm.make_eval_step(cfgb)(
+            model, db, cb))
+        with swapped_tables(model, qt.dequantize()), plain_gathers(G):
+            pb = M.dlrm.make_eval_step(cfgb)(model, db, cb)
+    require(gotb["gather_bags"] == 1, f"bag-8 f32 launches {gotb}")
+    torch.testing.assert_close(qb, fb, **QUANTIZED_TOL[8])
+    torch.testing.assert_close(qb, pb, rtol=1e-5, atol=1e-6)
+    emit({"phase": "quantized_bag8", "batch": 2048, "bag": 8,
+          "f32_launches": gotb, "vs_f32_max_abs": max_abs_err(qb, fb),
+          "vs_plain_dequantized_max_abs": max_abs_err(qb, pb)})
+    stack = model.tables.data
+    del model, qt, eval_fn
+    torch.cuda.empty_cache()
+
+    model = ett.init_dcn(ett.dcn_small_config(vocab=VOCAB),
+                         torch.Generator(device="cuda").manual_seed(SEED))
+    out["dcn_int8"] = quantized_service_case(
+        ett, G, counter, "dcn", M.dcn, model, ett.make_dcn_service,
+        quant.quantize_dcn, 8)
+    del model
+    torch.cuda.empty_cache()
+
+    fm_cfg = ett.deepfm_small_config(vocab=VOCAB)
+    model = ett.init_deepfm(fm_cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    out["deepfm_folded_int8"] = quantized_service_case(
+        ett, G, counter, "deepfm_folded", M.deepfm, model,
+        ett.make_deepfm_service, quant.quantize_deepfm, 8)
+    try:
+        ett.make_deepfm_service(model, quantized=True, quantize_bits=4)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("chip_smoke: FAILED: int4 on the folded (D + 1 = "
+                         "129) stack was not refused")
+    emit({"phase": "quantized_refusal", "model": "deepfm_folded", "bits": 4,
+          "error": refused})
+    del model
+    torch.cuda.empty_cache()
+    model = ett.init_deepfm(dataclasses.replace(fm_cfg, fold_fm_w=False),
+                            torch.Generator(device="cuda").manual_seed(SEED))
+    out["deepfm_unfolded_int4"] = quantized_service_case(
+        ett, G, counter, "deepfm_unfolded", M.deepfm, model,
+        ett.make_deepfm_service, quant.quantize_deepfm, 4)
+    del model
+    torch.cuda.empty_cache()
+    return stack
+
+
+def compositional_step(kind, table, opt, ids, target):
+    """One SGD step of a 40M-row compositional table: its `*_lookup_vjp` on
+    `ids`, the mean-squared-error cotangent toward `target`, and
+    `opt.apply` on every sparse sub-table (MD's projection by dense SGD).
+    Returns the loss."""
+    from embeddingtables_tpu_torch import md, qr, tt
+    vjp = {"qr": qr.qr_lookup_vjp, "md": md.md_lookup_vjp,
+           "tt": tt.tt_lookup_vjp}[kind]
+    out, pull = vjp(table, ids)
+    err = out - target
+    upds = pull(err / ids.numel())
+    if kind == "md":
+        upds, proj_grad = upds[:1], upds[1]
+        table.proj.sub_(opt.lr * proj_grad)
+    for data, upd in zip(sub_tables(kind, table), upds):
+        opt.apply(data, upd, opt.init(data))
+    return 0.5 * (err * err).sum(1).mean()
+
+
+def sub_tables(kind, table) -> list:
+    if kind == "qr":
+        return [table.q_data, table.r_data]
+    if kind == "md":
+        return [table.data]
+    return list(table.core_tables())
+
+
+def compositional_phase(ett, S, H, G, counter, gen):
+    """QR (mult, Q = int(sqrt(V))), MD (d_small = 32) and TT (rank 8, 3
+    cores) at one table of 40,000,000 rows x 128, the settings JAX defaults
+    to: one SGD step through the kernels against the plain versions, then
+    COMPOSITIONAL_STEPS steps at B = 65,536 on Zipf(1.1) ids with the
+    kernel launches counted, and the lookup's time beside `gather_rows` on
+    a dense table of the same rows and width."""
+    import copy
+    v, d = COMPOSITIONAL_ROWS, 128
+    ids = zipf_ids(gen, v, B_TRAIN, COMPOSITIONAL_STEPS)
+    target = torch.randn((B_TRAIN, d), generator=gen, device="cuda") * 0.1
+    dense = torch.empty((v, d), device="cuda")
+    dense.uniform_(-1.0, 1.0, generator=gen)
+    uniq = statistics.mean(torch.unique(s).numel() for s in ids)
+    dense_ms = time_each_ms(lambda i: G.gather_rows(dense, i),
+                            [(s,) for s in ids], reps=20)
+    del dense
+    torch.cuda.empty_cache()
+    emit({"phase": "compositional_dense_gather", "V": v, "D": d,
+          "n": B_TRAIN, "unique_rows": uniq, "gather_rows_ms": dense_ms,
+          "bound_ms": (uniq * d * 4 + B_TRAIN * 4 + B_TRAIN * d * 4)
+          / HBM_BYTES_PER_S * 1e3})
+    opt = ett.SparseSGD(0.5)
+    out = {}
+    for kind in ("qr", "md", "tt"):
+        r0 = time.perf_counter()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        if kind == "qr":
+            table = ett.QREmbedding.create(g, v, d)
+        elif kind == "md":
+            table = ett.MDEmbedding.create(g, v, d, 32)
+        else:
+            table = ett.TTEmbedding.create(g, v, d, rank=8, num_cores=3)
+        subs = sub_tables(kind, table)
+        # Sub-tables of at most 512 padded rows and a width of a multiple
+        # of 128 take hot_accumulate (`optim._segsum_vpad`, JAX's rule): TT's
+        # 342-row middle core, 256 wide.
+        tiny = [t.shape[1] % 128 == 0 and -(-t.shape[0] // 128) * 128 <= 512
+                for t in subs]
+        plain = copy.deepcopy(table)
+        compositional_step(kind, table, opt, ids[0], target)
+        with plain_kernels(S, G), plain_gathers(G), plain_segsum(H):
+            compositional_step(kind, plain, opt, ids[0], target)
+        torch.cuda.synchronize()
+        errs = []
+        for a, b, is_tiny in zip(subs, sub_tables(kind, plain), tiny):
+            if is_tiny:
+                # hot_accumulate sums in another order than its plain
+                # version (its stated tolerance, 1e-5 of the sums).
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                require(torch.equal(bits(a), bits(b)),
+                        f"{kind}: the SGD step is not bitwise the plain path")
+            errs.append(max_abs_err(a, b))
+        if kind == "md":
+            torch.testing.assert_close(table.proj, plain.proj, rtol=1e-5,
+                                       atol=1e-6)
+        del plain
+        torch.cuda.empty_cache()
+        losses, got = counter.run(lambda: [
+            float(compositional_step(kind, table, opt, ids[i], target))
+            for i in range(COMPOSITIONAL_STEPS)])
+        require(all(math.isfinite(x) for x in losses),
+                f"{kind}: non-finite losses {losses}")
+        runs = COMPOSITIONAL_STEPS * sum(not t for t in tiny)
+        hots = COMPOSITIONAL_STEPS * sum(tiny)
+        require(got["scatter_add_rows_sorted"] == runs
+                and got["hot_accumulate"] == hots,
+                f"{kind}: launches {got}, want {runs} run-scatters and "
+                f"{hots} hot_accumulate")
+        rows_ms = time_each_ms(lambda i: table.rows(i), [(s,) for s in ids],
+                               reps=20)
+        step_ms = events_ms(lambda: compositional_step(
+            kind, table, opt, ids[0], target), reps=3)
+        out[kind] = {"rows_ms": rows_ms, "step_ms": statistics.median(step_ms)}
+        emit({"phase": "compositional", "kind": kind, "V": v, "D": d,
+              "sub_tables": [list(t.shape) for t in subs],
+              "hot_accumulate_sub_tables": tiny,
+              "compression": table.compression(),
+              "parity_max_abs_err": errs,
+              "parity": ["rtol 1e-5 (hot_accumulate)" if t else "bitwise"
+                         for t in tiny],
+              "steps": COMPOSITIONAL_STEPS, "batch": B_TRAIN,
+              "losses": losses, "launches": got, "rows_ms": rows_ms,
+              "dense_gather_rows_ms": dense_ms,
+              "step_ms": out[kind]["step_ms"],
+              "seconds": time.perf_counter() - r0})
+        del table, subs
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_memory_gb() -> dict:
+    with open("/proc/meminfo") as f:
+        info = {ln.split(":")[0]: int(ln.split()[1]) for ln in f}
+    return {"host_total_gb": info["MemTotal"] / 2**20,
+            "host_available_gb": info["MemAvailable"] / 2**20}
+
+
+def host_tables_phase(ett, G, counter, stack, batches):
+    """The stacked DLRM's (6.5M, 128) f32 stack offloaded to pinned host
+    memory, then tiered after a `FrequencyTracker` relayout on the training
+    batches with hot_rows = 1,024 and 65,536: lookups of the training ids
+    bitwise a `SimpleEmbedding` on the card, updates within rtol 1e-6 (the
+    host adds each row's deltas in stream order, the card under
+    deterministic algorithms), the copies and lookups timed."""
+    from embeddingtables_tpu_torch.utils import rowstats
+    mem = host_memory_gb()
+    emit({"phase": "host_memory", **mem,
+          "stack_gb": stack.numel() * 4 / 1e9})
+    require(mem["host_available_gb"] > 24,
+            f"too little host memory to pin the stack: {mem}")
+    v, d = stack.shape
+    flat = [stacked_rows(b, VOCAB) for b in batches[:2]]
+    n = flat[0].numel()
+    delta = torch.randn((n, d), generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED + 9), device="cuda") * 1e-3
+
+    def check(label, table, ref, id_sets):
+        ids = id_sets[0]
+        got, launched = counter.run(lambda: table.rows(ids))
+        require(torch.equal(bits(got), bits(ref.rows(ids))),
+                f"{label}: lookup not bitwise the SimpleEmbedding's")
+        rows_ms = host_wall_ms(table.rows, [(i,) for i in id_sets])
+        # Deterministic algorithms: index_add_ on the card otherwise adds a
+        # hot row's thousands of deltas in a varying order.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            table.scatter_apply(ids, delta)
+            ref.scatter_apply(ids, delta)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        whole = table.materialize()
+        torch.testing.assert_close(whole, ref.data, rtol=1e-6, atol=1e-6)
+        err = max_abs_err(whole, ref.data)
+        del whole
+        update_ms = host_wall_ms(table.scatter_apply, [(ids, delta)], reps=2)
+        return {"launches": launched, "rows_ms": rows_ms,
+                "update_ms": update_ms, "update_max_abs_err": err,
+                "simple_rows_ms": host_wall_ms(ref.rows,
+                                               [(i,) for i in id_sets])}
+
+    t0 = time.perf_counter()
+    off = ett.HostOffloadEmbedding(stack)
+    require(off.data.is_pinned(), "the offloaded table is not pinned")
+    pin_s = time.perf_counter() - t0
+    ref = ett.SimpleEmbedding(stack.clone())
+    res = check("offload", off, ref, flat)
+    # The copies of one lookup: the ids to the host, the rows to the card.
+    rows_host = torch.empty((n, d), pin_memory=True)
+    copies = {
+        "ids_to_host_ms": host_wall_ms(lambda i: i.to("cpu"),
+                                       [(i,) for i in flat]),
+        "host_gather_ms": host_wall_ms(
+            lambda i: torch.index_select(off.data, 0, i, out=rows_host),
+            [(i.cpu().long(),) for i in flat]),
+        "rows_to_card_ms": time_each_ms(
+            lambda r: r.to("cuda", non_blocking=True), [(rows_host,)],
+            reps=10)}
+    row_bytes = n * d * 4
+    emit({"phase": "offload", "V": v, "D": d, "n": n, "pin_s": pin_s,
+          **res, **copies,
+          "rows_to_card_gb_per_s": row_bytes / copies["rows_to_card_ms"]
+          / 1e6})
+    del off, ref, rows_host
+    torch.cuda.empty_cache()
+
+    tracker = rowstats.FrequencyTracker(v)
+    for b in batches:
+        tracker.observe(stacked_rows(b, VOCAB).cpu().numpy())
+    perm = tracker.frequency_permutation()
+    inv = torch.from_numpy(rowstats.inverse_permutation(perm)).cuda()
+    relaid = rowstats.relayout(stack, perm)
+    remapped = [inv[i.long()].to(torch.int32) for i in flat]
+    out = {}
+    for hot_rows in TIERED_HOT_ROWS:
+        t0 = time.perf_counter()
+        tiered = ett.TieredEmbedding.from_array(relaid, hot_rows)
+        split_s = time.perf_counter() - t0
+        ref = ett.SimpleEmbedding(relaid.clone())
+        res = check(f"tiered {hot_rows}", tiered, ref, remapped)
+        require(res["launches"]["gather_rows"] == 1,
+                f"tiered: hot gather launches {res['launches']}")
+        out[hot_rows] = {"hot_fraction": tiered.hot_fraction(remapped[0]),
+                         "coverage": tracker.coverage(hot_rows), **res}
+        emit({"phase": "tiered", "V": v, "D": d, "n": n,
+              "hot_rows": hot_rows, "split_s": split_s, **out[hot_rows]})
+        del tiered, ref
+        torch.cuda.empty_cache()
+    del relaid
+    torch.cuda.empty_cache()
+    return out
+
+
+def eviction_phase(ett, S, counter, batches):
+    """`train_dlrm(evict_every=2)` on the 26 x 250,000 DLRM at B = 65,536,
+    SGD and indexer AdaGrad, 8 steps on host batches: evicted rows > 0, as
+    many as a tracker replayed beside the loop pops, and the rows of the
+    last eviction zero in the table and in the AdaGrad accumulator."""
+    import copy
+    from embeddingtables_tpu_torch.utils import rowstats
+    cfg = ett.dlrm_small_config(vocab=VOCAB)
+    host = [{k: t.cpu().numpy() for k, t in b.items()} for b in batches]
+    steps, every, threshold, decay = 8, 2, 0.3, 0.5
+    out = {}
+    for name, opt in (("sgd", ett.SparseSGD(1e-4)),
+                      ("adagrad_indexer",
+                       ett.SparseRowWiseAdaGrad(1e-3, method="indexer"))):
+        model = ett.init_dlrm(cfg, torch.Generator(device="cuda")
+                              .manual_seed(SEED), sparse_opt=opt)
+        # The same loop on the same host batches without eviction, first
+        # (it also warms the step), for the rate eviction costs.
+        plain_rate = ett.train_dlrm(
+            cfg, itertools.cycle(host), steps, sparse_opt=opt, dense_lr=0.1,
+            model=copy.deepcopy(model), log_every=1,
+            verbose=False).examples_per_sec
+        torch.cuda.empty_cache()
+        res, got = counter.run(lambda: ett.train_dlrm(
+            cfg, itertools.cycle(host), steps, sparse_opt=opt, dense_lr=0.1,
+            model=model, evict_every=every, evict_threshold=threshold,
+            freq_decay=decay, log_every=1, verbose=False))
+        # The loop's trackers, replayed.
+        trackers = [rowstats.FrequencyTracker(VOCAB, decay)
+                    for _ in range(26)]
+        popped, last = 0, None
+        for i in range(steps):
+            for t, tr in enumerate(trackers):
+                tr.observe(host[i % len(host)]["cat"][t])
+            if (i + 1) % every == 0:
+                last = np.concatenate([tr.pop_cold(threshold) + t * VOCAB
+                                       for t, tr in enumerate(trackers)])
+                popped += last.size
+        require(res.evicted_rows == popped > 0 and last.size > 0,
+                f"{name}: evicted {res.evicted_rows}, replay {popped}")
+        require(got["scatter_add_rows_sorted"] == steps,
+                f"{name}: launches {got}")
+        rows = torch.from_numpy(last.astype(np.int64)).cuda()
+        require(not model.tables.data[rows].any(),
+                f"{name}: evicted rows not zero")
+        if name != "sgd":
+            require(not model.emb_state.accum[rows].any(),
+                    f"{name}: evicted accumulators not zero")
+        require(all(math.isfinite(x) for x in res.losses),
+                f"{name}: non-finite losses")
+        out[name] = {"evicted_rows": res.evicted_rows,
+                     "last_eviction_rows": int(last.size)}
+        emit({"phase": "eviction", "recipe": name, "steps": steps,
+              "evict_every": every, "evict_threshold": threshold,
+              "freq_decay": decay, "evicted_rows": res.evicted_rows,
+              "last_eviction_rows": int(last.size), "launches": got,
+              "losses": res.losses,
+              "train_examples_per_s": res.examples_per_sec,
+              "without_eviction_examples_per_s": plain_rate})
+        del model, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def variants_phase(ett, S, H, G, gen, batches):
+    """The table variants: quantized serving, the compositional tables at
+    40M rows, the offloaded and tiered stack, and row eviction in the loop.
+    Returns the launches of each kernel in the counted runs."""
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    stack = quantized_phase(ett, G, counter, gen)
+    host_tables_phase(ett, G, counter, stack, batches)
+    del stack
+    torch.cuda.empty_cache()
+    compositional_phase(ett, S, H, G, counter, gen)
+    eviction_phase(ett, S, counter, batches)
+    emit({"phase": "variants_done", "seconds": time.perf_counter() - t0,
+          "launches": counter.total})
+    return counter.total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2088,6 +2650,10 @@ def main() -> int:
         families_phase(ett, S, H, G, gen, train_batches)
         print(card_line(), flush=True)
         return 0
+    if "--variants" in sys.argv[1:]:
+        variants_phase(ett, S, H, G, gen, train_batches)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -2119,6 +2685,7 @@ def main() -> int:
     ens = ensemble_phase(ett, S, H, G, gen)
     fam, fam_errs, fam_times = families_phase(ett, S, H, G, gen,
                                               train_batches)
+    var = variants_phase(ett, S, H, G, gen, train_batches)
     for name, e in fam_errs.items():
         errs[name] = max(errs[name], e)
     for key, name, d in (("gather_rows", "gather_rows", 129),
@@ -2135,15 +2702,18 @@ def main() -> int:
     pallas = "embeddingtables_tpu/ops/pallas/"
     paths = {
         "gather_rows": (serve_launches["gather_rows"] + ens["gather_rows"]
-                        + fam["gather_rows"], "gather.cu", "gather.py:116"),
+                        + fam["gather_rows"] + var["gather_rows"],
+                        "gather.cu", "gather.py:116"),
         "gather_bags": (bag_launches["gather_bags"] + ens["gather_bags"]
-                        + fam["gather_bags"], "gather.cu", "gather.py:258"),
+                        + fam["gather_bags"] + var["gather_bags"],
+                        "gather.cu", "gather.py:258"),
         "scatter_add_rows_sorted": (
             scatter_launches + ens["scatter_add_rows_sorted"]
-            + fam["scatter_add_rows_sorted"], "scatter.cu", "scatter.py:144"),
+            + fam["scatter_add_rows_sorted"]
+            + var["scatter_add_rows_sorted"], "scatter.cu", "scatter.py:144"),
         "hot_accumulate": (hot_launches + ens["hot_accumulate"]
-                           + fam["hot_accumulate"], "segsum.cu",
-                           "segsum.py:135")}
+                           + fam["hot_accumulate"] + var["hot_accumulate"],
+                           "segsum.cu", "segsum.py:135")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source,
          "replaces": pallas + where, "launches": launches,

@@ -17,7 +17,13 @@ lazy `SparseEmbeddingUpdate`s, which `SparseSGD`, `SparseRowWiseAdaGrad`,
 Models (`models`): the DLRM, DCN-v2 and DeepFM CTR rankers and the
 two-tower retriever, each an `nn.Module` with its train step, its loop
 (`train_dlrm`, `train_dcn`, `train_deepfm`, `train_two_tower`) and its
-service (`serving`).
+service (`serving`, quantized to int8 or int4 rows by `quant`).
+
+Table variants: `QuantizedEmbedding` and `Int4QuantizedEmbedding` (serving);
+the compositional `QREmbedding`, `MDEmbedding` and `TTEmbedding` with their
+`*_lookup_vjp`; `HostOffloadEmbedding` and `TieredEmbedding` (rows in pinned
+host memory); `utils.rowstats` for frequency tracking, eviction and
+relayout.
 
 Layout convention: tables are row-major `(vocab, dim)`;
 `lookup(A, I)[i, :] == A[I[i], :]`.
@@ -35,6 +41,12 @@ from .types import (Dynamic, Forward, IndexingContext, NoContext, Static,
                     TableSpec, Update, cdiv, featuresize)
 from .tables import (SimpleEmbedding, SplitEmbedding, as_table, destination,
                      example, is_table)
+from .offload import HostOffloadEmbedding
+from .quant import Int4QuantizedEmbedding, QuantizedEmbedding
+from .qr import QREmbedding, qr_lookup_vjp
+from .md import MDEmbedding, md_lookup_vjp
+from .tt import TTEmbedding, tt_lookup_vjp
+from .tiered import TieredEmbedding
 from .models import (DCN, DLRM, DCNConfig, DeepFM, DeepFMConfig, DLRMConfig,
                      RetrievalTrainResult, TrainResult, TwoTower,
                      TwoTowerConfig, build_item_index, dcn_forward,
@@ -51,14 +63,20 @@ from .optim import (SparseAdamState, SparseFTRL, SparseFTRLState,
 from .rounding import stochastic_cast, stochastic_round_to_bf16
 from .data import SyntheticCriteo, SyntheticRetrieval
 from .interop import (dcn_from_arrays, deepfm_from_arrays, dlrm_from_arrays,
+                      md_from_arrays, qr_from_arrays, quantized_from_arrays,
+                      tiered_from_arrays, tt_from_arrays,
                       two_tower_from_arrays)
+from . import utils
 from .serving import (MicroBatcher, make_dcn_service, make_deepfm_service,
                       make_dlrm_service, make_retrieval_service, serve_http)
 
 __all__ = [
     "Static", "Dynamic", "TableSpec", "IndexingContext", "NoContext",
     "Forward", "Update", "featuresize", "cdiv",
-    "SimpleEmbedding", "SplitEmbedding", "as_table", "example",
+    "SimpleEmbedding", "SplitEmbedding", "HostOffloadEmbedding",
+    "QuantizedEmbedding", "Int4QuantizedEmbedding", "QREmbedding",
+    "qr_lookup_vjp", "MDEmbedding", "md_lookup_vjp", "TTEmbedding",
+    "tt_lookup_vjp", "TieredEmbedding", "as_table", "example",
     "destination", "is_table",
     "lookup", "lookup_oracle", "lookup_vjp", "effective_weights",
     "maplookup", "maplookup_vjp", "AbstractExecutionStrategy",
@@ -83,7 +101,9 @@ __all__ = [
     "evaluate_metrics",
     "SyntheticCriteo", "SyntheticRetrieval", "dlrm_from_arrays",
     "dcn_from_arrays", "deepfm_from_arrays", "two_tower_from_arrays",
+    "quantized_from_arrays", "qr_from_arrays", "md_from_arrays",
+    "tt_from_arrays", "tiered_from_arrays",
     "MicroBatcher", "make_dlrm_service", "make_dcn_service",
     "make_deepfm_service", "make_retrieval_service", "serve_http",
-    "config",
+    "config", "utils",
 ]

@@ -7,7 +7,10 @@ arrays arrive as the `ml_dtypes` bfloat16 numpy type, which
 `torch.from_numpy` refuses; they are reinterpreted bit for bit through
 uint16.
 
-Each builder puts the model on `device` (CUDA unless given). Layers are
+Each builder puts the model on `device` (CUDA unless given). The table
+variants' builders (`quantized_from_arrays`, `qr_from_arrays`,
+`md_from_arrays`, `tt_from_arrays`, `tiered_from_arrays`) take the arrays of
+the JAX tables of the same names. Layers are
 lists of tuples of arrays (`(W (fan_in, fan_out), b)`; DCN's low-rank cross
 layers `(U, V, b)`). A sparse optimizer's state (`emb_state=` and the
 like) is any object with named fields, a NamedTuple such as the JAX
@@ -27,7 +30,14 @@ from .models.deepfm import DeepFM, DeepFMConfig
 from .models.dlrm import _STATE_TYPES, DLRM, DLRMConfig
 from .models.two_tower import TwoTower, TwoTowerConfig
 from .ops.ensemble import StackedTables
+from .md import MDEmbedding
+from .offload import host_put
 from .optim import SparseOptState
+from .qr import QREmbedding
+from .quant import Int4QuantizedEmbedding, QuantizedEmbedding
+from .tiered import TieredEmbedding
+from .tt import TTEmbedding
+from .types import Dynamic, TableSpec
 
 _STATES = {c._fields: c for c in _STATE_TYPES}
 
@@ -124,3 +134,78 @@ def two_tower_from_arrays(cfg: TwoTowerConfig, query_mlp: Sequence,
                     tensor_from_array(item_data, device),
                     _layers(query_mlp, device), _layers(item_mlp, device),
                     _state(q_state, device), _state(i_state, device))
+
+
+def quantized_from_arrays(scale, *, q=None, packed=None,
+                          out_dtype=torch.float32, device=None, name=None):
+    """A `QuantizedEmbedding` from int8 rows `q` (V, D), or an
+    `Int4QuantizedEmbedding` from packed rows `packed` (V, D//2) uint8, with
+    their `(V,)` f32 scales."""
+    device = resolve_device(device)
+    if (q is None) == (packed is None):
+        raise ValueError("pass q= (int8) or packed= (int4), not both")
+    scale = tensor_from_array(scale, device)
+    if q is not None:
+        q = tensor_from_array(q, device)
+        spec = TableSpec(vocab=q.shape[0], dim=q.shape[1], dtype=torch.int8,
+                         lookup=Dynamic(), name=name)
+        return QuantizedEmbedding(q=q, scale=scale, spec=spec,
+                                  out_dtype=out_dtype)
+    packed = tensor_from_array(packed, device)
+    spec = TableSpec(vocab=packed.shape[0], dim=packed.shape[1] * 2,
+                     dtype=torch.uint8, lookup=Dynamic(), name=name)
+    return Int4QuantizedEmbedding(packed=packed, scale=scale, spec=spec,
+                                  out_dtype=out_dtype)
+
+
+def qr_from_arrays(q_data, r_data, vocab: int, *, combine: str = "mult",
+                   device=None, name=None) -> QREmbedding:
+    """A `QREmbedding` of `vocab` rows from its quotient and remainder
+    tables (Q is the remainder table's row count)."""
+    device = resolve_device(device)
+    q_data = tensor_from_array(q_data, device)
+    r_data = tensor_from_array(r_data, device)
+    dim = q_data.shape[1] + (r_data.shape[1] if combine == "concat" else 0)
+    spec = TableSpec(vocab=vocab, dim=dim, dtype=q_data.dtype,
+                     lookup=Dynamic(), name=name)
+    return QREmbedding(q_data=q_data, r_data=r_data, spec=spec,
+                       num_remainder=r_data.shape[0], combine=combine)
+
+
+def md_from_arrays(data, proj, *, device=None, name=None) -> MDEmbedding:
+    """An `MDEmbedding` from its `(V, d_small)` rows and `(d_small, D)`
+    projection."""
+    device = resolve_device(device)
+    data = tensor_from_array(data, device)
+    proj = tensor_from_array(proj, device)
+    spec = TableSpec(vocab=data.shape[0], dim=proj.shape[1], dtype=data.dtype,
+                     lookup=Dynamic(), name=name)
+    return MDEmbedding(data=data, proj=proj, spec=spec)
+
+
+def tt_from_arrays(cores: Sequence, vocab: int, *, device=None,
+                   name=None) -> TTEmbedding:
+    """A `TTEmbedding` of `vocab` rows from its cores
+    `(v_k, r_{k-1}, d_k, r_k)`; the factors are the cores' shapes."""
+    device = resolve_device(device)
+    cores = tuple(tensor_from_array(c, device) for c in cores)
+    vf = tuple(c.shape[0] for c in cores)
+    df = tuple(c.shape[2] for c in cores)
+    dim = int(np.prod(df))
+    spec = TableSpec(vocab=vocab, dim=dim, dtype=cores[0].dtype,
+                     lookup=Dynamic(), name=name)
+    return TTEmbedding(cores=cores, spec=spec, vocab_factors=vf,
+                       dim_factors=df)
+
+
+def tiered_from_arrays(hot, cold, *, device=None, name=None
+                       ) -> TieredEmbedding:
+    """A `TieredEmbedding` from its hot rows (to `device`) and cold rows (to
+    pinned host memory for a card)."""
+    device = resolve_device(device)
+    hot = tensor_from_array(hot, device)
+    cold = host_put(tensor_from_array(cold, "cpu"), device)
+    spec = TableSpec(vocab=hot.shape[0] + cold.shape[0], dim=hot.shape[1],
+                     dtype=hot.dtype, lookup=Dynamic(), name=name)
+    return TieredEmbedding(hot=hot, cold=cold, spec=spec,
+                           hot_rows=hot.shape[0])

@@ -7,15 +7,16 @@ points.
     them on `dense`/`cat`/`label` batches. `train_dlrm`, `train_dcn` and
     `train_deepfm` are thin calls.
   - `_run_loop` owns the per-step cadence for every family: fetch a host
-    batch, move it to the model's device, run the step (which updates the
-    model in place), read the loss back at the log cadence, evaluate at
-    `eval_every`. `train_two_tower` runs it with its own batches, step and
-    recall@k eval.
+    batch, feed the frequency trackers, move the batch to the model's
+    device, run the step (which updates the model in place), evict stale
+    rows every `evict_every` steps, read the loss back at the log cadence,
+    evaluate at `eval_every`. `train_two_tower` runs it with its own
+    batches, step and recall@k eval.
 
 Every loop takes every parameter of its JAX counterpart. The mesh,
-planner, eviction, checkpoint, guard, prefetch, microbatch and `dense_tx`
-options are not ported yet: `unported.py` holds their table, and a value
-other than the one that leaves an option off raises `NotImplementedError`.
+planner, checkpoint, guard, prefetch, microbatch and `dense_tx` options are
+not ported yet: `unported.py` holds their table, and a value other than the
+one that leaves an option off raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD
 from ..unported import check_jax_combinations, refuse_unported
+from ..utils.rowstats import FrequencyTracker, evict_rows, reset_rows_state
 from .dlrm import DLRMConfig
 
 
@@ -101,26 +103,37 @@ def _sr_generator_for(sparse_opt, seed: int, device: torch.device):
 
 
 def _run_loop(*, model, device, step, put, train_iter, num_steps,
-              batch_count, lr_schedule=None, generator=None, split_out=None,
-              log_every=100, verbose=True, on_log=None, eval_every=0,
-              eval_batches=None, eval_fn=None):
+              batch_count, lr_schedule=None, generator=None, track_fn=None,
+              evict_every=0, evict_fn=None, split_out=None, log_every=100,
+              verbose=True, on_log=None, eval_every=0, eval_batches=None,
+              eval_fn=None):
     """The shared per-step cadence. Hooks:
 
       put(batch) -> args              the step's positional inputs
+      track_fn(batch)                 feed the frequency trackers
+      evict_fn(model) -> n            at the evict_every cadence, in place
       split_out(out) -> loss          default: the output is the loss
       on_log(i, loss_value)           replaces the default log line
       eval_fn(model) -> (value, line) at the eval_every cadence
 
-    Returns (losses, evals, examples_per_sec)."""
+    Returns (losses, evals, examples_per_sec, evicted_total)."""
     losses, evals = [], []
     examples = 0
+    evicted_total = 0
     t_start = time.perf_counter()
     for i in range(num_steps):
         batch = next(train_iter)
+        if track_fn is not None:
+            track_fn(batch)
         kw = {} if generator is None else {"generator": generator}
         if lr_schedule is not None:
             kw["lr"] = lr_schedule(i)
         out = step(model, *put(batch), **kw)
+        if evict_fn is not None and (i + 1) % evict_every == 0:
+            # Only rows seen and then gone stale (never-seen rows sit at
+            # their init values), each popped so it is not evicted again
+            # unless it reappears.
+            evicted_total += evict_fn(model)
         loss = out if split_out is None else split_out(out)
         examples += batch_count(batch)
         if log_every and (i % log_every == 0 or i == num_steps - 1):
@@ -137,7 +150,8 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps,
                 print(f"step {i + 1:6d}  {line}", flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return losses, evals, examples / (time.perf_counter() - t_start)
+    return (losses, evals, examples / (time.perf_counter() - t_start),
+            evicted_total)
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +206,61 @@ def _model_for(init, from_arrays, cfg, model, seed: int, device,
                 device=device, sparse_opt=sparse_opt)
 
 
+def _maybe_evict(model, trackers, evict_threshold: float, stacks) -> int:
+    """Pop each tracker's stale rows and evict them from the model, in
+    place: every stack of `stacks` (`(tables, state)` attribute names
+    sharing the first stack's offsets) gets the rows zeroed and its
+    optimizer state reset at them. DeepFM's unfolded layout passes its
+    first-order stack too, so a stale row loses both representations and
+    both states. Returns the number of rows evicted."""
+    first = getattr(model, stacks[0][0])
+    cold = np.concatenate([tr.pop_cold(evict_threshold) + first.offsets[t]
+                           for t, tr in enumerate(trackers)])
+    if not cold.size:
+        return 0
+    rows = torch.from_numpy(cold.astype(np.int64)).to(first.data.device)
+    for tables_attr, state_attr in stacks:
+        evict_rows(getattr(model, tables_attr).data, rows)
+        reset_rows_state(getattr(model, state_attr), rows)
+    return int(cold.size)
+
+
+def _evict_hooks(cfg, evict_every: int, evict_threshold: float,
+                 freq_decay: float, evict_stacks=None):
+    """(track_fn, evict_fn) of the loop, both None without eviction: a
+    `FrequencyTracker` per table follows the host batches (pads left out),
+    and every `evict_every` steps the rows that appeared and went stale
+    are evicted (`_maybe_evict`) from the stacks `evict_stacks(model)`
+    names, by default the model's one stack."""
+    if not evict_every:
+        return None, None
+    trackers = [FrequencyTracker(v, decay=freq_decay)
+                for v in cfg.vocab_sizes]
+    pad_idx = getattr(cfg, "pad_idx", None)
+
+    def track_fn(batch):
+        cat = batch["cat"]
+        cat = cat.cpu().numpy() if torch.is_tensor(cat) else np.asarray(cat)
+        for t, tr in enumerate(trackers):
+            ids = cat[t]
+            if pad_idx is not None:
+                # np.bincount refuses the negative pad, and a pad is no
+                # traffic.
+                ids = ids[ids != pad_idx]
+            tr.observe(ids)
+
+    def evict_fn(m):
+        stacks = ((("tables", "emb_state"),) if evict_stacks is None
+                  else evict_stacks(m))
+        return _maybe_evict(m, trackers, evict_threshold, stacks)
+
+    return track_fn, evict_fn
+
+
 def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
                dense_lr, model, seed, eval_batches, eval_every, eval_metrics,
-               log_every, lr_schedule, verbose, device) -> TrainResult:
+               log_every, lr_schedule, verbose, device, evict_every,
+               evict_threshold, freq_decay, evict_stacks=None) -> TrainResult:
     """The CTR (dense/cat/label) training run of any family."""
     if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
         raise ValueError(
@@ -220,15 +286,18 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         a = evaluate_auc(eval_step, m, eval_batches)
         return a, f"eval AUC {a:.4f}"
 
-    losses, aucs, eps = _run_loop(
+    track_fn, evict_fn = _evict_hooks(cfg, evict_every, evict_threshold,
+                                      freq_decay, evict_stacks)
+    losses, aucs, eps, evicted = _run_loop(
         model=model, device=device, step=step, put=put, train_iter=train_iter,
         num_steps=num_steps, batch_count=lambda b: b["label"].shape[0],
         lr_schedule=lr_schedule,
         generator=_sr_generator_for(sparse_opt, seed, device),
+        track_fn=track_fn, evict_every=evict_every, evict_fn=evict_fn,
         log_every=log_every, verbose=verbose, eval_every=eval_every,
         eval_batches=eval_batches, eval_fn=eval_fn)
     return TrainResult(model=model, losses=losses, aucs=aucs,
-                       examples_per_sec=eps)
+                       examples_per_sec=eps, evicted_rows=evicted)
 
 
 def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
@@ -251,20 +320,30 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     sparse optimizer's lr per step. `losses` holds the loss at every
     `log_every`-th step and the last; `aucs` the eval AUC every `eval_every`
     steps (`eval_metrics=True` also prints log loss, normalized entropy and
-    calibration). JAX's other options follow `unported.py`: set, an unported
-    one raises, as does an `lr_schedule` with `SparseFTRL` (alpha is baked
-    into its state), before the first step, as the JAX loop's first step
-    does."""
+    calibration).
+
+    `evict_every > 0` turns on row lifecycle management: a
+    `utils.rowstats.FrequencyTracker` (decay `freq_decay`) follows each
+    table's traffic from the host batches, and every `evict_every` steps the
+    rows that appeared and then went stale (decayed count at or below
+    `evict_threshold`) are zeroed and their optimizer state reset;
+    `evicted_rows` counts them. Never-seen rows keep their init values.
+
+    JAX's other options follow `unported.py`: set, an unported one raises,
+    as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
+    state), before the first step, as the JAX loop's first step does."""
     _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
             delta_every=delta_every, mesh=mesh, plan=plan,
             delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
-            microbatch=microbatch, device_prefetch=device_prefetch)
+            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+            device_prefetch=device_prefetch)
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device)
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        evict_every=evict_every, evict_threshold=evict_threshold,
+        freq_decay=freq_decay)
 
 
 def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -278,16 +357,18 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
               lr_schedule=None, delta_ckpt=None, delta_every: int = 0,
               verbose: bool = True, device=None) -> TrainResult:
     """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches, cadence
-    and options."""
+    and options, row eviction included."""
     _refuse("train_dcn", delta_every=delta_every, mesh=mesh, plan=plan,
             delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
-            microbatch=microbatch, device_prefetch=device_prefetch)
+            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+            device_prefetch=device_prefetch)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device)
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        evict_every=evict_every, evict_threshold=evict_threshold,
+        freq_decay=freq_decay)
 
 
 def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -303,16 +384,26 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
                  delta_every: int = 0, verbose: bool = True,
                  device=None) -> TrainResult:
     """Train a DeepFM (`models/deepfm.py`, either layout) on `train_dlrm`'s
-    batches, cadence and options."""
+    batches, cadence and options. Row eviction covers every stack: a stale
+    row loses its FM vector, its first-order weight and their optimizer
+    state, in the fused row of the folded layout or in both stacks of the
+    unfolded one."""
+
+    def evict_stacks(m):
+        fm = () if m.fm_w is None else (("fm_w", "fm_state"),)
+        return (("tables", "emb_state"),) + fm
+
     _refuse("train_deepfm", delta_every=delta_every, mesh=mesh, plan=plan,
             delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, evict_every=evict_every,
-            microbatch=microbatch, device_prefetch=device_prefetch)
+            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+            device_prefetch=device_prefetch)
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
-        lr_schedule=lr_schedule, verbose=verbose, device=device)
+        lr_schedule=lr_schedule, verbose=verbose, device=device,
+        evict_every=evict_every, evict_threshold=evict_threshold,
+        freq_decay=freq_decay, evict_stacks=evict_stacks)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +465,7 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
             print(f"step {i:6d}  loss {lv:.5f}  in-batch acc {accs[-1]:.3f}",
                   flush=True)
 
-    losses, recalls, eps = _run_loop(
+    losses, recalls, eps, _ = _run_loop(
         model=model, device=device, step=step, put=put, train_iter=train_iter,
         num_steps=num_steps, batch_count=lambda b: b["item_ids"].shape[0],
         generator=_sr_generator_for(sparse_opt, seed, device),

@@ -8,8 +8,9 @@ of `embeddingtables_tpu/serving.py`).
     batches are padded up to power-of-two buckets, so the device sees
     O(log max_batch) distinct batch shapes.
   - `make_dlrm_service`, `make_dcn_service`, `make_deepfm_service`: glue
-    from a CTR model to a `MicroBatcher`; `make_retrieval_service` serves a
-    two-tower model's top-k retrieval the same way.
+    from a CTR model, or its int8 / int4 quantized tables (`quant.py`), to a
+    `MicroBatcher`; `make_retrieval_service` serves a two-tower model's
+    top-k retrieval the same way.
   - `serve_http`: a stdlib `ThreadingHTTPServer` JSON endpoint
     (`POST /predict`) over a `MicroBatcher`.
 
@@ -30,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import quant
 from .models import dcn, deepfm, dlrm, two_tower
 from .unported import refuse_unported
 
@@ -215,19 +217,33 @@ class MicroBatcher:
             off += p.size
 
 
-def _scoring_service(model, make_eval_step, *, max_batch,
-                     max_latency_ms) -> MicroBatcher:
-    """A CTR model's eval step behind a `MicroBatcher`: each flushed batch
-    is copied to the model's device, scored under `torch.inference_mode()`
-    and copied back as numpy float32. Nothing synchronises explicitly: the
-    copy back is where the worker waits for the batch."""
-    step = make_eval_step(model.config)
+def _scoring_service(model, make_eval_step, quantize, *, quantized: bool,
+                     quantize_bits: int, mesh, entry: str, max_batch: int,
+                     max_latency_ms: float) -> MicroBatcher:
+    """A CTR model behind a `MicroBatcher`: each flushed batch is copied to
+    the model's device, scored (`make_eval_step`'s step under
+    `torch.inference_mode()`, or with `quantized=True` the eval function of
+    `quantize(model, bits=quantize_bits)`) and copied back as numpy float32.
+    Nothing synchronises explicitly: the copy back is where the worker waits
+    for the batch. JAX's own error on a quantized mesh service comes before
+    the unported `mesh`."""
+    if mesh is not None and quantized:
+        raise NotImplementedError(
+            "quantized serving is single-chip; unshard the model first")
+    refuse_unported(entry, mesh=mesh)
     device = model.tables.data.device
+    if quantized:
+        _, score = quantize(model, bits=quantize_bits)
+    else:
+        step = make_eval_step(model.config)
+
+        def score(dense, cat):
+            return step(model, dense, cat)
 
     def predict(dense, cat):
         d = torch.from_numpy(dense).to(device)
         c = torch.from_numpy(cat).to(device)
-        return step(model, d, c).cpu().numpy()
+        return score(d, c).cpu().numpy()
 
     return MicroBatcher(predict, max_batch=max_batch,
                         max_latency_ms=max_latency_ms)
@@ -238,12 +254,15 @@ def make_dlrm_service(model, *, quantized: bool = False,
                       max_batch: int = 1024,
                       max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DLRM scoring service on the model's device: `dlrm_forward`
-    per flushed batch (`_scoring_service`). Returns a running
-    `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
-    `quantized=True` and a `mesh` are not ported yet (`unported.py`);
-    `quantize_bits` and `axis` are ignored without them, as in JAX."""
-    refuse_unported("make_dlrm_service", mesh=mesh, quantized=quantized)
-    return _scoring_service(model, dlrm.make_eval_step, max_batch=max_batch,
+    per flushed batch, or with `quantized=True` the stacked tables as int8
+    (`quantize_bits=8`) or int4 rows (`quant.quantize_dlrm`). Returns a
+    running `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
+    A `mesh` is not ported yet (`unported.py`); `axis` is ignored without
+    one, as in JAX."""
+    return _scoring_service(model, dlrm.make_eval_step, quant.quantize_dlrm,
+                            quantized=quantized, quantize_bits=quantize_bits,
+                            mesh=mesh, entry="make_dlrm_service",
+                            max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
@@ -252,9 +271,11 @@ def make_dcn_service(model, *, quantized: bool = False,
                      max_batch: int = 1024,
                      max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DCN-v2 scoring service, `make_dlrm_service`'s contract for a
-    `models.dcn.DCN`."""
-    refuse_unported("make_dcn_service", mesh=mesh, quantized=quantized)
-    return _scoring_service(model, dcn.make_eval_step, max_batch=max_batch,
+    `models.dcn.DCN` (`quant.quantize_dcn`)."""
+    return _scoring_service(model, dcn.make_eval_step, quant.quantize_dcn,
+                            quantized=quantized, quantize_bits=quantize_bits,
+                            mesh=mesh, entry="make_dcn_service",
+                            max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
@@ -263,9 +284,14 @@ def make_deepfm_service(model, *, quantized: bool = False,
                         max_batch: int = 1024,
                         max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DeepFM scoring service (either layout),
-    `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`."""
-    refuse_unported("make_deepfm_service", mesh=mesh, quantized=quantized)
-    return _scoring_service(model, deepfm.make_eval_step, max_batch=max_batch,
+    `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`
+    (`quant.quantize_deepfm`: the folded stack quantizes its fused rows,
+    so `quantize_bits=4` raises there; the unfolded first-order stack stays
+    in its storage dtype)."""
+    return _scoring_service(model, deepfm.make_eval_step,
+                            quant.quantize_deepfm, quantized=quantized,
+                            quantize_bits=quantize_bits, mesh=mesh,
+                            entry="make_deepfm_service", max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 

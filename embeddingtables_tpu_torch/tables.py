@@ -80,6 +80,24 @@ class SimpleEmbedding:
         return SimpleEmbedding(torch.zeros_like(self.data), spec=self.spec)
 
 
+def normal(generator, shape, dtype, device=None) -> torch.Tensor:
+    """Standard-normal draws of `shape` and `dtype` on `device` (CUDA unless
+    given) from `generator` (which must live there; by default one seeded
+    with 0): the `create` constructors' initializer."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def take_rows(data: torch.Tensor, idx) -> torch.Tensor:
+    """`data[idx]` for ids of any shape through `gather_rows` on the table's
+    device, under the lookup's id contract (`[-V, 0)` wraps, any other
+    out-of-range id gives a NaN row): `jnp.take` as the JAX tables call
+    it."""
+    return SimpleEmbedding(data).rows(torch.as_tensor(idx).to(data.device))
+
+
 def _as_data(data, device=None) -> torch.Tensor:
     """A tensor as it is; anything else (a numpy array) as a tensor on
     `resolve_device(device)`, float64 narrowed to float32 as in the JAX

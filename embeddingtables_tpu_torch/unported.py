@@ -9,14 +9,18 @@ ignores them, since the one that gives them a meaning is unported:
 
   - `axis` (`mesh`), `exchange`, `capacity_factor`, `auto_capacity`
     (`mesh` with `exchange="a2a"`);
-  - `ckpt_every` (`ckpt_manager`), `delta_every` (`delta_ckpt`);
-  - `evict_threshold`, `freq_decay` (`evict_every`);
-  - `quantize_bits` (`quantized`).
+  - `ckpt_every` (`ckpt_manager`), `delta_every` (`delta_ckpt`).
+
+The loops' `evict_every` (with `evict_threshold` and `freq_decay`) and the
+services' `quantized` (with `quantize_bits`) are ported and read; as in JAX,
+`evict_threshold` and `freq_decay` mean nothing without `evict_every`, nor
+`quantize_bits` without `quantized`.
 
 Where JAX raises on a combination, the callers raise the same exception
 class first (`plan` without `mesh`, `wire_dtype` without an `a2a` mesh,
 `delta_ckpt` without `delta_every`: `ValueError`; `plan` with another
-exchange than "gather": `NotImplementedError`).
+exchange than "gather", and a quantized service on a `mesh`:
+`NotImplementedError`).
 """
 from __future__ import annotations
 
@@ -24,8 +28,6 @@ from __future__ import annotations
 UNPORTED = {
     "mesh": ((None,), "multi-device placement (ROADMAP.md queue 1, item I)"),
     "plan": ((None,), "the planner (ROADMAP.md queue 1, item I)"),
-    "quantized": ((False,), "quant.py (ROADMAP.md queue 1, item B)"),
-    "evict_every": ((0,), "utils/rowstats.py (ROADMAP.md queue 1, item D)"),
     "ckpt_manager": ((None,), "checkpoints (ROADMAP.md queue 1, item E)"),
     "delta_ckpt": ((None,), "delta checkpoints (ROADMAP.md queue 1, item E)"),
     "guard": ((None,), "utils/resilience.py (ROADMAP.md queue 1, item E)"),

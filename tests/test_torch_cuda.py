@@ -618,3 +618,114 @@ def test_cuda_family_train_step_is_bitwise_the_plain_step(cuda_device,
     for (name, a), (_, b) in zip(model.named_parameters(),
                                  plain.named_parameters()):
         assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# The table variants: quantized, compositional, offloaded and tiered tables
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quantized_rows_match_the_cpu_rows(cuda_device, bits):
+    # The quantized gather is torch ops on both devices: the same q, scales
+    # and products, bitwise, with NaN rows in the same places.
+    import embeddingtables_tpu_torch as ett
+    g = torch.Generator().manual_seed(bits)
+    v = 5000
+    data = torch.randn((v, 128), generator=g)
+    data[7] = 0.0
+    cls = ett.QuantizedEmbedding if bits == 8 else ett.Int4QuantizedEmbedding
+    cpu = cls.quantize(data)
+    gpu = cls.quantize(data.to(cuda_device))
+    stored = "q" if bits == 8 else "packed"
+    assert torch.equal(getattr(gpu, stored).cpu(), getattr(cpu, stored))
+    assert torch.equal(gpu.scale.cpu().view(torch.int32),
+                       cpu.scale.view(torch.int32))
+    idx = torch.randint(-v - 3, v + 3, (4099,), generator=g,
+                        dtype=torch.int32)
+    idx[:4] = torch.tensor([7, -v, v, 2**31 - 1])
+    got, want = gpu.rows(idx.to(cuda_device)).cpu(), cpu.rows(idx)
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any()
+    assert torch.equal(got.nan_to_num().view(torch.int32),
+                       want.nan_to_num().view(torch.int32))
+
+
+def _compositional(ett, kind, device):
+    # 1M rows: QR's two tables of 1,000 rows are past the tiny-table branch
+    # (<= 512 padded rows), so every sub-table takes the run-scatter.
+    g = torch.Generator().manual_seed(3)
+    v, d = 1_000_000, 128
+    if kind == "qr":
+        t = ett.QREmbedding.create(g, v, d, device="cpu")
+        t.q_data, t.r_data = t.q_data.to(device), t.r_data.to(device)
+        return t, [t.q_data, t.r_data], ett.qr_lookup_vjp
+    if kind == "md":
+        t = ett.MDEmbedding.create(g, v, d, 32, device="cpu")
+        t.data, t.proj = t.data.to(device), t.proj.to(device)
+        return t, [t.data], ett.md_lookup_vjp
+    # Rank 4 keeps every core off the tiny-table branch (D % 128 != 0).
+    t = ett.TTEmbedding.create(g, v, d, rank=4, device="cpu")
+    t.cores = tuple(c.to(device) for c in t.cores)
+    return t, list(t.core_tables()), ett.tt_lookup_vjp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["qr", "md", "tt"])
+def test_cuda_compositional_rows_and_sgd_step_are_bitwise_the_plain_path(
+        cuda_device, kind):
+    import copy
+    import embeddingtables_tpu_torch as ett
+    table, subs, vjp = _compositional(ett, kind, cuda_device)
+    plain = copy.deepcopy(table)
+    psubs = ([plain.q_data, plain.r_data] if kind == "qr" else
+             [plain.data] if kind == "md" else list(plain.core_tables()))
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    ids = torch.randint(0, 1_000_000, (8192,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    target = torch.randn((8192, 128), generator=g, device=cuda_device)
+    opt = ett.SparseSGD(0.5)
+
+    def step(t, tables):
+        out, pull = vjp(t, ids)
+        upds = pull((out - target) / ids.numel())
+        for data, upd in zip(tables, upds[:len(tables)]):
+            opt.apply(data, upd, opt.init(data))
+        return out
+
+    before = (G.gather_rows.launches, S.scatter_add_rows_sorted.launches)
+    out = step(table, subs)
+    assert G.gather_rows.launches > before[0]
+    assert S.scatter_add_rows_sorted.launches == before[1] + len(subs)
+    with _plain_update_path(), _plain_forward_gathers():
+        out_p = step(plain, psubs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p)
+    for a, b in zip(subs, psubs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["offload", "tiered"])
+def test_cuda_host_tables_match_a_simple_embedding(cuda_device, kind):
+    import embeddingtables_tpu_torch as ett
+    g = torch.Generator().manual_seed(5)
+    v, d = 200_000, 128
+    data = torch.randn((v, d), generator=g)
+    ref = ett.SimpleEmbedding(data.to(cuda_device))
+    if kind == "offload":
+        t = ett.HostOffloadEmbedding(data, device=cuda_device)
+        assert t.data.is_pinned()
+    else:
+        t = ett.TieredEmbedding.from_array(data, 4096, device=cuda_device)
+        assert t.cold.is_pinned() and t.hot.device.type == "cuda"
+    ids = torch.randint(0, v, (65_536,), generator=g, dtype=torch.int32)
+    ids[:64] = torch.arange(64) * 3     # hot rows for the tiered table
+    got = t.rows(ids.to(cuda_device))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32),
+                       ref.rows(ids.to(cuda_device)).view(torch.int32))
+    delta = torch.randn((65_536, d), generator=g).to(cuda_device)
+    t.scatter_apply(ids.to(cuda_device), delta)
+    ref.scatter_apply(ids.to(cuda_device), delta)
+    torch.testing.assert_close(t.materialize(), ref.data, rtol=1e-6,
+                               atol=1e-6)

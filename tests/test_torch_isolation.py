@@ -15,9 +15,14 @@ PKG = Path(ett.__file__).resolve().parent
 REPO = PKG.parent
 
 
+NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
+               "utils.rowstats")
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, embeddingtables_tpu_torch, "
-            "embeddingtables_tpu_torch.ops.cuda._lib as lib;"
+            + "".join(f"embeddingtables_tpu_torch.{m}, " for m in NEW_MODULES)
+            + "embeddingtables_tpu_torch.ops.cuda._lib as lib;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'embeddingtables_tpu'"
             " or m.startswith('embeddingtables_tpu.')];"
@@ -84,7 +89,31 @@ def _no_device_calls():
                                   m.query_tables.offsets,
                                   np.zeros((7, 4), np.float32))
 
+    def quantized_service():
+        # The model cannot reach the quantized service without a device.
+        ett.make_dlrm_service(ett.init_dlrm(dlrm), quantized=True)
+
+    g = torch.Generator()
+    table = np.zeros((11, 4), np.float32)
     return {
+        "QREmbedding.create": lambda: ett.QREmbedding.create(g, 11, 4),
+        "MDEmbedding.create": lambda: ett.MDEmbedding.create(g, 11, 4, 2),
+        "TTEmbedding.create": lambda: ett.TTEmbedding.create(g, 11, 4),
+        "TieredEmbedding.create": lambda: ett.TieredEmbedding.create(
+            g, 11, 4, 3),
+        "TieredEmbedding.from_array": lambda: ett.TieredEmbedding.from_array(
+            table, 3),
+        "HostOffloadEmbedding": lambda: ett.HostOffloadEmbedding(table),
+        "quantize_dlrm": quantized_service,
+        "quantized_from_arrays": lambda: ett.quantized_from_arrays(
+            np.ones(11, np.float32), q=table.astype(np.int8)),
+        "qr_from_arrays": lambda: ett.qr_from_arrays(table[:3], table[:4], 11),
+        "md_from_arrays": lambda: ett.md_from_arrays(table[:, :2], table[:2]),
+        "tt_from_arrays": lambda: ett.tt_from_arrays(
+            [np.zeros((4, 1, 2, 2), np.float32),
+             np.zeros((3, 2, 2, 1), np.float32)], 11),
+        "tiered_from_arrays": lambda: ett.tiered_from_arrays(table[:3],
+                                                             table[3:]),
         "init_dlrm": lambda: ett.init_dlrm(dlrm),
         "init_dcn": lambda: ett.init_dcn(dcn),
         "init_deepfm": lambda: ett.init_deepfm(dfm),
@@ -105,7 +134,14 @@ def _no_device_calls():
                                    "init_deepfm", "deepfm_from_arrays",
                                    "init_two_tower", "two_tower_from_arrays",
                                    "train_dlrm", "train_dcn", "train_deepfm",
-                                   "train_two_tower"])
+                                   "train_two_tower", "QREmbedding.create",
+                                   "MDEmbedding.create", "TTEmbedding.create",
+                                   "TieredEmbedding.create",
+                                   "TieredEmbedding.from_array",
+                                   "HostOffloadEmbedding", "quantize_dlrm",
+                                   "quantized_from_arrays", "qr_from_arrays",
+                                   "md_from_arrays", "tt_from_arrays",
+                                   "tiered_from_arrays"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -113,3 +149,14 @@ def test_entry_points_without_a_device_raise_when_there_is_no_card(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert ett.config.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_quantization_runs_where_the_model_lies_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                         bottom_mlp=(4,), top_mlp=(3, 1))
+    model = ett.init_dlrm(cfg, device="cpu")
+    qt, eval_fn = ett.quant.quantize_dlrm(model, bits=4)
+    assert qt.packed.device.type == "cpu"
+    out = eval_fn(np.zeros((3, 2), np.float32), np.zeros((2, 3), np.int32))
+    assert out.device.type == "cpu" and out.shape == (3,)

@@ -171,7 +171,7 @@ def test_planner_with_another_exchange_raises_as_jax_does():
     ("train_dcn", dict(delta_ckpt=object(), delta_every=2)),
     ("train_deepfm", dict(microbatch=2)),
     ("train_two_tower", dict(device_prefetch=2)),
-    ("make_deepfm_service", dict(quantized=True)),
+    ("make_deepfm_service", dict(mesh=object())),
     ("make_retrieval_service", dict(mesh=object())),
 ])
 def test_an_unported_value_raises_not_implemented(entry, kw):

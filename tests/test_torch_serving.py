@@ -220,7 +220,8 @@ def test_dlrm_service_matches_jax_service(bag):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item I"),
-                                     (dict(quantized=True), "item B")])
+                                     (dict(mesh=object(), quantized=True),
+                                      "single-chip")])
 def test_service_options_not_ported_yet_raise(kw, item):
     _, pm = _models()
     with pytest.raises(NotImplementedError, match=item):

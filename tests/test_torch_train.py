@@ -329,15 +329,18 @@ def test_train_dlrm_options_not_ported_raise(name):
     # Options that JAX reads only beside another come with it (plan and
     # exchange with a mesh, delta_ckpt with delta_every): alone, JAX ignores
     # exchange and raises ValueError on the other two
-    # (tests/test_torch_options.py).
+    # (tests/test_torch_options.py). evict_every is ported: beside the
+    # unported guard, only guard is refused.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
     extra = {"plan": {"mesh": object()}, "exchange": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2}}.get(name, {})
+             "delta_ckpt": {"delta_every": 2},
+             "evict_every": {"guard": object()}}.get(name, {})
+    refused = {"exchange": "mesh", "evict_every": "guard"}.get(name, name)
     cfg = ett.DLRMConfig(**SMALL)
-    with pytest.raises(NotImplementedError,
-                       match="mesh" if name == "exchange" else name):
+    with pytest.raises(NotImplementedError, match=refused) as err:
         train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value}, **extra)
+    assert "evict_every" not in str(err.value)
     # JAX's axis= at its default is taken and does nothing.
     res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")
     assert res.losses == []

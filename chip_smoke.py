@@ -8,6 +8,8 @@
     python3 chip_smoke.py --ensemble           # only the ensemble API phase
     python3 chip_smoke.py --families           # only the model-family phase
     python3 chip_smoke.py --variants           # only the table-variant phase
+    python3 chip_smoke.py --wide-rows          # only the wide-row run-scatter
+    python3 chip_smoke.py --persistence        # only the persistence phase
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -89,11 +91,29 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     rtol 1e-6, the copies timed. `train_dlrm(evict_every=2)` with SGD and
     indexer AdaGrad for 8 steps: evicted rows > 0, those of the last
     eviction zero in the table and the accumulator.
-12. A `kernels` JSON line (every hand kernel, its launches on its paths and
+12. Wide rows: the run-scatter at D = 258, 1,025, 2,048 and 4,096 (wider
+    than a warp's registers: the column-chunk path), f32 and bf16 tables,
+    SGD bitwise and AdaGrad to rtol 1e-6 against the plain version on a
+    window-edge and a Zipf stream, each width timed beside its byte bound
+    and `index_add_`; TT at rank 32 on the 40M-row table (a 4,096-wide
+    middle core) under indexer AdaGrad, one step against the plain step
+    and 4 counted steps (3 run-scatters a step).
+13. Persistence on the stacked DLRM (indexer AdaGrad, B = 65,536), in a
+    temporary directory checked for free space first: a delta chain (one
+    base, three deltas) restored bitwise into a fresh model; a refreshable
+    service following it with `DeltaFollower` and swapped under 8
+    closed-loop clients (every flushed batch bitwise the old or the new
+    tables' scores, the refreshed scores bitwise the trained model's);
+    full checkpoints with a `DivergenceGuard` and a NaN batch (one
+    rollback, bitwise the checkpoint; the next delta save a base); a
+    `trace_profile` trace of one step; the folded DeepFM's (6.5M, 129)
+    stack through a base, a delta, a poll and a swap. Save, restore and
+    poll times and the service's latency are printed.
+14. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one, the
-    D = 129 times of both gathers and the run-scatter, and the D = 1 times
-    of `gather_rows` and the run-scatter), the card line again, and the
-    final JSON status line.
+    D = 129 times of both gathers and the run-scatter, the D = 1 times
+    of `gather_rows` and the run-scatter, and the run-scatter's wide-row
+    times), the card line again, and the final JSON status line.
 
 With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
 the run-scatter's window length (`run_window_sweep`); with `--gather-sweep`
@@ -104,7 +124,8 @@ phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
 phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
-`--variants` phases 1-2 and phase 11.
+`--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
+phase 12; with `--persistence` phases 1-2 and phase 13.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -2334,10 +2355,16 @@ def compositional_phase(ett, S, H, G, counter, gen):
     uniq = statistics.mean(torch.unique(s).numel() for s in ids)
     dense_ms = time_each_ms(lambda i: G.gather_rows(dense, i),
                             [(s,) for s in ids], reps=20)
+    dense_plain_ms = time_each_ms(lambda i: G.gather_rows_plain(dense, i),
+                                  [(s,) for s in ids], reps=20)
+    dense_library_ms = time_each_ms(
+        lambda i: torch.nn.functional.embedding(i, dense),
+        [(s.long(),) for s in ids], reps=20)
     del dense
     torch.cuda.empty_cache()
     emit({"phase": "compositional_dense_gather", "V": v, "D": d,
           "n": B_TRAIN, "unique_rows": uniq, "gather_rows_ms": dense_ms,
+          "plain_ms": dense_plain_ms, "library_ms": dense_library_ms,
           "bound_ms": (uniq * d * 4 + B_TRAIN * 4 + B_TRAIN * d * 4)
           / HBM_BYTES_PER_S * 1e3})
     opt = ett.SparseSGD(0.5)
@@ -2594,6 +2621,500 @@ def variants_phase(ett, S, H, G, gen, batches):
     return counter.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the run-scatter on rows wider than its registers
+# ---------------------------------------------------------------------------
+
+WIDE_WIDTHS = (258, 1025, 2048, 4096)
+WIDE_ROWS = 100_000                # table rows at each wide width
+TT_RANK_WIDE = 32                  # TT's middle core at rank 32: 4,096 wide
+
+
+def time_wide_scatter(S, gen, sets, v, d):
+    """The run-scatter at one wide width on sorted Zipf streams, f32 table,
+    SGD and AdaGrad epilogues: kernel and plain times, `index_add_` (SGD's
+    function in one library call; AdaGrad has none), and the byte bound
+    n*D*4 + n*4 + 2*U*D*4 (+ 2*U*4 for the accumulator)."""
+    table = torch.randn((v, d), generator=gen, device="cuda") * 0.05
+    accum = torch.rand((v,), generator=gen, device="cuda")
+    n = sets[0][0].numel()
+    uniq = statistics.mean(int(torch.unique(r).numel()) for r, _ in sets)
+    out = {}
+    for epilogue in ("sgd", "adagrad"):
+        a = accum if epilogue == "adagrad" else None
+        nbytes = (n * d * 4 + n * 4 + 2 * uniq * d * 4
+                  + (2 * uniq * 4 if a is not None else 0))
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = (n * d + 2 * uniq * d
+                        + (2 * uniq * d if a is not None else 0)) \
+            / F32_OPS_PER_S * 1e3
+        t = {"kernel_ms": time_each_ms(
+                lambda r, x: S.scatter_add_rows_sorted(
+                    table, r, x, -1e-4, accum=a, eps=1e-8), sets, reps=10),
+             "plain_ms": time_each_ms(
+                lambda r, x: S.scatter_add_rows_sorted_plain(
+                    table, r, x, -1e-4, accum=a, eps=1e-8), sets, reps=3),
+             "library_ms": None if a is not None else time_each_ms(
+                lambda r, x: table.index_add_(0, r, x, alpha=-1e-4),
+                [(r.long(), x) for r, x in sets], reps=10),
+             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                          else "operations")}
+        emit({"phase": "kernel_time", "kernel": "scatter_add_rows_sorted",
+              "stream": "zipf", "epilogue": epilogue, "dtype": "float32",
+              "V": v, "D": d, "n": n, "unique_rows": uniq, "bytes": nbytes,
+              **t})
+        out[epilogue] = t
+    del table, accum
+    return out
+
+
+def tt_rank32_step(ett, S, G, counter, gen):
+    """TT at rank 32 on the 40M-row table (cores 256, 4,096 and 128 wide,
+    342 rows each): `SparseRowWiseAdaGrad(method="indexer")` sends every
+    core to the run-scatter, the middle core on the wide path. One step
+    against the plain step (rtol 1e-6), then COMPOSITIONAL_STEPS counted
+    steps. Returns the counted launches."""
+    import copy
+    v, d = COMPOSITIONAL_ROWS, 128
+    ids = zipf_ids(gen, v, B_TRAIN, COMPOSITIONAL_STEPS)
+    target = torch.randn((B_TRAIN, d), generator=gen, device="cuda") * 0.1
+    opt = ett.SparseRowWiseAdaGrad(0.05, method="indexer")
+    table = ett.TTEmbedding.create(
+        torch.Generator(device="cuda").manual_seed(SEED), v, d,
+        rank=TT_RANK_WIDE, num_cores=3)
+    plain = copy.deepcopy(table)
+    compositional_step("tt", table, opt, ids[0], target)
+    with plain_kernels(S, G), plain_gathers(G):
+        compositional_step("tt", plain, opt, ids[0], target)
+    torch.cuda.synchronize()
+    errs = []
+    for a, b in zip(table.core_tables(), plain.core_tables()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        errs.append(max_abs_err(a, b))
+    del plain
+    losses, got = counter.run(lambda: [
+        float(compositional_step("tt", table, opt, ids[i], target))
+        for i in range(COMPOSITIONAL_STEPS)])
+    require(all(math.isfinite(x) for x in losses),
+            f"TT rank {TT_RANK_WIDE}: non-finite losses {losses}")
+    require(got["scatter_add_rows_sorted"] == 3 * COMPOSITIONAL_STEPS
+            and got["hot_accumulate"] == 0,
+            f"TT rank {TT_RANK_WIDE}: launches {got}")
+    step_ms = events_ms(lambda: compositional_step("tt", table, opt, ids[0],
+                                                   target), reps=3)
+    emit({"phase": "tt_rank32_adagrad", "V": v, "D": d,
+          "rank": TT_RANK_WIDE,
+          "core_tables": [list(t.shape) for t in table.core_tables()],
+          "parity_max_abs_err": errs, "parity": "rtol 1e-6",
+          "losses": losses, "launches": got,
+          "step_ms": statistics.median(step_ms)})
+    del table
+    torch.cuda.empty_cache()
+    return got
+
+
+def wide_rows_phase(ett, S, G, gen, counter):
+    """The run-scatter at D = 258, 1,025, 2,048 and 4,096 (rows wider than
+    a warp's registers: the column-chunk path), f32 and bf16 tables, SGD
+    (bitwise) and AdaGrad (rtol 1e-6) epilogues, on a window-edge stream and
+    a Zipf stream, each held to its plain version and timed; then TT at
+    rank 32 under indexer AdaGrad. Returns (max error, {D: times},
+    launches of the counted TT steps)."""
+    t0 = time.perf_counter()
+    err, times = 0.0, {}
+    v, n = WIDE_ROWS, B_TRAIN
+    for d in WIDE_WIDTHS:
+        zipf = [torch.sort(z, stable=True).values
+                for z in zipf_ids(gen, v, n, 3)]
+        edges = window_edge_stream(S.RUN_WINDOW, v, reps=10)
+        err = max(err, check_scatter(
+            S, gen, {"zipf": with_padding(zipf[0], v, gen),
+                     "window_edges": edges}, v, d))
+        sets = [(z, torch.randn((n, d), generator=gen, device="cuda"))
+                for z in zipf]
+        times[d] = time_wide_scatter(S, gen, sets, v, d)
+        del zipf, edges, sets
+        torch.cuda.empty_cache()
+    launches = tt_rank32_step(ett, S, G, counter, gen)
+    emit({"phase": "wide_rows_done", "seconds": time.perf_counter() - t0})
+    return err, times, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: persistence at full width
+# ---------------------------------------------------------------------------
+
+PERSIST_VOCAB = 250_000            # the stacked DLRM: 26 x 250,000 x 128
+PERSIST_STEPS = 8
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def model_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+class recorded_saves:
+    """Wrap a `DeltaCheckpointManager`'s `save` to record each save's step,
+    kind (base or delta), touched rows and bytes on disk."""
+
+    def __init__(self, mgr):
+        self.mgr, self.saves, self.inner = mgr, [], mgr.save
+        mgr.save = self
+
+    def __call__(self, step, data, state, tracker):
+        rows = tracker.count()
+        path = self.inner(step, data, state, tracker)
+        kind = "base" if os.path.basename(path).startswith("base_") \
+            else "delta"
+        self.saves.append({"step": step, "kind": kind, "touched_rows": rows,
+                           "bytes": dir_bytes(path) if kind == "base"
+                           else os.path.getsize(path)})
+        return path
+
+
+def phase_spans(tel, name: str) -> list:
+    """Record the wall time of every `name` phase through the telemetry's
+    callbacks; returns the list the durations (ms) land in."""
+    spans, start = [], {}
+
+    def cb(phase_name, event):
+        if phase_name != name:
+            return
+        if event == "start":
+            start["t"] = time.perf_counter()
+        else:
+            spans.append((time.perf_counter() - start["t"]) * 1e3)
+
+    tel.on_phase(cb)
+    return spans
+
+
+def served_batches(batcher) -> list:
+    """Record every batch a `MicroBatcher` flushes: [(dense, cat, scores)]."""
+    rec, inner = [], batcher._predict
+
+    def predict(dense, cat):
+        out = inner(dense, cat)
+        rec.append((dense, cat, out))
+        return out
+
+    batcher._predict = predict
+    return rec
+
+
+def persistence_phase(ett, S, H, G, gen, batches):
+    """Persistence on the stacked DLRM (26 x 250,000 x 128 f32, indexer
+    AdaGrad, the 4 cycled B = 65,536 batches), in a temporary directory:
+    (a) `train_dlrm` with a `DeltaCheckpointManager(base_every=4)` every 2
+    steps for 8 steps (one base, three deltas), restored into a fresh model
+    bitwise; (c) a refreshable service following that chain through
+    `DeltaFollower`, swapped under 8 closed-loop clients (every flushed
+    batch bitwise the old or the new tables' scores), then scoring bitwise
+    the trained model's eval step; (b) `ckpt_manager` every 2 steps with a
+    `DivergenceGuard` and a NaN-poisoned batch: one rollback, the model
+    bitwise the checkpoint, the next delta save a base, finite losses
+    after; the folded DeepFM's (6.5M, 129) stack through one base, one
+    delta, a poll and a swap; (d) `trace_profile` around one step. Returns
+    (launches, numbers)."""
+    import shutil
+    import tempfile
+    from embeddingtables_tpu_torch import utils
+    from embeddingtables_tpu_torch.utils.checkpoint import (load_leaf,
+                                                            named_leaves)
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    cfg = ett.dlrm_small_config(vocab=PERSIST_VOCAB)
+    opt = ett.SparseRowWiseAdaGrad(1e-3, method="indexer")
+    tel = utils.Telemetry()
+    saved_tel = utils.set_telemetry(tel)
+    delta_ms = phase_spans(tel, "delta_ckpt")
+    ckpt_ms = phase_spans(tel, "checkpoint")
+    root = tempfile.mkdtemp(prefix="chip_smoke_persistence_")
+    out = {}
+
+    def fresh_dlrm(seed):
+        return ett.init_dlrm(cfg, torch.Generator(device="cuda")
+                             .manual_seed(seed), sparse_opt=opt)
+
+    try:
+        model = fresh_dlrm(SEED)
+        mbytes = model_bytes(model)
+        # At most two steps' ids a delta, each row its values, accumulator
+        # and id; a base, two full checkpoints and a second base at once.
+        delta_bound = 2 * 26 * B_TRAIN * (cfg.dim * 4 + 4 + 4)
+        need = 4 * mbytes + 3 * delta_bound
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"persistence needs {need / 1e9:.2f} GB free "
+                f"under {root}, has {free / 1e9:.2f} GB")
+
+        # (a) The delta chain, restored into a fresh model.
+        chain = os.path.join(root, "chain")
+        mgr = utils.DeltaCheckpointManager(chain, base_every=4)
+        rec = recorded_saves(mgr)
+        res, got = counter.run(lambda: ett.train_dlrm(
+            cfg, itertools.cycle(batches), PERSIST_STEPS, sparse_opt=opt,
+            model=model, delta_ckpt=mgr, delta_every=2, log_every=1,
+            verbose=False))
+        require([r["kind"] for r in rec.saves]
+                == ["base", "delta", "delta", "delta"],
+                f"delta chain saves {rec.saves}")
+        require(got["scatter_add_rows_sorted"] == PERSIST_STEPS
+                and got["gather_rows"] == 2 * PERSIST_STEPS + 3 * 2,
+                f"delta chain launches {got}")
+        require(all(math.isfinite(x) for x in res.losses),
+                f"delta chain losses {res.losses}")
+        for r, ms in zip(rec.saves, delta_ms):
+            r["ms"] = ms
+        fresh = fresh_dlrm(SEED + 1)
+        with tel.phase("restore_delta", sync=True):
+            ett.restore_delta(mgr, fresh)
+        require(torch.equal(bits(fresh.tables.data),
+                            bits(res.model.tables.data))
+                and torch.equal(bits(fresh.emb_accum),
+                                bits(res.model.emb_accum)),
+                "restore_delta is not bitwise the live model")
+        del fresh
+        torch.cuda.empty_cache()
+        restore_s = tel.phases["restore_delta"].total_s
+        chain_bytes = dir_bytes(chain)
+        base = rec.saves[0]
+        out["delta_chain"] = {
+            "saves": rec.saves, "base_save_gb_s": base["bytes"]
+            / (base["ms"] / 1e3) / 1e9,
+            "restore_ms": restore_s * 1e3, "restored_bytes": chain_bytes,
+            "restore_gb_s": chain_bytes / restore_s / 1e9,
+            "launches": got, "losses": res.losses}
+        emit({"phase": "persistence_delta_chain", "table_bytes": mbytes,
+              **out["delta_chain"]})
+
+        # (c) A refreshable service following the chain, swapped under load.
+        last = os.path.join(chain, f"delta_{PERSIST_STEPS}.npz")
+        hidden = os.path.join(chain, "held_back.npz")
+        os.replace(last, hidden)      # the follower first sees step 6
+        follower = utils.DeltaFollower(chain, res.model.tables.data)
+        with tel.phase("poll_base", sync=True):
+            n0 = follower.poll()
+        require(n0 == 3, f"the first poll applied {n0}, want base + 2")
+        old = follower.data
+        svc, _ = ett.make_refreshable_dlrm_service(res.model, max_batch=1024,
+                                                   max_latency_ms=2.0)
+        svc.swap_tables(old)
+        seen = served_batches(svc)
+        # The trainer's last delta lands; the follower applies it out of
+        # place while the service keeps serving the tensor it holds.
+        os.replace(hidden, last)
+        with tel.phase("poll_delta", sync=True):
+            applied = follower.poll()
+        require(applied == 1, f"the second poll applied {applied}")
+        # What applying a delta out of place costs on the card: one
+        # table-sized copy beside the rows.
+        last_delta = utils.deltackpt._load_npz(last)
+        rows = last_delta["rows"].cuda().long()
+        vals = last_delta["vals"].cuda()
+        copy_ms = statistics.median(events_ms(
+            lambda: follower.data.index_copy(0, rows, vals), reps=5))
+        del last_delta, rows, vals
+        swap, done = {}, threading.Event()
+
+        def swap_when_busy():
+            while len(seen) < 24 and not done.is_set():
+                time.sleep(0.001)
+            svc.swap_tables(follower.data)
+            swap["at_batch"] = len(seen)
+
+        swapper = threading.Thread(target=swap_when_busy)
+
+        def drive():
+            swapper.start()
+            try:
+                return closed_loop(
+                    svc, lambda rng, b: make_request(rng, cfg, b),
+                    per_client=64)
+            finally:
+                done.set()
+
+        try:
+            served, sgot = counter.run(drive)
+            swapper.join()
+            dense, cat = make_request(np.random.default_rng(SEED + 7), cfg,
+                                      1024)
+            after = svc.predict(dense, cat, timeout=300)
+        finally:
+            svc.stop()
+        step = ett.make_eval_step(cfg)
+        want = step(res.model, torch.from_numpy(dense).cuda(),
+                    torch.from_numpy(cat).cuda()).cpu().numpy()
+        require(np.array_equal(after.view(np.int32), want.view(np.int32)),
+                "the refreshed service is not bitwise the trained model")
+        require(torch.equal(bits(follower.data), bits(res.model.tables.data)),
+                "the follower's tables are not the trained model's")
+        kinds = []
+        for d, c, scores in seen:
+            args = (torch.from_numpy(d).cuda(), torch.from_numpy(c).cuda())
+            new_s = step(res.model, *args).cpu().numpy()
+            with swapped_tables(res.model, old):
+                old_s = step(res.model, *args).cpu().numpy()
+            is_new = np.array_equal(scores.view(np.int32),
+                                    new_s.view(np.int32))
+            is_old = np.array_equal(scores.view(np.int32),
+                                    old_s.view(np.int32))
+            require(is_new or is_old, "a served batch mixes old and new "
+                    "tables (or matches neither)")
+            kinds.append("new" if is_new and not is_old else
+                         "old" if is_old and not is_new else "either")
+        require(kinds.count("old") > 0 and kinds.count("new") > 0,
+                f"the swap did not fall inside the run: {kinds}")
+        out["service"] = {
+            "requests": len(served), "batches": len(seen),
+            "old_batches": kinds.count("old"),
+            "new_batches": kinds.count("new"),
+            "swap_at_batch": swap["at_batch"],
+            "poll_base_ms": tel.phases["poll_base"].total_s * 1e3,
+            "poll_delta_ms": tel.phases["poll_delta"].total_s * 1e3,
+            "out_of_place_apply_ms": copy_ms,
+            "launches": sgot, **latency_ms([x[2] for x in served])}
+        emit({"phase": "persistence_refreshable_service", **out["service"]})
+        del follower, old, seen, served
+        shutil.rmtree(chain)
+        torch.cuda.empty_cache()
+
+        # (b) Full checkpoints, the divergence guard and a forced base.
+        class CheckedGuard(utils.DivergenceGuard):
+            """The guard, checking each rollback against the checkpoint
+            files and timing it."""
+            restore_ms = 0.0
+
+            def observe(self, loss, m):
+                r0 = time.perf_counter()
+                m, rolled = super().observe(loss, m)
+                if rolled:
+                    torch.cuda.synchronize()
+                    self.restore_ms = (time.perf_counter() - r0) * 1e3
+                    path = os.path.join(self.ckpt.directory,
+                                        str(self.ckpt.latest_step()))
+                    for i, (name, t) in enumerate(named_leaves(m)):
+                        if t.numel():
+                            saved = load_leaf(path, i).to(t.device)
+                            require(torch.equal(bits(t.detach()),
+                                                bits(saved)),
+                                    f"rollback: {name} is not the "
+                                    "checkpoint's")
+                return m, rolled
+
+        ckpt = utils.CheckpointManager(os.path.join(root, "ckpt"),
+                                       max_to_keep=1)
+        chain_b = os.path.join(root, "chain_b")
+        mgr_b = utils.DeltaCheckpointManager(chain_b, base_every=4)
+        rec_b = recorded_saves(mgr_b)
+        guard = CheckedGuard(ckpt)
+        poisoned = dict(batches[0])
+        poisoned["dense"] = torch.full_like(batches[0]["dense"], math.nan)
+        stream = batches[:4] + [poisoned, batches[1]]
+        model_b = fresh_dlrm(SEED)
+        res_b, got_b = counter.run(lambda: ett.train_dlrm(
+            cfg, iter(stream), len(stream), sparse_opt=opt, model=model_b,
+            ckpt_manager=ckpt, ckpt_every=2, guard=guard, log_every=1,
+            delta_ckpt=mgr_b, delta_every=2, verbose=False))
+        losses = res_b.losses
+        require(guard.rollbacks == 1, f"{guard.rollbacks} rollbacks")
+        require(math.isnan(losses[4]) and all(
+            math.isfinite(x) for i, x in enumerate(losses) if i != 4),
+            f"guarded losses {losses}")
+        require([r["kind"] for r in rec_b.saves] == ["base", "delta", "base"],
+                f"after the rollback the next save is not a base: "
+                f"{rec_b.saves}")
+        fresh = fresh_dlrm(SEED + 1)
+        ett.restore_delta(mgr_b, fresh)
+        require(torch.equal(bits(fresh.tables.data),
+                            bits(res_b.model.tables.data))
+                and torch.equal(bits(fresh.emb_accum),
+                                bits(res_b.model.emb_accum)),
+                "the forced base is not the live model")
+        del fresh
+        torch.cuda.empty_cache()
+        out["guard"] = {
+            "losses": losses, "rollbacks": guard.rollbacks,
+            "rollback_ms": guard.restore_ms, "saves": rec_b.saves,
+            "checkpoint_ms": ckpt_ms, "checkpoint_bytes": mbytes,
+            "checkpoint_gb_s": mbytes / (statistics.median(ckpt_ms) / 1e3)
+            / 1e9, "rollback_gb_s": mbytes / (guard.restore_ms / 1e3) / 1e9,
+            "launches": got_b}
+        emit({"phase": "persistence_guard", **out["guard"]})
+
+        # (d) A profiler trace around one step.
+        trace_dir = os.path.join(root, "trace")
+        train_step = ett.make_train_step(cfg, sparse_opt=opt)
+        b = batches[2]
+
+        def traced():
+            with utils.trace_profile(trace_dir):
+                train_step(model_b, b["dense"], b["cat"], b["label"])
+                torch.cuda.synchronize()
+
+        counter.run(traced)
+        trace = os.path.join(trace_dir, "trace.json")
+        require(os.path.isfile(trace) and os.path.getsize(trace) > 0
+                and not tel.counters.get("trace_profile.unsupported"),
+                "trace_profile wrote no trace")
+        out["trace_bytes"] = os.path.getsize(trace)
+        emit({"phase": "persistence_trace", "trace_bytes": out["trace_bytes"]})
+        del res_b, model_b, res, model
+        shutil.rmtree(chain_b)
+        shutil.rmtree(os.path.join(root, "ckpt"))
+        torch.cuda.empty_cache()
+
+        # The folded DeepFM: one base, one delta (the off-grid gather), a
+        # poll and a swap.
+        dcfg = ett.deepfm_small_config(vocab=PERSIST_VOCAB)
+        dmodel = ett.init_deepfm(dcfg, torch.Generator(device="cuda")
+                                 .manual_seed(SEED), sparse_opt=opt)
+        chain_d = os.path.join(root, "chain_deepfm")
+        mgr_d = utils.DeltaCheckpointManager(chain_d, base_every=2)
+        rec_d = recorded_saves(mgr_d)
+        res_d, got_d = counter.run(lambda: ett.train_deepfm(
+            dcfg, itertools.cycle(batches), 2, sparse_opt=opt, model=dmodel,
+            delta_ckpt=mgr_d, delta_every=1, log_every=1, verbose=False))
+        require([r["kind"] for r in rec_d.saves] == ["base", "delta"]
+                and got_d["gather_rows"] == 2 * 2 + 2,
+                f"DeepFM chain {rec_d.saves}, launches {got_d}")
+        follower = utils.DeltaFollower(chain_d, dmodel.tables.data)
+        require(follower.poll() == 2, "the DeepFM poll")
+        svc, _ = ett.make_refreshable_service(res_d.model, max_batch=1024)
+        try:
+            svc.swap_tables(follower.data)
+            dense, cat = make_request(np.random.default_rng(SEED + 8), dcfg,
+                                      1024)
+            (after,), sgot_d = counter.run(lambda: [
+                svc.predict(dense, cat, timeout=300)])
+        finally:
+            svc.stop()
+        want = ett.models.deepfm.make_eval_step(dcfg)(
+            res_d.model, torch.from_numpy(dense).cuda(),
+            torch.from_numpy(cat).cuda()).cpu().numpy()
+        require(np.array_equal(after.view(np.int32), want.view(np.int32))
+                and torch.equal(bits(follower.data),
+                                bits(res_d.model.tables.data)),
+                "the refreshed DeepFM service is not the trained model")
+        out["deepfm"] = {"stack": list(dmodel.tables.data.shape),
+                         "saves": rec_d.saves, "launches": got_d,
+                         "service_launches": sgot_d}
+        emit({"phase": "persistence_deepfm", **out["deepfm"]})
+        del follower, res_d, dmodel
+        torch.cuda.empty_cache()
+    finally:
+        utils.set_telemetry(saved_tel)
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "persistence_done", "seconds": time.perf_counter() - t0,
+          "launches": counter.total})
+    return counter.total, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2643,6 +3164,10 @@ def main() -> int:
         ensemble_phase(ett, S, H, G, gen)
         print(card_line(), flush=True)
         return 0
+    if "--wide-rows" in sys.argv[1:]:
+        wide_rows_phase(ett, S, G, gen, LaunchCounter(S, H, G))
+        print(card_line(), flush=True)
+        return 0
     # The stacked training batches (26 x 250,000-row vocabularies, B =
     # 65,536): the DLRM, DCN and DeepFM recipes all train on them.
     train_batches = criteo_batches(ett, (VOCAB,) * 26, 4, SEED + 6)
@@ -2652,6 +3177,10 @@ def main() -> int:
         return 0
     if "--variants" in sys.argv[1:]:
         variants_phase(ett, S, H, G, gen, train_batches)
+        print(card_line(), flush=True)
+        return 0
+    if "--persistence" in sys.argv[1:]:
+        persistence_phase(ett, S, H, G, gen, train_batches)
         print(card_line(), flush=True)
         return 0
     t0 = time.perf_counter()
@@ -2686,8 +3215,19 @@ def main() -> int:
     fam, fam_errs, fam_times = families_phase(ett, S, H, G, gen,
                                               train_batches)
     var = variants_phase(ett, S, H, G, gen, train_batches)
+    wide_counter = LaunchCounter(S, H, G)
+    wide_err, wide_times, _ = wide_rows_phase(ett, S, G, gen, wide_counter)
+    persist, _ = persistence_phase(ett, S, H, G, gen, train_batches)
     for name, e in fam_errs.items():
         errs[name] = max(errs[name], e)
+    errs["scatter_add_rows_sorted"] = max(errs["scatter_add_rows_sorted"],
+                                          wide_err)
+    for d, t in wide_times.items():
+        timings["scatter_add_rows_sorted"].update({
+            f"d{d}_ms": t["sgd"]["kernel_ms"],
+            f"d{d}_adagrad_ms": t["adagrad"]["kernel_ms"],
+            f"d{d}_bound_ms": t["sgd"]["bound_ms"],
+            f"d{d}_library_ms": t["sgd"]["library_ms"]})
     for key, name, d in (("gather_rows", "gather_rows", 129),
                          ("gather_rows", "gather_rows", 1),
                          ("gather_bags", "gather_bags", 129),
@@ -2700,19 +3240,20 @@ def main() -> int:
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
+    counted = (ens, fam, var, wide_counter.total, persist)
     paths = {
-        "gather_rows": (serve_launches["gather_rows"] + ens["gather_rows"]
-                        + fam["gather_rows"] + var["gather_rows"],
+        "gather_rows": (serve_launches["gather_rows"]
+                        + sum(c["gather_rows"] for c in counted),
                         "gather.cu", "gather.py:116"),
-        "gather_bags": (bag_launches["gather_bags"] + ens["gather_bags"]
-                        + fam["gather_bags"] + var["gather_bags"],
+        "gather_bags": (bag_launches["gather_bags"]
+                        + sum(c["gather_bags"] for c in counted),
                         "gather.cu", "gather.py:258"),
         "scatter_add_rows_sorted": (
-            scatter_launches + ens["scatter_add_rows_sorted"]
-            + fam["scatter_add_rows_sorted"]
-            + var["scatter_add_rows_sorted"], "scatter.cu", "scatter.py:144"),
-        "hot_accumulate": (hot_launches + ens["hot_accumulate"]
-                           + fam["hot_accumulate"] + var["hot_accumulate"],
+            scatter_launches
+            + sum(c["scatter_add_rows_sorted"] for c in counted),
+            "scatter.cu", "scatter.py:144"),
+        "hot_accumulate": (hot_launches
+                           + sum(c["hot_accumulate"] for c in counted),
                            "segsum.cu", "segsum.py:135")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + source,
@@ -2722,10 +3263,8 @@ def main() -> int:
          "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"],
          "library_ms": timings[name]["library_ms"],
-         **{k: timings[name][k] for k in (
-             "zipf_ms", "zipf_bound_ms", "d129_ms", "d129_bound_ms",
-             "d129_library_ms", "d1_ms", "d1_bound_ms", "d1_library_ms")
-            if k in timings[name]}}
+         **{k: v for k, v in timings[name].items() if k not in (
+             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (launches, source, where) in paths.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

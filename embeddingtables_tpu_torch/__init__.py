@@ -19,6 +19,13 @@ two-tower retriever, each an `nn.Module` with its train step, its loop
 (`train_dlrm`, `train_dcn`, `train_deepfm`, `train_two_tower`) and its
 service (`serving`, quantized to int8 or int4 rows by `quant`).
 
+Persistence (`utils`): checkpoints (`CheckpointManager`), delta checkpoints
+of the touched rows (`DeltaCheckpointManager`, resumed by `restore_delta`),
+the loops' divergence guard (`DivergenceGuard`), telemetry phases and
+profiler traces, and refreshable services
+(`serving.make_refreshable_service`) that follow a trainer's deltas through
+`DeltaFollower`.
+
 Table variants: `QuantizedEmbedding` and `Int4QuantizedEmbedding` (serving);
 the compositional `QREmbedding`, `MDEmbedding` and `TTEmbedding` with their
 `*_lookup_vjp`; `HostOffloadEmbedding` and `TieredEmbedding` (rows in pinned
@@ -54,9 +61,9 @@ from .models import (DCN, DLRM, DCNConfig, DeepFM, DeepFMConfig, DLRMConfig,
                      dlrm_forward, dlrm_small_config, evaluate_metrics,
                      fuse_deepfm, in_batch_softmax_loss, init_dcn,
                      init_deepfm, init_dlrm, init_two_tower, make_eval_step,
-                     make_retriever, make_train_step, retrieve, train_dcn,
-                     train_deepfm, train_dlrm, train_two_tower,
-                     two_tower_scores, unfuse_deepfm)
+                     make_retriever, make_train_step, restore_delta,
+                     retrieve, train_dcn, train_deepfm, train_dlrm,
+                     train_two_tower, two_tower_scores, unfuse_deepfm)
 from .optim import (SparseAdamState, SparseFTRL, SparseFTRLState,
                     SparseLazyAdam, SparseOptState, SparseRowWiseAdaGrad,
                     SparseSGD, warmup_constant_lr, warmup_cosine_lr)
@@ -68,7 +75,9 @@ from .interop import (dcn_from_arrays, deepfm_from_arrays, dlrm_from_arrays,
                       two_tower_from_arrays)
 from . import utils
 from .serving import (MicroBatcher, make_dcn_service, make_deepfm_service,
-                      make_dlrm_service, make_retrieval_service, serve_http)
+                      make_dlrm_service, make_refreshable_dlrm_service,
+                      make_refreshable_service, make_retrieval_service,
+                      serve_http)
 
 __all__ = [
     "Static", "Dynamic", "TableSpec", "IndexingContext", "NoContext",
@@ -98,12 +107,13 @@ __all__ = [
     "train_deepfm", "TwoTower", "TwoTowerConfig", "init_two_tower",
     "two_tower_scores", "in_batch_softmax_loss", "build_item_index",
     "make_retriever", "retrieve", "train_two_tower", "RetrievalTrainResult",
-    "evaluate_metrics",
+    "evaluate_metrics", "restore_delta",
     "SyntheticCriteo", "SyntheticRetrieval", "dlrm_from_arrays",
     "dcn_from_arrays", "deepfm_from_arrays", "two_tower_from_arrays",
     "quantized_from_arrays", "qr_from_arrays", "md_from_arrays",
     "tt_from_arrays", "tiered_from_arrays",
     "MicroBatcher", "make_dlrm_service", "make_dcn_service",
     "make_deepfm_service", "make_retrieval_service", "serve_http",
+    "make_refreshable_service", "make_refreshable_dlrm_service",
     "config", "utils",
 ]

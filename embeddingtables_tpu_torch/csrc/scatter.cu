@@ -62,6 +62,18 @@
 //    AdaGrad reduces sum(acc^2) over the warp.
 //  - Row and position offsets are 64-bit: 6.5M rows x 512 B is more than
 //    2^31 bytes.
+//  - Rows wider than a warp's registers hold (more than 32 * kMaxCpl units
+//    of VEC elements: 1,024 elements on the 16-byte path, else 256) are
+//    walked in column chunks of that width, both passes launched once per
+//    chunk with the same windows, pieces and fold: each column's additions
+//    are those of the narrow path, so SGD stays bitwise the plain version.
+//    The AdaGrad epilogue needs mean_d(acc^2) over the whole row before any
+//    element is written, so it walks the chunks twice: first adding each
+//    run's sum of squares per chunk into an (n,) f32 scratch (ssq, zeroed by
+//    the wrapper, keyed by the position where the run's epilogue runs), then
+//    recomputing the sums and writing each chunk; the accumulator is written
+//    by the last chunk only. That reads the values twice: a simple design,
+//    not a fast one.
 //
 // The entry point launches both passes on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -81,6 +93,23 @@ constexpr int kMaxCpl = 8;          // register slots per lane
 constexpr int kMaxBatch = 8;        // positions a warp loads at once
 constexpr unsigned kAll = 0xffffffffu;
 
+// What one launch covers of each row, and what its epilogue does.
+enum Mode : int {
+  kFull = 0,      // the epilogue writes the chunk (and, last, the accum)
+  kSquares = 1,   // AdaGrad, wide rows: only add sum(acc^2) into ssq[key]
+  kWrite = 2,     // AdaGrad, wide rows: write the chunk from ssq[key]
+};
+
+struct Cols {
+  int64_t d;          // the row's width and pitch, in elements
+  int64_t c0;         // the chunk's first column
+  int64_t units;      // VEC-wide units in the chunk
+  int64_t sw;         // the scratch's row pitch, in elements
+  float* ssq;         // (n,) f32 sums of squares by run (kSquares, kWrite)
+  int mode;
+  bool write_accum;   // the chunk that writes accum[row]
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kAll, x, o);
@@ -95,32 +124,44 @@ struct Slice {
   float a_old;           // accum[row] (AdaGrad)
 
   __device__ __forceinline__ void load(const E* table, const float* accum,
-                                       int32_t row, int64_t d, int64_t units,
+                                       int32_t row, const Cols& cols,
                                        int lane) {
-    const E* tr = table + static_cast<int64_t>(row) * d;
+    if (cols.mode == kSquares) return;   // writes nothing, needs no row
+    const E* tr = table + static_cast<int64_t>(row) * cols.d + cols.c0;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int64_t c = lane + 32 * j;
-      if (c < units) t[j] = *reinterpret_cast<const Pack<E, VEC>*>(tr + c * VEC);
+      if (c < cols.units)
+        t[j] = *reinterpret_cast<const Pack<E, VEC>*>(tr + c * VEC);
     }
     a_old = accum != nullptr ? accum[row] : 0.0f;
   }
 
-  // Writes table[row] (and accum[row]) from the run sum acc.
+  // Writes the chunk of table[row] (and accum[row]) from the run sum acc;
+  // in kSquares mode only adds the chunk's sum(acc^2) into ssq[key].
   __device__ __forceinline__ void epilogue(E* table, float* accum, int32_t row,
-                                           int64_t d, int64_t units, int lane,
-                                           float (&acc)[CPL][VEC], float scale,
-                                           float eps) {
+                                           const Cols& cols, int64_t key,
+                                           int lane, float (&acc)[CPL][VEC],
+                                           float scale, float eps) {
     if (accum != nullptr) {
-      float ss = 0.0f;
+      float ss;
+      if (cols.mode == kWrite) {
+        ss = cols.ssq[key];
+      } else {
+        ss = 0.0f;
 #pragma unroll
-      for (int j = 0; j < CPL; ++j)
-        if (lane + 32 * j < units)
+        for (int j = 0; j < CPL; ++j)
+          if (lane + 32 * j < cols.units)
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) ss += acc[j][e] * acc[j][e];
-      ss = warp_sum(ss);
-      const float a = a_old + ss / static_cast<float>(d);
-      if (lane == 0) accum[row] = a;
+            for (int e = 0; e < VEC; ++e) ss += acc[j][e] * acc[j][e];
+        ss = warp_sum(ss);
+        if (cols.mode == kSquares) {
+          if (lane == 0) cols.ssq[key] += ss;
+          return;
+        }
+      }
+      const float a = a_old + ss / static_cast<float>(cols.d);
+      if (lane == 0 && cols.write_accum) accum[row] = a;
       const float rs = rsqrtf(fmaxf(a + eps, 1e-30f));
 #pragma unroll
       for (int j = 0; j < CPL; ++j)
@@ -128,11 +169,11 @@ struct Slice {
         for (int e = 0; e < VEC; ++e)
           acc[j][e] = __fmul_rn(__fmul_rn(scale, acc[j][e]), rs);
     }
-    E* tr = table + static_cast<int64_t>(row) * d;
+    E* tr = table + static_cast<int64_t>(row) * cols.d + cols.c0;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int64_t c = lane + 32 * j;
-      if (c < units) {
+      if (c < cols.units) {
         Pack<E, VEC> p = t[j];
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
@@ -171,7 +212,7 @@ __device__ __forceinline__ void add_row(float (&acc)[CPL][VEC],
 }
 
 // E: table element bits (uint32_t f32, uint16_t bf16); VEC: elements per
-// lane access; CPL: VEC-wide slots per lane, units = d / VEC <= 32 * CPL.
+// lane access; CPL: VEC-wide slots per lane, cols.units <= 32 * CPL.
 template <typename E, int VEC, int CPL>
 __global__ void __launch_bounds__(kThreads)
 runscatter_pieces_kernel(E* __restrict__ table,
@@ -179,10 +220,10 @@ runscatter_pieces_kernel(E* __restrict__ table,
                          const float* __restrict__ vals,
                          float* __restrict__ accum,
                          float* __restrict__ scratch, int64_t n, int64_t v,
-                         int64_t d, float scale, float eps) {
+                         Cols cols, float scale, float eps) {
   constexpr int kBatch = CPL >= kMaxBatch ? 1 : kMaxBatch / CPL;
   const int lane = threadIdx.x & 31;
-  const int64_t units = d / VEC;
+  const int64_t units = cols.units;
   const int64_t w =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t w0 = w * kRunWindow;
@@ -221,14 +262,15 @@ runscatter_pieces_kernel(E* __restrict__ table,
       end[u] = valid[u] && (k == w1 - 1 || next != row[u]);
       whole[u] = row[u] != before && row[u] != after;
       if (valid[u]) {
+        const float* xr = vals + k * cols.d + cols.c0;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
           const int64_t c = lane + 32 * j;
           if (c < units)
-            x[u][j] = *reinterpret_cast<const Pack<float, VEC>*>(vals + k * d + c * VEC);
+            x[u][j] = *reinterpret_cast<const Pack<float, VEC>*>(xr + c * VEC);
         }
       }
-      if (end[u] && whole[u]) sl[u].load(table, accum, row[u], d, units, lane);
+      if (end[u] && whole[u]) sl[u].load(table, accum, row[u], cols, lane);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -242,9 +284,11 @@ runscatter_pieces_kernel(E* __restrict__ table,
           for (int e = 0; e < VEC; ++e) acc[j][e] += x[u][j].e[e];
       if (!end[u]) continue;
       if (whole[u]) {
-        sl[u].epilogue(table, accum, row[u], d, units, lane, acc, scale, eps);
+        // A whole run's key is the position where it ends.
+        sl[u].epilogue(table, accum, row[u], cols, kb + u, lane, acc, scale,
+                       eps);
       } else {
-        float* sp = scratch + (2 * w + (row[u] == before ? 0 : 1)) * d;
+        float* sp = scratch + (2 * w + (row[u] == before ? 0 : 1)) * cols.sw;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
           const int64_t c = lane + 32 * j;
@@ -266,9 +310,8 @@ runscatter_combine_kernel(E* __restrict__ table,
                           const int32_t* __restrict__ rows,
                           float* __restrict__ accum,
                           const float* __restrict__ scratch, int64_t n,
-                          int64_t v, int64_t d, float scale, float eps) {
+                          int64_t v, Cols cols, float scale, float eps) {
   const int lane = threadIdx.x & 31;
-  const int64_t units = d / VEC;
   const int64_t w =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t w0 = w * kRunWindow;
@@ -295,57 +338,74 @@ runscatter_combine_kernel(E* __restrict__ table,
   }
 
   Slice<E, VEC, CPL> sl;
-  sl.load(table, accum, row, d, units, lane);
+  sl.load(table, accum, row, cols, lane);
   float acc[CPL][VEC];
   zero(acc);
-  add_row(acc, scratch + (2 * w + 1) * d, units, lane);
+  add_row(acc, scratch + (2 * w + 1) * cols.sw, cols.units, lane);
 #pragma unroll 4
   for (int64_t ww = w + 1; ww < we; ++ww)
-    add_row(acc, scratch + 2 * ww * d, units, lane);
-  sl.epilogue(table, accum, row, d, units, lane, acc, scale, eps);
+    add_row(acc, scratch + 2 * ww * cols.sw, cols.units, lane);
+  // A crossing run's key is the last position of the window that owns it
+  // (no whole run ends there: that position's run continues).
+  sl.epilogue(table, accum, row, cols, w1 - 1, lane, acc, scale, eps);
 }
 
 template <typename E, int VEC, int CPL>
 cudaError_t launch_cpl(E* table, const int32_t* rows, const float* vals,
-                       float* accum, float* scratch, int64_t n, int64_t v,
-                       int64_t d, float scale, float eps, cudaStream_t s) {
+                       float* accum, float* scratch, float* ssq, int64_t n,
+                       int64_t v, int64_t d, float scale, float eps,
+                       cudaStream_t s) {
   const int64_t windows = (n + kRunWindow - 1) / kRunWindow;
   const dim3 grid(static_cast<unsigned>(
       (windows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  runscatter_pieces_kernel<E, VEC, CPL><<<grid, kThreads, 0, s>>>(
-      table, rows, vals, accum, scratch, n, v, d, scale, eps);
-  runscatter_combine_kernel<E, VEC, CPL><<<grid, kThreads, 0, s>>>(
-      table, rows, accum, scratch, n, v, d, scale, eps);
+  constexpr int64_t kChunk = 32 * CPL * VEC;   // columns a warp holds
+  const bool wide = d > kChunk;
+  if (wide && accum != nullptr && ssq == nullptr) return cudaErrorInvalidValue;
+  // Both passes over every chunk of columns, in order on the stream.
+  auto sweep = [&](int mode) {
+    for (int64_t c0 = 0; c0 < d; c0 += kChunk) {
+      const int64_t cw = d - c0 < kChunk ? d - c0 : kChunk;
+      const Cols cols{d, c0, cw / VEC, wide ? kChunk : d, ssq, mode,
+                      c0 + kChunk >= d};
+      runscatter_pieces_kernel<E, VEC, CPL><<<grid, kThreads, 0, s>>>(
+          table, rows, vals, accum, scratch, n, v, cols, scale, eps);
+      runscatter_combine_kernel<E, VEC, CPL><<<grid, kThreads, 0, s>>>(
+          table, rows, accum, scratch, n, v, cols, scale, eps);
+    }
+  };
+  if (wide && accum != nullptr) sweep(kSquares);
+  sweep(wide && accum != nullptr ? kWrite : kFull);
   return cudaSuccess;
 }
 
 template <typename E, int VEC>
 cudaError_t launch_vec(void* table, const int32_t* rows, const float* vals,
-                       float* accum, float* scratch, int64_t n, int64_t v,
-                       int64_t d, float scale, float eps, cudaStream_t s) {
+                       float* accum, float* scratch, float* ssq, int64_t n,
+                       int64_t v, int64_t d, float scale, float eps,
+                       cudaStream_t s) {
   const int64_t units = d / VEC;
   E* t = static_cast<E*>(table);
   if (units <= 32)
-    return launch_cpl<E, VEC, 1>(t, rows, vals, accum, scratch, n, v, d, scale, eps, s);
+    return launch_cpl<E, VEC, 1>(t, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
   if (units <= 64)
-    return launch_cpl<E, VEC, 2>(t, rows, vals, accum, scratch, n, v, d, scale, eps, s);
+    return launch_cpl<E, VEC, 2>(t, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
   if (units <= 128)
-    return launch_cpl<E, VEC, 4>(t, rows, vals, accum, scratch, n, v, d, scale, eps, s);
-  if (units <= 32 * kMaxCpl)
-    return launch_cpl<E, VEC, kMaxCpl>(t, rows, vals, accum, scratch, n, v, d, scale, eps, s);
-  return cudaErrorInvalidValue;
+    return launch_cpl<E, VEC, 4>(t, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
+  // 32 * kMaxCpl units in one pass; wider rows in chunks of that width.
+  return launch_cpl<E, VEC, kMaxCpl>(t, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
 }
 
 template <typename E>
 cudaError_t launch(void* table, const int32_t* rows, const float* vals,
-                   float* accum, float* scratch, int64_t n, int64_t v,
-                   int64_t d, float scale, float eps, cudaStream_t s) {
+                   float* accum, float* scratch, float* ssq, int64_t n,
+                   int64_t v, int64_t d, float scale, float eps,
+                   cudaStream_t s) {
   // Four elements a lane: a 16-byte value and scratch access and a 16- (f32)
   // or 8-byte (bf16) table access, when D and the base pointers allow it.
   if (d % 4 == 0 && aligned_to(vals, 16) && aligned_to(scratch, 16) &&
       aligned_to(table, 4 * sizeof(E)))
-    return launch_vec<E, 4>(table, rows, vals, accum, scratch, n, v, d, scale, eps, s);
-  return launch_vec<E, 1>(table, rows, vals, accum, scratch, n, v, d, scale, eps, s);
+    return launch_vec<E, 4>(table, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
+  return launch_vec<E, 1>(table, rows, vals, accum, scratch, ssq, n, v, d, scale, eps, s);
 }
 
 }  // namespace
@@ -355,24 +415,26 @@ extern "C" int et_run_window() { return kRunWindow; }
 
 // table: (v, d) f32 (dtype 0) or bf16 (dtype 1), updated in place; rows: (n,)
 // int32 ascending; vals: (n, d) f32; accum: (v,) f32 for the AdaGrad
-// epilogue, or null for SGD; scratch: (2 * ceil(n / L), d) f32, contents
-// ignored. n, d > 0; every pointer is a device pointer to a contiguous
-// array. Returns cudaErrorInvalidValue, launching nothing, for rows wider
-// than the registers hold: d > 1024 (d % 4 == 0 and 16-byte aligned values),
-// else d > 256.
+// epilogue, or null for SGD; scratch: (2 * ceil(n / L), min(d, 1024)) f32,
+// contents ignored; ssq: (n,) f32 of zeros when accum is given and d > 256,
+// else ignored (may be null). n, d > 0; every pointer is a device pointer
+// to a contiguous array. Rows of any width.
 extern "C" int et_scatter_add_rows_sorted(void* table, const void* rows,
                                           const void* vals, void* accum,
-                                          void* scratch, int64_t n, int64_t v,
-                                          int64_t d, int dtype, float scale,
-                                          float eps, void* stream) {
+                                          void* scratch, void* ssq, int64_t n,
+                                          int64_t v, int64_t d, int dtype,
+                                          float scale, float eps,
+                                          void* stream) {
   const auto* r = static_cast<const int32_t*>(rows);
   const auto* x = static_cast<const float*>(vals);
   auto* a = static_cast<float*>(accum);
   auto* sc = static_cast<float*>(scratch);
+  auto* sq = static_cast<float*>(ssq);
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? launch<uint32_t>(table, r, x, a, sc, n, v, d, scale, eps, s)
-                 : launch<uint16_t>(table, r, x, a, sc, n, v, d, scale, eps, s);
+      dtype == 0
+          ? launch<uint32_t>(table, r, x, a, sc, sq, n, v, d, scale, eps, s)
+          : launch<uint16_t>(table, r, x, a, sc, sq, n, v, d, scale, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ from .deepfm import (DeepFM, DeepFMConfig, deepfm_forward,
 from .dlrm import (DLRM, DLRMConfig, bce_loss, dlrm_forward, dlrm_small_config,
                    init_dlrm, make_eval_step, make_train_step)
 from .train import (RetrievalTrainResult, TrainResult, evaluate_auc,
-                    evaluate_metrics, train_dcn, train_deepfm, train_dlrm,
-                    train_two_tower)
+                    evaluate_metrics, restore_deepfm_delta, restore_delta,
+                    restore_dlrm_delta, restore_two_tower_delta, train_dcn,
+                    train_deepfm, train_dlrm, train_two_tower)
 from .two_tower import (TwoTower, TwoTowerConfig, build_item_index,
                         in_batch_softmax_loss, init_two_tower, make_retriever,
                         retrieve, two_tower_scores)
@@ -22,4 +23,5 @@ __all__ = ["DLRM", "DLRMConfig", "dlrm_small_config", "init_dlrm",
            "retrieve",
            "train_dlrm", "train_dcn", "train_deepfm", "train_two_tower",
            "TrainResult", "RetrievalTrainResult", "evaluate_auc",
-           "evaluate_metrics"]
+           "evaluate_metrics", "restore_delta", "restore_dlrm_delta",
+           "restore_deepfm_delta", "restore_two_tower_delta"]

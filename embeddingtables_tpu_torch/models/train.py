@@ -6,17 +6,22 @@ points.
     factories and its `*_from_arrays` builder; `_train_ctr` trains any of
     them on `dense`/`cat`/`label` batches. `train_dlrm`, `train_dcn` and
     `train_deepfm` are thin calls.
-  - `_run_loop` owns the per-step cadence for every family: fetch a host
-    batch, feed the frequency trackers, move the batch to the model's
-    device, run the step (which updates the model in place), evict stale
-    rows every `evict_every` steps, read the loss back at the log cadence,
-    evaluate at `eval_every`. `train_two_tower` runs it with its own
-    batches, step and recall@k eval.
+  - `_run_loop` owns the per-step cadence for every family, each part
+    timed as a telemetry phase ("data", "step", "eval", "delta_ckpt",
+    "checkpoint"; "init" when the loop builds the model): fetch a host
+    batch and move it to the model's device, feed the frequency trackers,
+    run the step (which updates the model in place), evict stale rows every
+    `evict_every` steps, read the loss back at the log cadence and feed it
+    to the divergence guard, evaluate at `eval_every`, save the touched rows
+    every `delta_every` steps and a full checkpoint every `ckpt_every`.
+    `train_two_tower` runs it with its own batches, step and recall@k eval.
+  - `restore_delta` resumes any family's tables and sparse optimizer state
+    from the delta chain a loop wrote, in place.
 
 Every loop takes every parameter of its JAX counterpart. The mesh,
-planner, checkpoint, guard, prefetch, microbatch and `dense_tx` options are
-not ported yet: `unported.py` holds their table, and a value other than the
-one that leaves an option off raises `NotImplementedError`.
+planner, prefetch, microbatch and `dense_tx` options are not ported yet:
+`unported.py` holds their table, and a value other than the one that
+leaves an option off raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD
 from ..unported import check_jax_combinations, refuse_unported
+from ..utils import telemetry as _telemetry
+from ..utils.deltackpt import TouchedRowTracker
 from ..utils.rowstats import FrequencyTracker, evict_rows, reset_rows_state
 from .dlrm import DLRMConfig
 
@@ -54,14 +61,14 @@ class RetrievalTrainResult:
     examples_per_sec: float
 
 
-def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_every=0,
-            **unported) -> None:
+def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_ckpt=None,
+            delta_every=0, **unported) -> None:
     """JAX's own errors on `unported`'s combinations first, then the
     unported options that are set (the rest of JAX's options are ignored,
     as `unported.py` says)."""
     check_jax_combinations(
         mesh=unported.get("mesh"), plan=unported.get("plan"),
-        delta_ckpt=unported.get("delta_ckpt"), delta_every=delta_every,
+        delta_ckpt=delta_ckpt, delta_every=delta_every,
         wire_dtype=wire_dtype, exchange=exchange)
     refuse_unported(loop, **unported)
 
@@ -102,11 +109,12 @@ def _sr_generator_for(sparse_opt, seed: int, device: torch.device):
     return None
 
 
-def _run_loop(*, model, device, step, put, train_iter, num_steps,
+def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
               batch_count, lr_schedule=None, generator=None, track_fn=None,
               evict_every=0, evict_fn=None, split_out=None, log_every=100,
-              verbose=True, on_log=None, eval_every=0, eval_batches=None,
-              eval_fn=None):
+              verbose=True, on_log=None, guard=None, on_rollback=None,
+              eval_every=0, eval_batches=None, eval_fn=None, delta_fn=None,
+              ckpt_manager=None, ckpt_every=0):
     """The shared per-step cadence. Hooks:
 
       put(batch) -> args              the step's positional inputs
@@ -114,21 +122,28 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps,
       evict_fn(model) -> n            at the evict_every cadence, in place
       split_out(out) -> loss          default: the output is the loss
       on_log(i, loss_value)           replaces the default log line
+      on_rollback()                   the guard rolled the model back
       eval_fn(model) -> (value, line) at the eval_every cadence
+      delta_fn(i, model, batch)       delta observe + cadence save
 
-    Returns (losses, evals, examples_per_sec, evicted_total)."""
+    Returns (model, losses, evals, examples_per_sec, evicted_total): the
+    model the guard returned last, which its in-place restore keeps the
+    one the loop was given."""
     losses, evals = [], []
     examples = 0
     evicted_total = 0
     t_start = time.perf_counter()
     for i in range(num_steps):
-        batch = next(train_iter)
+        with tel.phase("data"):
+            batch = next(train_iter)
+            args = put(batch)
         if track_fn is not None:
             track_fn(batch)
         kw = {} if generator is None else {"generator": generator}
         if lr_schedule is not None:
             kw["lr"] = lr_schedule(i)
-        out = step(model, *put(batch), **kw)
+        with tel.phase("step"):
+            out = step(model, *args, **kw)
         if evict_fn is not None and (i + 1) % evict_every == 0:
             # Only rows seen and then gone stale (never-seen rows sit at
             # their init values), each popped so it is not evicted again
@@ -139,18 +154,36 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps,
         if log_every and (i % log_every == 0 or i == num_steps - 1):
             lv = float(loss)       # waits for the step: keeps the rate honest
             losses.append(lv)
+            if guard is not None:
+                # The divergence watchdog reads the loss at the log cadence
+                # (a read every step would wait for every step). A rollback
+                # copies the last checkpoint into the model in place.
+                model, rolled = guard.observe(lv, model)
+                if rolled:
+                    if on_rollback is not None:
+                        on_rollback()
+                    if verbose:
+                        print(f"step {i:6d}  DIVERGED (loss {lv:.3g}) — "
+                              f"rolled back to checkpoint", flush=True)
             if on_log is not None:
                 on_log(i, lv)
             elif verbose:
                 print(f"step {i:6d}  loss {lv:.5f}", flush=True)
         if eval_every and eval_batches and (i + 1) % eval_every == 0:
-            value, line = eval_fn(model)
+            with tel.phase("eval"):
+                value, line = eval_fn(model)
             evals.append((i + 1, value))
             if verbose:
                 print(f"step {i + 1:6d}  {line}", flush=True)
+        if delta_fn is not None:
+            delta_fn(i, model, batch)
+        if ckpt_manager is not None and ckpt_every and \
+                (i + 1) % ckpt_every == 0:
+            with tel.phase("checkpoint"):
+                ckpt_manager.save(i + 1, model)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return (losses, evals, examples / (time.perf_counter() - t_start),
+    return (model, losses, evals, examples / (time.perf_counter() - t_start),
             evicted_total)
 
 
@@ -193,7 +226,7 @@ def _deepfm_family() -> _Family:
 
 
 def _model_for(init, from_arrays, cfg, model, seed: int, device,
-               sparse_opt):
+               sparse_opt, tel):
     """The model to train in place: `model` itself, one built from numpy
     arrays (`model` a dict of `from_arrays`'s keyword arguments), or a fresh
     `init` from `seed` on `device` (CUDA unless given)."""
@@ -202,22 +235,31 @@ def _model_for(init, from_arrays, cfg, model, seed: int, device,
     if model is not None:
         return model
     device = resolve_device(device)
-    return init(cfg, torch.Generator(device=device).manual_seed(seed),
-                device=device, sparse_opt=sparse_opt)
+    with tel.phase("init"):
+        return init(cfg, torch.Generator(device=device).manual_seed(seed),
+                    device=device, sparse_opt=sparse_opt)
 
 
-def _maybe_evict(model, trackers, evict_threshold: float, stacks) -> int:
+def _maybe_evict(model, trackers, evict_threshold: float, stacks,
+                 delta_tracker=None) -> int:
     """Pop each tracker's stale rows and evict them from the model, in
     place: every stack of `stacks` (`(tables, state)` attribute names
     sharing the first stack's offsets) gets the rows zeroed and its
     optimizer state reset at them. DeepFM's unfolded layout passes its
     first-order stack too, so a stale row loses both representations and
-    both states. Returns the number of rows evicted."""
+    both states. Returns the number of rows evicted.
+
+    `delta_tracker`: the delta checkpoint's `TouchedRowTracker`, when delta
+    checkpoints are on. Eviction rewrites rows the input stream did not
+    touch, so they are marked, or the next delta would leave them out and a
+    restore would differ from the live model."""
     first = getattr(model, stacks[0][0])
     cold = np.concatenate([tr.pop_cold(evict_threshold) + first.offsets[t]
                            for t, tr in enumerate(trackers)])
     if not cold.size:
         return 0
+    if delta_tracker is not None:
+        delta_tracker.observe(cold)
     rows = torch.from_numpy(cold.astype(np.int64)).to(first.data.device)
     for tables_attr, state_attr in stacks:
         evict_rows(getattr(model, tables_attr).data, rows)
@@ -226,12 +268,13 @@ def _maybe_evict(model, trackers, evict_threshold: float, stacks) -> int:
 
 
 def _evict_hooks(cfg, evict_every: int, evict_threshold: float,
-                 freq_decay: float, evict_stacks=None):
+                 freq_decay: float, evict_stacks=None, delta_tracker=None):
     """(track_fn, evict_fn) of the loop, both None without eviction: a
     `FrequencyTracker` per table follows the host batches (pads left out),
     and every `evict_every` steps the rows that appeared and went stale
     are evicted (`_maybe_evict`) from the stacks `evict_stacks(model)`
-    names, by default the model's one stack."""
+    names, by default the model's one stack, and marked in
+    `delta_tracker`."""
     if not evict_every:
         return None, None
     trackers = [FrequencyTracker(v, decay=freq_decay)
@@ -252,22 +295,68 @@ def _evict_hooks(cfg, evict_every: int, evict_threshold: float,
     def evict_fn(m):
         stacks = ((("tables", "emb_state"),) if evict_stacks is None
                   else evict_stacks(m))
-        return _maybe_evict(m, trackers, evict_threshold, stacks)
+        return _maybe_evict(m, trackers, evict_threshold, stacks,
+                            delta_tracker)
 
     return track_fn, evict_fn
+
+
+def _delta_setup(delta_ckpt, delta_every, tables):
+    """The loop's delta-checkpoint plumbing: validate, point the manager at
+    the flat layout of one device, and build the touched-row tracker over
+    the stacked vocab. None when delta checkpoints are off."""
+    if delta_ckpt is None:
+        return None
+    if not delta_every:
+        raise ValueError("delta_ckpt requires delta_every > 0")
+    delta_ckpt.layout = None
+    return TouchedRowTracker(tables.offsets[-1])
+
+
+def _delta_state(model):
+    """The state a CTR delta checkpoint covers beside `model.tables.data`:
+    the stack's sparse optimizer state, and for DeepFM's unfolded layout
+    also the first-order stack and its state (same global rows: the stacks
+    share offsets, so one tracker covers both). The folded DeepFM has one
+    fused stack, like DLRM and DCN."""
+    fm_w = getattr(model, "fm_w", None)
+    if fm_w is None:
+        return model.emb_state
+    return (model.emb_state, fm_w.data, model.fm_state)
+
+
+
+def _ctr_delta_fn(delta_ckpt, delta_every, tracker, pad_idx, tel):
+    """The loop's delta hook: mark the batch's rows, and every
+    `delta_every` steps save the touched rows (a base at the manager's
+    cadence)."""
+    if tracker is None:
+        return None
+
+    def delta_fn(i, m, batch):
+        tracker.observe_batch(batch["cat"], m.tables.offsets,
+                              pad_idx=pad_idx)
+        if (i + 1) % delta_every == 0:
+            with tel.phase("delta_ckpt"):
+                delta_ckpt.save(i + 1, m.tables.data, _delta_state(m),
+                                tracker)
+
+    return delta_fn
 
 
 def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
                dense_lr, model, seed, eval_batches, eval_every, eval_metrics,
                log_every, lr_schedule, verbose, device, evict_every,
-               evict_threshold, freq_decay, evict_stacks=None) -> TrainResult:
+               evict_threshold, freq_decay, ckpt_manager, ckpt_every, guard,
+               delta_ckpt, delta_every, evict_stacks=None) -> TrainResult:
     """The CTR (dense/cat/label) training run of any family."""
     if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
         raise ValueError(
             "SparseFTRL cannot change lr per step: alpha is baked into the "
             "accumulated z state, so it takes no lr_schedule")
+    tel = _telemetry.get_telemetry()
     model = _model_for(fam.init, fam.from_arrays, cfg, model, seed, device,
-                       sparse_opt)
+                       sparse_opt, tel)
     device = model.tables.data.device
     step = fam.train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
     eval_step = fam.eval_step(cfg)
@@ -286,16 +375,28 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         a = evaluate_auc(eval_step, m, eval_batches)
         return a, f"eval AUC {a:.4f}"
 
+    delta_tracker = _delta_setup(delta_ckpt, delta_every, model.tables)
     track_fn, evict_fn = _evict_hooks(cfg, evict_every, evict_threshold,
-                                      freq_decay, evict_stacks)
-    losses, aucs, eps, evicted = _run_loop(
+                                      freq_decay, evict_stacks, delta_tracker)
+
+    def on_rollback():
+        if delta_ckpt is not None:
+            # The live model jumped back to an older snapshot: the tracker
+            # no longer names the rows that differ from the last save.
+            delta_ckpt.force_base()
+
+    model, losses, aucs, eps, evicted = _run_loop(
         model=model, device=device, step=step, put=put, train_iter=train_iter,
-        num_steps=num_steps, batch_count=lambda b: b["label"].shape[0],
-        lr_schedule=lr_schedule,
+        num_steps=num_steps, tel=tel,
+        batch_count=lambda b: b["label"].shape[0], lr_schedule=lr_schedule,
         generator=_sr_generator_for(sparse_opt, seed, device),
         track_fn=track_fn, evict_every=evict_every, evict_fn=evict_fn,
-        log_every=log_every, verbose=verbose, eval_every=eval_every,
-        eval_batches=eval_batches, eval_fn=eval_fn)
+        log_every=log_every, verbose=verbose, guard=guard,
+        on_rollback=on_rollback, eval_every=eval_every,
+        eval_batches=eval_batches, eval_fn=eval_fn,
+        delta_fn=_ctr_delta_fn(delta_ckpt, delta_every, delta_tracker,
+                               getattr(cfg, "pad_idx", None), tel),
+        ckpt_manager=ckpt_manager, ckpt_every=ckpt_every)
     return TrainResult(model=model, losses=losses, aucs=aucs,
                        examples_per_sec=eps, evicted_rows=evicted)
 
@@ -329,13 +430,23 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     `evict_threshold`) are zeroed and their optimizer state reset;
     `evicted_rows` counts them. Never-seen rows keep their init values.
 
+    `ckpt_manager` (a `utils.CheckpointManager`) with `ckpt_every > 0` saves
+    the whole model every `ckpt_every` steps. `guard` (a
+    `utils.DivergenceGuard`) reads the loss at the log cadence and, on a
+    divergence, copies its last checkpoint into the model in place (and
+    makes `delta_ckpt`'s next save a base). `delta_ckpt` (a
+    `utils.DeltaCheckpointManager`) with `delta_every > 0` saves the rows
+    touched since the last save every `delta_every` steps, with the sparse
+    optimizer state's rows (a full base at the manager's `base_every`
+    cadence); evicted rows count as touched. It covers
+    `(tables.data, emb_state)`; resume with `restore_delta`.
+
     JAX's other options follow `unported.py`: set, an unported one raises,
     as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
     state), before the first step, as the JAX loop's first step does."""
     _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
-            delta_every=delta_every, mesh=mesh, plan=plan,
-            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+            delta_ckpt=delta_ckpt, delta_every=delta_every, mesh=mesh,
+            plan=plan, dense_tx=dense_tx, microbatch=microbatch,
             device_prefetch=device_prefetch)
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
@@ -343,7 +454,9 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
-        freq_decay=freq_decay)
+        freq_decay=freq_decay, ckpt_manager=ckpt_manager,
+        ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
+        delta_every=delta_every)
 
 
 def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -357,10 +470,10 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
               lr_schedule=None, delta_ckpt=None, delta_every: int = 0,
               verbose: bool = True, device=None) -> TrainResult:
     """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches, cadence
-    and options, row eviction included."""
-    _refuse("train_dcn", delta_every=delta_every, mesh=mesh, plan=plan,
-            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+    and options: row eviction, checkpoints, the guard and delta checkpoints
+    included."""
+    _refuse("train_dcn", delta_ckpt=delta_ckpt, delta_every=delta_every,
+            mesh=mesh, plan=plan, dense_tx=dense_tx, microbatch=microbatch,
             device_prefetch=device_prefetch)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
@@ -368,7 +481,9 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
-        freq_decay=freq_decay)
+        freq_decay=freq_decay, ckpt_manager=ckpt_manager,
+        ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
+        delta_every=delta_every)
 
 
 def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -387,15 +502,15 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
     batches, cadence and options. Row eviction covers every stack: a stale
     row loses its FM vector, its first-order weight and their optimizer
     state, in the fused row of the folded layout or in both stacks of the
-    unfolded one."""
+    unfolded one. A delta checkpoint of the unfolded layout carries the
+    first-order stack and its state beside the FM stack's."""
 
     def evict_stacks(m):
         fm = () if m.fm_w is None else (("fm_w", "fm_state"),)
         return (("tables", "emb_state"),) + fm
 
-    _refuse("train_deepfm", delta_every=delta_every, mesh=mesh, plan=plan,
-            delta_ckpt=delta_ckpt, dense_tx=dense_tx,
-            ckpt_manager=ckpt_manager, guard=guard, microbatch=microbatch,
+    _refuse("train_deepfm", delta_ckpt=delta_ckpt, delta_every=delta_every,
+            mesh=mesh, plan=plan, dense_tx=dense_tx, microbatch=microbatch,
             device_prefetch=device_prefetch)
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
@@ -403,7 +518,9 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
-        freq_decay=freq_decay, evict_stacks=evict_stacks)
+        freq_decay=freq_decay, ckpt_manager=ckpt_manager,
+        ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
+        delta_every=delta_every, evict_stacks=evict_stacks)
 
 
 # ---------------------------------------------------------------------------
@@ -423,15 +540,19 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     on one device. `accs` holds the in-batch top-1 accuracy at the log
     cadence; every `eval_every` steps the item index is rebuilt and the
     recall@k of the positive item over `eval_batches` joins `recalls`.
-    JAX's other options follow `unported.py`."""
+    `ckpt_manager` / `ckpt_every` save the whole model; `delta_ckpt` is a
+    `(query_mgr, item_mgr)` pair of `utils.DeltaCheckpointManager`s, one per
+    row space (the query stack and the item table, each with its own
+    tracker), saved every `delta_every` steps; resume with
+    `restore_delta`. JAX's other options follow `unported.py`."""
     from . import two_tower as tt
     from ..interop import two_tower_from_arrays
-    _refuse("train_two_tower", delta_every=delta_every, mesh=mesh, plan=plan,
-            delta_ckpt=delta_ckpt, ckpt_manager=ckpt_manager,
-            device_prefetch=device_prefetch)
+    _refuse("train_two_tower", delta_ckpt=delta_ckpt, delta_every=delta_every,
+            mesh=mesh, plan=plan, device_prefetch=device_prefetch)
+    tel = _telemetry.get_telemetry()
     sparse_opt = sparse_opt or SparseSGD(0.05)
     model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg, model,
-                       seed, device, sparse_opt)
+                       seed, device, sparse_opt, tel)
     device = model.item_data.device
     step = tt.make_train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
 
@@ -451,6 +572,24 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
         r = hits / max(total, 1)
         return r, f"recall@{k} {r:.4f}"
 
+    delta_fn = None
+    if delta_ckpt is not None:
+        # Two managers: the query stack and the item corpus are two row
+        # spaces, each with its own touched set.
+        q_mgr, i_mgr = delta_ckpt
+        q_mgr.layout = i_mgr.layout = None
+        q_tracker = TouchedRowTracker(model.query_tables.offsets[-1])
+        i_tracker = TouchedRowTracker(cfg.item_vocab)
+
+        def delta_fn(i, m, batch):
+            q_tracker.observe_batch(batch["q_cat"], m.query_tables.offsets)
+            i_tracker.observe(batch["item_ids"])
+            if (i + 1) % delta_every == 0:
+                with tel.phase("delta_ckpt"):
+                    q_mgr.save(i + 1, m.query_tables.data, m.q_state,
+                               q_tracker)
+                    i_mgr.save(i + 1, m.item_data, m.i_state, i_tracker)
+
     # The step returns (loss, in-batch accuracy); the loop logs the loss,
     # on_log records and prints the accuracy.
     accs, last_acc = [], {}
@@ -465,12 +604,47 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
             print(f"step {i:6d}  loss {lv:.5f}  in-batch acc {accs[-1]:.3f}",
                   flush=True)
 
-    losses, recalls, eps, _ = _run_loop(
+    model, losses, recalls, eps, _ = _run_loop(
         model=model, device=device, step=step, put=put, train_iter=train_iter,
-        num_steps=num_steps, batch_count=lambda b: b["item_ids"].shape[0],
+        num_steps=num_steps, tel=tel,
+        batch_count=lambda b: b["item_ids"].shape[0],
         generator=_sr_generator_for(sparse_opt, seed, device),
         split_out=split_out, log_every=log_every, verbose=verbose,
         on_log=on_log, eval_every=eval_every, eval_batches=eval_batches,
-        eval_fn=eval_fn)
+        eval_fn=eval_fn, delta_fn=delta_fn, ckpt_manager=ckpt_manager,
+        ckpt_every=ckpt_every)
     return RetrievalTrainResult(model=model, losses=losses, accs=accs,
                                 recalls=recalls, examples_per_sec=eps)
+
+
+# ---------------------------------------------------------------------------
+# Delta-checkpoint restore (one restore for every family)
+# ---------------------------------------------------------------------------
+
+def restore_delta(delta_ckpt, model):
+    """Resume `model`'s tables and sparse optimizer state from the
+    `DeltaCheckpointManager` chain(s) a `train_*` loop's `delta_ckpt=`
+    wrote, in place; returns `model`.
+
+    One entry point for every family (the three per-family names below are
+    aliases): DLRM and DCN, DeepFM in both layouts (the unfolded
+    first-order stack restores beside the FM stack), and the two-tower
+    retriever (pass the `(query_mgr, item_mgr)` pair `train_two_tower`
+    took). The dense towers are not in the chain: pair with a
+    `ckpt_manager` when they must resume too. A directory without a
+    committed base leaves its tables as they are."""
+    if hasattr(model, "query_tables"):
+        q_mgr, i_mgr = delta_ckpt
+        q_mgr.layout = i_mgr.layout = None
+        q_mgr.restore_latest(model.query_tables.data, model.q_state)
+        i_mgr.restore_latest(model.item_data, model.i_state)
+        return model
+    delta_ckpt.layout = None
+    delta_ckpt.restore_latest(model.tables.data, _delta_state(model))
+    return model
+
+
+# JAX's per-family names (the same function).
+restore_dlrm_delta = restore_delta
+restore_deepfm_delta = restore_delta
+restore_two_tower_delta = restore_delta

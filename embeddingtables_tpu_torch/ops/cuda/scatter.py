@@ -25,7 +25,9 @@ The order of the float32 additions: pieces at run starts and at multiples of
 pieces folded left to right, `((p0 + p1) + p2) + ...`. A run that crosses no
 multiple of L is one piece, summed in stream order.
 
-Tables are float32 or bfloat16; values are float32. A CUDA tensor goes to the
+Tables are float32 or bfloat16, of any width; values are float32. Rows
+wider than the kernel's registers hold are walked in column chunks, with the
+same additions per column. A CUDA tensor goes to the
 kernel in `csrc/scatter.cu`; a CPU tensor to the plain version
 (`scatter_add_rows_sorted_plain`), which is also what the kernel is checked
 against on the card: it makes the same float32 additions in the same order.
@@ -47,11 +49,16 @@ RUN_WINDOW = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                                   _F32, _F32, _P],
+    "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                   _INT, _F32, _F32, _P],
     "et_run_window": [],
 }
-_CUDA_ERROR_INVALID_VALUE = 1
+# The widest rows, in elements, that the kernel holds in registers in one
+# pass: 1,024 on its 16-byte path, else 256. Wider rows are walked in column
+# chunks of that width; the scratch is at most this wide, and the AdaGrad
+# epilogue of rows wider than the narrower width takes an (n,) f32 scratch of
+# sums of squares.
+_CHUNK_MAX, _CHUNK_MIN = 1024, 256
 
 
 def _validate(table, rows, vals, accum) -> None:
@@ -167,20 +174,20 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
     if n == 0 or d == 0:
         return table
     lib = _library()
-    # Two f32 slots per window for the pieces of runs that cross its edges.
-    scratch = torch.empty((2 * -(-n // RUN_WINDOW), d), dtype=torch.float32,
-                          device=table.device)
+    # Two f32 slots per window for the pieces of runs that cross its edges,
+    # one column chunk wide.
+    scratch = torch.empty((2 * -(-n // RUN_WINDOW), min(d, _CHUNK_MAX)),
+                          dtype=torch.float32, device=table.device)
+    ssq = None
+    if accum is not None and d > _CHUNK_MIN:
+        ssq = torch.zeros((n,), dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
         err = lib.et_scatter_add_rows_sorted(
             table.data_ptr(), sorted_rows.data_ptr(), sorted_vals.data_ptr(),
             None if accum is None else accum.data_ptr(), scratch.data_ptr(),
-            n, v, d, _DTYPE_CODE[table.dtype], float(scale), float(eps),
+            None if ssq is None else ssq.data_ptr(), n, v, d,
+            _DTYPE_CODE[table.dtype], float(scale), float(eps),
             _lib.stream_of(table))
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(
-            f"rows of {d} elements are wider than the run-scatter holds in "
-            "registers: at most 1024 (D % 4 == 0, 16-byte aligned values), "
-            "else 256")
     _lib.check(lib, err, "scatter_add_rows_sorted")
     scatter_add_rows_sorted.launches += 1
     return table

@@ -11,6 +11,10 @@ of `embeddingtables_tpu/serving.py`).
     from a CTR model, or its int8 / int4 quantized tables (`quant.py`), to a
     `MicroBatcher`; `make_retrieval_service` serves a two-tower model's
     top-k retrieval the same way.
+  - `make_refreshable_service` (any CTR family) and
+    `make_refreshable_dlrm_service`: a service whose tables (or whole model)
+    can be swapped while it serves, for a replica that follows a trainer's
+    delta checkpoints through `utils.DeltaFollower`.
   - `serve_http`: a stdlib `ThreadingHTTPServer` JSON endpoint
     (`POST /predict`) over a `MicroBatcher`.
 
@@ -19,6 +23,7 @@ Shapes: dense `(b, num_dense)` float32, cat `(T, b[, bag])` int32
 """
 from __future__ import annotations
 
+import copy
 import json
 import queue
 import threading
@@ -33,6 +38,7 @@ import torch
 
 from . import quant
 from .models import dcn, deepfm, dlrm, two_tower
+from .ops.ensemble import StackedTables
 from .unported import refuse_unported
 
 
@@ -315,6 +321,93 @@ def make_retrieval_service(model, *, k: int = 10, mesh=None, axis="data",
 
     return MicroBatcher(predict, max_batch=max_batch,
                         max_latency_ms=max_latency_ms)
+
+
+# ---------------------------------------------------------------------------
+# Refreshable serving
+# ---------------------------------------------------------------------------
+
+def _ctr_eval_step_for(model):
+    """The eval step of whichever CTR family `model` is (DLRM, DCN or
+    DeepFM): the only family-specific piece of refreshable serving."""
+    if isinstance(model, dlrm.DLRM):
+        return dlrm.make_eval_step(model.config)
+    if isinstance(model, dcn.DCN):
+        return dcn.make_eval_step(model.config)
+    if isinstance(model, deepfm.DeepFM):
+        return deepfm.make_eval_step(model.config)
+    raise TypeError(
+        f"refreshable serving covers the CTR families (DLRM/DCN/DeepFM); "
+        f"got {type(model).__name__}")
+
+
+def _with_tables(model, data: torch.Tensor):
+    """A shallow copy of `model` that shares its towers and holds a new
+    `StackedTables` over `data`: setting it writes nothing of `model`."""
+    served = copy.copy(model)
+    # copy.copy shares the module's registries; give the copy its own, so
+    # that its new tables do not land in `model`.
+    served._modules = dict(model._modules)
+    served._buffers = dict(model._buffers)
+    served._parameters = dict(model._parameters)
+    old = model.tables
+    served._modules["tables"] = StackedTables(data, old.offsets, old.dim)
+    return served
+
+
+def make_refreshable_service(model, *, max_batch: int = 1024,
+                             max_latency_ms: float = 5.0):
+    """Online-refresh CTR scoring for any family (DLRM, DCN, DeepFM):
+    returns `(batcher, swap)`.
+
+    The service scores with its own view of the model, held in a one-slot
+    holder that each flushed batch reads once, so a batch in flight scores
+    wholly with the old model or wholly with the new one, never a mix.
+    `swap(new_model)` replaces the served model; `batcher.swap_tables(data)`
+    serves a new stacked table tensor (a `DeltaFollower`'s `data`) with the
+    served towers, through a shallow copy of the model: a trainer that
+    updates `model` in place in the same process never writes into what is
+    served, and nothing the service reads is written. DeepFM's folded
+    layout works as it is: the fused stack is `model.tables`, so one
+    tensor carries the first-order weights and the FM vectors.
+
+        batcher, swap = make_refreshable_service(model)
+        follower = DeltaFollower(ckpt_dir, model.tables.data)
+        ... every refresh interval:
+        if follower.poll():
+            batcher.swap_tables(follower.data)
+    """
+    step = _ctr_eval_step_for(model)
+    device = model.tables.data.device
+    holder = {"model": _with_tables(model, model.tables.data)}
+
+    def predict(dense, cat):
+        served = holder["model"]      # one read: one model for the batch
+        d = torch.from_numpy(dense).to(device)
+        c = torch.from_numpy(cat).to(device)
+        return step(served, d, c).cpu().numpy()
+
+    batcher = MicroBatcher(predict, max_batch=max_batch,
+                           max_latency_ms=max_latency_ms)
+
+    def swap(new_model):
+        holder["model"] = new_model
+
+    def swap_tables(data: torch.Tensor):
+        """Serve `data` as the stacked table, keeping the served towers."""
+        holder["model"] = _with_tables(holder["model"], data)
+
+    batcher.swap = swap
+    batcher.swap_tables = swap_tables
+    return batcher, swap
+
+
+def make_refreshable_dlrm_service(model, *, max_batch: int = 1024,
+                                  max_latency_ms: float = 5.0):
+    """Online-refresh DLRM scoring: `make_refreshable_service`, JAX's
+    original DLRM entry point (an alias)."""
+    return make_refreshable_service(model, max_batch=max_batch,
+                                    max_latency_ms=max_latency_ms)
 
 
 # ---------------------------------------------------------------------------

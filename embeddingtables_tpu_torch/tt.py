@@ -17,9 +17,8 @@ each core is an embedding table of `(v_k, r*d*r')` rows (`core_tables`, views
 of the cores), and the pullback of a lookup is K `SparseEmbeddingUpdate`s on
 the digit streams, the fold's VJP taken with `torch.autograd`.
 
-The run-scatter holds a row in registers (at most 1,024 elements), so a
-core wider than that cannot take it on the card: at rank 32 and D = 128 the
-middle core is 4,096 wide (ROADMAP queue 3, "Run-scatter width").
+Cores of any width take the run-scatter: at rank 32 and D = 128 the middle
+core is 4,096 wide, which the kernel walks in column chunks.
 """
 from __future__ import annotations
 

@@ -8,13 +8,15 @@ reads only together with another one are accepted and ignored as JAX
 ignores them, since the one that gives them a meaning is unported:
 
   - `axis` (`mesh`), `exchange`, `capacity_factor`, `auto_capacity`
-    (`mesh` with `exchange="a2a"`);
-  - `ckpt_every` (`ckpt_manager`), `delta_every` (`delta_ckpt`).
+    (`mesh` with `exchange="a2a"`).
 
-The loops' `evict_every` (with `evict_threshold` and `freq_decay`) and the
-services' `quantized` (with `quantize_bits`) are ported and read; as in JAX,
-`evict_threshold` and `freq_decay` mean nothing without `evict_every`, nor
-`quantize_bits` without `quantized`.
+The loops' `evict_every` (with `evict_threshold` and `freq_decay`),
+`ckpt_manager` (with `ckpt_every`), `guard` and `delta_ckpt` (with
+`delta_every`), and the services' `quantized` (with `quantize_bits`) are
+ported and read; as in JAX, `evict_threshold` and `freq_decay` mean nothing
+without `evict_every`, `ckpt_every` nothing without `ckpt_manager`,
+`delta_every` nothing without `delta_ckpt`, nor `quantize_bits` without
+`quantized`.
 
 Where JAX raises on a combination, the callers raise the same exception
 class first (`plan` without `mesh`, `wire_dtype` without an `a2a` mesh,
@@ -28,9 +30,6 @@ from __future__ import annotations
 UNPORTED = {
     "mesh": ((None,), "multi-device placement (ROADMAP.md queue 1, item I)"),
     "plan": ((None,), "the planner (ROADMAP.md queue 1, item I)"),
-    "ckpt_manager": ((None,), "checkpoints (ROADMAP.md queue 1, item E)"),
-    "delta_ckpt": ((None,), "delta checkpoints (ROADMAP.md queue 1, item E)"),
-    "guard": ((None,), "utils/resilience.py (ROADMAP.md queue 1, item E)"),
     "device_prefetch": ((0,), "io/loader.py (ROADMAP.md queue 1, item H)"),
     "microbatch": ((None, 0, 1),
                    "models/microbatch.py (ROADMAP.md queue 1, item F)"),

@@ -729,3 +729,112 @@ def test_cuda_host_tables_match_a_simple_embedding(cuda_device, kind):
     ref.scatter_apply(ids.to(cuda_device), delta)
     torch.testing.assert_close(t.materialize(), ref.data, rtol=1e-6,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Rows wider than the run-scatter's registers, and persistence on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("adagrad", [False, True])
+@pytest.mark.parametrize("d", [258, 1025, 2048, 4096])
+@pytest.mark.parametrize("zipf", [False, True], ids=["edges", "zipf"])
+def test_cuda_wide_rows_scatter_matches_plain(cuda_device, dtype, adagrad, d,
+                                              zipf):
+    # Wider than 1,024 (or 256 off the 16-byte path): the column chunks.
+    g = torch.Generator(device=cuda_device).manual_seed(d + zipf)
+    v, n = 3000, 20_000
+    rows = (_sorted_rows(g, cuda_device, n, v, True) if zipf
+            else _window_edge_rows(cuda_device, v))
+    vals = torch.randn((rows.numel(), d), generator=g, device=cuda_device)
+    table = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
+    accum = (torch.rand((v,), generator=g, device=cuda_device)
+             if adagrad else None)
+    t_k, t_p = table.clone(), table.clone()
+    a_k = None if accum is None else accum.clone()
+    a_p = None if accum is None else accum.clone()
+    before = S.scatter_add_rows_sorted.launches
+    S.scatter_add_rows_sorted(t_k, rows, vals, -0.05, accum=a_k, eps=1e-8)
+    assert S.scatter_add_rows_sorted.launches == before + 1
+    S.scatter_add_rows_sorted_plain(t_p, rows, vals, -0.05, accum=a_p,
+                                    eps=1e-8)
+    torch.cuda.synchronize()
+    if not adagrad:
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(t_k.view(bits), t_p.view(bits))
+    else:
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(t_k.float(), t_p.float(), rtol=tol,
+                                   atol=1e-6)
+        torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_simple_embedding_sgd_at_d_2048_takes_the_run_scatter(
+        cuda_device):
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch.ops.sparse_update import \
+        SparseEmbeddingUpdate
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    v, d = 5000, 2048
+    data = torch.randn((v, d), generator=g, device=cuda_device)
+    ids = torch.randint(0, v, (4096,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    delta = torch.randn((4096, d), generator=g, device=cuda_device)
+    opt = ett.SparseSGD(0.1)
+    kernel, plain = data.clone(), data.clone()
+    before = S.scatter_add_rows_sorted.launches
+    opt.apply(kernel, SparseEmbeddingUpdate(delta, ids), opt.init(kernel))
+    assert S.scatter_add_rows_sorted.launches == before + 1
+    with _plain_update_path():
+        opt.apply(plain, SparseEmbeddingUpdate(delta, ids), opt.init(plain))
+    torch.cuda.synchronize()
+    assert torch.equal(kernel.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_delta_chain_restores_bitwise_and_refreshes_a_service(
+        cuda_device, tmp_path):
+    import numpy as np
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import utils
+    cfg = ett.DLRMConfig(vocab_sizes=(3000, 500, 20_000), num_dense=5,
+                         dim=64, bottom_mlp=(32, 64), top_mlp=(32, 1))
+    data = ett.SyntheticCriteo(vocab_sizes=cfg.vocab_sizes, num_dense=5,
+                               batch_size=1024, seed=3)
+    opt = ett.SparseRowWiseAdaGrad(0.05, method="indexer")
+    mgr = utils.DeltaCheckpointManager(str(tmp_path / "delta"), base_every=3)
+    ckpt = utils.CheckpointManager(str(tmp_path / "ckpt"))
+    before = G.gather_rows.launches
+    res = ett.train_dlrm(cfg, data.batches(), 6, sparse_opt=opt,
+                         device=cuda_device, delta_ckpt=mgr, delta_every=2,
+                         ckpt_manager=ckpt, ckpt_every=3,
+                         guard=utils.DivergenceGuard(ckpt), log_every=1,
+                         verbose=False)
+    # Each step gathers twice (forward, permute); each delta once a leaf.
+    assert G.gather_rows.launches == before + 6 * 2 + 2 * 2
+    fresh = ett.init_dlrm(cfg, device=cuda_device, sparse_opt=opt)
+    ett.restore_delta(mgr, fresh)
+    assert torch.equal(fresh.tables.data.view(torch.int32),
+                       res.model.tables.data.view(torch.int32))
+    assert torch.equal(fresh.emb_accum, res.model.emb_accum)
+    whole = ett.init_dlrm(cfg, device=cuda_device, sparse_opt=opt)
+    ckpt.restore_latest(whole)
+    for (name, a), b in zip(whole.state_dict().items(),
+                            res.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    # The chain holds the tables; the service serves the trained towers.
+    svc, _ = ett.make_refreshable_dlrm_service(res.model, max_batch=256)
+    try:
+        follower = utils.DeltaFollower(str(tmp_path / "delta"),
+                                       fresh.tables.data)
+        assert follower.poll() == 3
+        svc.swap_tables(follower.data)
+        batch = next(data.batches())
+        dense, cat = batch["dense"][:256], batch["cat"][:, :256]
+        got = svc.predict(dense, cat, timeout=60)
+        want = ett.make_eval_step(cfg)(res.model, dense, cat)
+        assert np.array_equal(got, want.cpu().numpy())
+    finally:
+        svc.stop()

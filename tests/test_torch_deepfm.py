@@ -314,18 +314,24 @@ def test_deepfm_service_gives_the_eval_steps_results():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_deepfm_options_not_ported_raise(name):
-    # evict_every is ported: beside the unported guard, only guard is
-    # refused.
+    # evict_every, delta_ckpt, ckpt_manager and guard are ported: each comes
+    # with an unported option, which alone is refused.
     value = {"evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
-    extra = {"plan": {"mesh": object()}, "delta_ckpt": {"delta_every": 2},
-             "evict_every": {"guard": object()}}.get(name, {})
-    refused = "guard" if name == "evict_every" else name
+    extra = {"plan": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2, "mesh": object()},
+             "evict_every": {"dense_tx": object()},
+             "ckpt_manager": {"device_prefetch": 2},
+             "guard": {"microbatch": 2}}.get(name, {})
+    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard")
+    refused = {"evict_every": "dense_tx", "delta_ckpt": "mesh",
+               "ckpt_manager": "device_prefetch",
+               "guard": "microbatch"}.get(name, name)
     cfg = ett.DeepFMConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=refused) as err:
         ett.train_deepfm(cfg, iter(()), 1, device="cpu", **{name: value},
                         **extra)
-    assert "evict_every" not in str(err.value)
+    assert not any(f"{p}=" in str(err.value) for p in ported)
 
 
 @pytest.mark.parametrize("fold", [True, False])

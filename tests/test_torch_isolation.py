@@ -16,7 +16,8 @@ REPO = PKG.parent
 
 
 NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
-               "utils.rowstats")
+               "utils.rowstats", "utils.checkpoint", "utils.deltackpt",
+               "utils.resilience", "utils.telemetry")
 
 
 def test_importing_the_port_loads_no_jax():
@@ -126,6 +127,11 @@ def _no_device_calls():
         "train_dcn": lambda: ett.train_dcn(dcn, iter(()), 0),
         "train_deepfm": lambda: ett.train_deepfm(dfm, iter(()), 0),
         "train_two_tower": lambda: ett.train_two_tower(tt, iter(()), 0),
+        "train_dlrm_persistent": lambda: ett.train_dlrm(
+            dlrm, iter(()), 0, ckpt_manager=object(), ckpt_every=1,
+            guard=object(), delta_ckpt=object(), delta_every=1),
+        "make_refreshable_service": lambda: ett.make_refreshable_service(
+            ett.init_dlrm(dlrm)),
     }
 
 
@@ -141,7 +147,9 @@ def _no_device_calls():
                                    "HostOffloadEmbedding", "quantize_dlrm",
                                    "quantized_from_arrays", "qr_from_arrays",
                                    "md_from_arrays", "tt_from_arrays",
-                                   "tiered_from_arrays"])
+                                   "tiered_from_arrays",
+                                   "train_dlrm_persistent",
+                                   "make_refreshable_service"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -160,3 +168,24 @@ def test_quantization_runs_where_the_model_lies_without_a_card(monkeypatch):
     assert qt.packed.device.type == "cpu"
     out = eval_fn(np.zeros((3, 2), np.float32), np.zeros((2, 3), np.int32))
     assert out.device.type == "cpu" and out.shape == (3,)
+
+
+def test_persistence_runs_where_its_templates_lie_without_a_card(
+        monkeypatch, tmp_path):
+    from embeddingtables_tpu_torch import utils
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                         bottom_mlp=(4,), top_mlp=(3, 1))
+    model = ett.init_dlrm(cfg, device="cpu")
+    ckpt = utils.CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(1, model)
+    assert ckpt.restore_latest(ett.init_dlrm(cfg, device="cpu")) is not None
+    mgr = utils.DeltaCheckpointManager(str(tmp_path / "delta"))
+    tracker = utils.TouchedRowTracker(11)
+    tracker.observe([2, 7])
+    mgr.save(1, model.tables.data, model.emb_state, tracker)
+    follower = utils.DeltaFollower(str(tmp_path / "delta"),
+                                   model.tables.data)
+    assert follower.poll() == 1 and follower.data.device.type == "cpu"
+    with utils.phase("sync_without_a_card", sync=True):
+        pass

@@ -424,3 +424,33 @@ def test_ensemble_update_refuses_state_on_a_protocol_table():
     with pytest.raises(TypeError, match="stateful or regularized"):
         ett.ensemble_update(ett.SparseSGD(lr=LR, weight_decay=0.1),
                             [RowsOnly()], [pupd])
+
+
+@pytest.mark.parametrize("case", ["run_scatter", "simple_embedding_sgd"])
+def test_rows_of_2048_match_jax(case):
+    # Wider than the kernel's registers hold (its column-chunk path on the
+    # card); the plain version and JAX's XLA scatter take any width. Against
+    # XLA's per-occurrence additions: rtol/atol 1e-5, as above.
+    rng = np.random.default_rng(2048)
+    v, d, n = 600, 2048, 300
+    arr = _table(rng, v, d)
+    rows = rng.integers(0, 40, n).astype(np.int32)     # runs of ~8
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    table = tensor_from_array(arr, "cpu")
+    if case == "run_scatter":
+        srows = np.sort(rows)
+        want = np.asarray(jnp.asarray(arr).at[srows].add(-0.5 * vals))
+        S.scatter_add_rows_sorted(table, torch.from_numpy(srows),
+                                  torch.from_numpy(vals), -0.5)
+    else:
+        # 600 rows pad to 640 > 512: the update goes to the run-scatter.
+        want, _ = JaxSGD(0.1).apply(
+            jnp.asarray(arr),
+            et.SparseEmbeddingUpdate(jnp.asarray(vals), jnp.asarray(rows)),
+            JaxSGD(0.1).init(jnp.asarray(arr)))
+        ett.SparseSGD(0.1).apply(
+            table, ett.SparseEmbeddingUpdate(torch.from_numpy(vals),
+                                             torch.from_numpy(rows)),
+            ett.SparseSGD(0.1).init(table))
+    np.testing.assert_allclose(table.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

@@ -327,20 +327,25 @@ def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():
                                   "dense_tx"])
 def test_train_dlrm_options_not_ported_raise(name):
     # Options that JAX reads only beside another come with it (plan and
-    # exchange with a mesh, delta_ckpt with delta_every): alone, JAX ignores
-    # exchange and raises ValueError on the other two
-    # (tests/test_torch_options.py). evict_every is ported: beside the
-    # unported guard, only guard is refused.
+    # exchange with a mesh): alone, JAX ignores exchange and raises
+    # ValueError on plan (tests/test_torch_options.py). evict_every,
+    # delta_ckpt, ckpt_manager and guard are ported: each comes with an
+    # unported option, which alone is refused.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2}.get(name, object())
     extra = {"plan": {"mesh": object()}, "exchange": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2},
-             "evict_every": {"guard": object()}}.get(name, {})
-    refused = {"exchange": "mesh", "evict_every": "guard"}.get(name, name)
+             "delta_ckpt": {"delta_every": 2, "mesh": object()},
+             "evict_every": {"dense_tx": object()},
+             "ckpt_manager": {"device_prefetch": 2},
+             "guard": {"microbatch": 2}}.get(name, {})
+    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard")
+    refused = {"exchange": "mesh", "evict_every": "dense_tx",
+               "delta_ckpt": "mesh", "ckpt_manager": "device_prefetch",
+               "guard": "microbatch"}.get(name, name)
     cfg = ett.DLRMConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=refused) as err:
         train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value}, **extra)
-    assert "evict_every" not in str(err.value)
+    assert not any(f"{p}=" in str(err.value) for p in ported)
     # JAX's axis= at its default is taken and does nothing.
     res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")
     assert res.losses == []

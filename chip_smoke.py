@@ -10,6 +10,9 @@
     python3 chip_smoke.py --variants           # only the table-variant phase
     python3 chip_smoke.py --wide-rows          # only the wide-row run-scatter
     python3 chip_smoke.py --persistence        # only the persistence phase
+    python3 chip_smoke.py --microbatch         # only microbatching and dense_tx
+    python3 chip_smoke.py --rpc                # only the binary RPC transport
+    python3 chip_smoke.py --input-pipeline     # only the input pipeline
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -109,7 +112,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     `trace_profile` trace of one step; the folded DeepFM's (6.5M, 129)
     stack through a base, a delta, a poll and a swap. Save, restore and
     poll times and the service's latency are printed.
-14. A `kernels` JSON line (every hand kernel, its launches on its paths and
+14. Microbatching and the towers' optimizer on the stacked DLRM (B =
+    65,536): `microbatch` k = 1, 2, 4, 8 with SGD and indexer AdaGrad, and
+    DCN-v2 and the folded DeepFM at k = 4, each with k + 1 `gather_rows`
+    launches and one run-scatter a step, its step time and peak memory,
+    one k = 4 step against the plain path (SGD bitwise, AdaGrad rtol 1e-6);
+    k = 4 against k = 1 on one batch with f32 towers (within 1e-5 of the
+    update); `torch.optim.Adam` towers (`dense_tx`) on the three families,
+    8 steps with a falling loss, one step against the plain path, a resume
+    from the step-4 checkpoint bitwise the uninterrupted run, and a guard
+    rollback after a NaN batch bitwise the step-8 checkpoint, Adam state
+    included.
+15. The binary RPC transport: `serve_rpc` over a `ModelRouter` holding the
+    f32 DLRM (f32 towers), its int8 rows and the two-tower retriever over
+    2M items; 8 clients pipelining 64 requests of 1-256 examples each over
+    one connection, against the same clients on the in-process batchers
+    (p50 / p95 of both); every response held to the direct eval of its
+    request (rtol 1e-5; retrieval ids to the plain path's); "dlrm" swapped
+    under load with no request lost, each response the old or the new
+    model's; `gather_rows` launches = the served f32 and retrieval batches.
+16. The input pipeline: a 524,288-row Criteo-format file written by
+    `io.criteo_file`, parsed natively (the library must build) bitwise
+    `criteo_kaggle_batches` on the first batch, rows/s of both parsers;
+    the stacked DLRM trained from `CriteoFileLoader` -> `parallel_batches`
+    -> `DevicePrefetcher` for 8 steps; the same host batches at
+    `device_prefetch` 0 and 2, bitwise equal, with examples/s and the idle
+    share of each; `NativeSyntheticCriteo` against the numpy generator.
+17. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one, the
     D = 129 times of both gathers and the run-scatter, the D = 1 times
     of `gather_rows` and the run-scatter, and the run-scatter's wide-row
@@ -125,7 +154,8 @@ per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
 phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
-phase 12; with `--persistence` phases 1-2 and phase 13.
+phase 12; with `--persistence` phases 1-2 and phase 13; with `--microbatch`,
+`--rpc` and `--input-pipeline` phases 1-2 and phase 14, 15 or 16.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -133,6 +163,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -2001,13 +2032,7 @@ def two_tower_phase(ett, S, G, counter):
         ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
         np.testing.assert_allclose(scores, ps, rtol=1e-5, atol=1e-6)
         err = max(err, float(np.abs(scores - ps).max()))
-        gap = np.abs(np.diff(ps, axis=1)) <= 1e-5 * np.abs(ps[:, 1:])
-        tied = np.zeros_like(pi, dtype=bool)
-        tied[:, 1:] |= gap
-        tied[:, :-1] |= gap
-        near_ties += int(tied.sum())
-        require(bool(((ids == pi) | tied).all()),
-                "retrieval service ids differ from the plain path's")
+        near_ties += retrieval_ids_match(ids, ps, pi)
     emit({"phase": "two_tower_serve", "k": 10, "requests": len(served),
           "queries": sum(r[0].shape[0] for r, _, _ in served),
           "batches": batches_served, "launches": got_s,
@@ -3115,6 +3140,605 @@ def persistence_phase(ett, S, H, G, gen, batches):
     return counter.total, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: microbatching and the towers' torch.optim state (dense_tx)
+# ---------------------------------------------------------------------------
+
+MICROBATCH_KS = (1, 2, 4, 8)
+ADAM_STEPS = 8                      # a checkpoint at 4, resumed for 4 more
+
+
+def adam_towers():
+    """The towers' optimizer of the phase: `torch.optim.Adam` at 1e-3 (JAX's
+    CLIs' `optax.adam(lr)`, whose defaults are torch's)."""
+    return functools.partial(torch.optim.Adam, lr=1e-3)
+
+
+def cuda_generator(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def same_state(a, b) -> bool:
+    """Every tensor of two models' `state_dict()` bitwise equal."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return list(sa) == list(sb) and all(
+        torch.equal(bits(sa[k]) if sa[k].is_floating_point() else sa[k],
+                    bits(sb[k]) if sb[k].is_floating_point() else sb[k])
+        for k in sa)
+
+
+def microbatch_case(counter, mod, model, opt, k, batches):
+    """One `microbatch=k` recipe: the launches of one step, step times with
+    a kernel profile, and the peak device memory of its steps."""
+    step = mod.make_train_step(model.config, sparse_opt=opt, dense_lr=0.1,
+                               microbatch=k)
+    b0 = batches[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, got = counter.run(lambda: step(model, b0["dense"], b0["cat"],
+                                      b0["label"]))
+    t = step_times(ctr_runner(step, model, batches), B_TRAIN)
+    return step, got, t, torch.cuda.max_memory_allocated() / 1e9
+
+
+def microbatch_vs_monolithic(ett, opt, batch):
+    """k = 4 against k = 1 on one batch, f32 towers, from one state: the
+    table and its row state within 1e-5 of the largest change the k = 1
+    step made to them plus two f32 roundings of their largest value (the
+    CPU tests' re-association bound: a re-associated update may round the
+    stored value one ulp the other way). The towers' gradients are sums
+    over the 65,536 examples, which cancel, so their difference is only
+    reported (largest difference over the largest update, per tensor).
+    Returns (the largest share of the bound used, the towers' worst
+    ratio)."""
+    import copy
+    cfg = dataclasses.replace(ett.dlrm_small_config(vocab=VOCAB),
+                              compute_dtype=torch.float32)
+    model = ett.init_dlrm(cfg, cuda_generator(SEED + 40), sparse_opt=opt)
+    m4, m1 = copy.deepcopy(model), copy.deepcopy(model)
+    args = (batch["dense"], batch["cat"], batch["label"])
+    ett.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1, microbatch=4)(
+        m4, *args)
+    ett.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1)(m1, *args)
+    worst, towers = 0.0, 0.0
+    s0, s4, s1 = model.state_dict(), m4.state_dict(), m1.state_dict()
+    for name, t0 in s0.items():
+        if not t0.is_floating_point() or t0.numel() == 0:
+            continue
+        moved = float((s1[name] - t0).abs().max())
+        diff = float((s4[name] - s1[name]).abs().max())
+        if "_params." in name:
+            towers = max(towers, diff / max(moved, 1e-30))
+            continue
+        bound = 1e-5 * moved + 2.0 ** -22 * float(s1[name].abs().max())
+        require(diff <= bound, f"microbatch 4 vs 1: {name} differs by "
+                f"{diff}, bound {bound}")
+        worst = max(worst, diff / bound)
+    del model, m4, m1
+    torch.cuda.empty_cache()
+    return worst, towers
+
+
+def adam_towers_case(ett, S, G, counter, name, cfg, opt, batches, root):
+    """Adam towers on one family: one step against the plain path, then
+    `train_<name>(dense_tx=)` for ADAM_STEPS steps with a checkpoint every 4
+    (a falling loss, one run-scatter a step); the step-4 checkpoint
+    restored into a fresh model and trained 4 more steps equals the 8
+    uninterrupted steps bitwise; one NaN batch under a `DivergenceGuard`
+    rolls the towers and the Adam state back to the step-8 checkpoint
+    bitwise."""
+    from embeddingtables_tpu_torch import utils
+    init, train = getattr(ett, f"init_{name}"), getattr(ett, f"train_{name}")
+    mod = getattr(ett.models, name)
+    adam = adam_towers()
+
+    def fresh(seed):
+        return init(cfg, cuda_generator(seed), sparse_opt=opt, dense_tx=adam)
+
+    def run(model, batch_iter, steps, **kw):
+        return train(cfg, batch_iter, steps, sparse_opt=opt, dense_lr=0.1,
+                     dense_tx=adam, model=model, seed=SEED, log_every=1,
+                     verbose=False, **kw)
+
+    t0 = time.perf_counter()
+    model = fresh(SEED)
+    step = mod.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1,
+                               dense_tx=adam)
+    b0 = batches[0]
+    rtol = None if isinstance(opt, ett.SparseSGD) else 1e-6
+    err = step_parity(S, G, step, model, (b0["dense"], b0["cat"],
+                                          b0["label"]), rtol)
+    mgr = utils.CheckpointManager(os.path.join(root, name))
+    res, got = counter.run(lambda: run(model, itertools.cycle(batches),
+                                       ADAM_STEPS, ckpt_manager=mgr,
+                                       ckpt_every=4))
+    losses = res.losses
+    require(len(losses) == ADAM_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+            f"{name} Adam towers: losses did not fall {losses}")
+    require(got["scatter_add_rows_sorted"] == ADAM_STEPS,
+            f"{name} Adam towers: launches {got}")
+    steps_held = {float(t) for k, t in model.dense_opt_state.state_dict()
+                  .items() if k.endswith("__step")}
+    require(steps_held == {float(ADAM_STEPS)},
+            f"{name}: the Adam steps read {steps_held}")
+    resumed = fresh(SEED + 1)
+    mgr.restore(4, resumed)
+    run(resumed, itertools.cycle(batches), 4)
+    require(same_state(model, resumed),
+            f"{name}: resumed at step 4 + 4 steps != 8 steps")
+    del resumed
+    guard = utils.DivergenceGuard(ckpt=mgr)
+    nan = dict(b0, dense=torch.full_like(b0["dense"], float("nan")))
+    run(model, iter([nan]), 1, guard=guard)
+    want = fresh(SEED + 2)
+    mgr.restore(ADAM_STEPS, want)
+    require(guard.rollbacks == 1 and same_state(model, want),
+            f"{name}: the rollback did not restore the towers and Adam state")
+    del want
+    t = step_times(ctr_runner(step, model, batches), B_TRAIN)
+    emit({"phase": "dense_tx", "family": name, "optimizer": "torch.optim.Adam",
+          "lr": 1e-3, "batch": B_TRAIN, "steps": ADAM_STEPS,
+          "losses": losses, "launches": got,
+          "parity": "bitwise" if rtol is None else f"rtol {rtol}",
+          "parity_max_abs_err": err, "resume_bitwise": True,
+          "rollback_bitwise": True,
+          "tower_state_bytes": sum(v.numel() * v.element_size() for v in
+                                   model.dense_opt_state.state_dict()
+                                   .values()),
+          "train_examples_per_s": res.examples_per_sec, **t,
+          "seconds": time.perf_counter() - t0})
+    del model
+    torch.cuda.empty_cache()
+
+
+def microbatch_phase(ett, S, H, G, batches):
+    """DLRM (26 x 250,000 x 128, B = 65,536) at microbatch k = 1, 2, 4, 8
+    with SGD and indexer AdaGrad, DCN-v2 and the folded DeepFM at k = 4:
+    per step k + 1 `gather_rows` launches (k lookups and the value permute)
+    and one run-scatter, the step time and the peak memory; one k = 4 step
+    per recipe against the plain path; k = 4 against k = 1; then Adam
+    towers (`dense_tx`) on the three families (`adam_towers_case`).
+    Returns the launches."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    M = ett.models
+    sgd = ett.SparseSGD(1e-4)
+    adagrad = ett.SparseRowWiseAdaGrad(1e-3, method="indexer")
+    cases = [("dlrm", M.dlrm, ett.dlrm_small_config(vocab=VOCAB), label, opt,
+              MICROBATCH_KS)
+             for label, opt in (("sgd", sgd), ("adagrad_indexer", adagrad))]
+    cases += [("dcn", M.dcn, ett.dcn_small_config(vocab=VOCAB),
+               "adagrad_indexer", adagrad, (4,)),
+              ("deepfm", M.deepfm, ett.deepfm_small_config(vocab=VOCAB),
+               "adagrad_indexer", adagrad, (4,))]
+    for name, mod, cfg, label, opt, ks in cases:
+        model = getattr(ett, f"init_{name}")(cfg, cuda_generator(SEED),
+                                            sparse_opt=opt)
+        for k in ks:
+            step, got, t, peak = microbatch_case(counter, mod, model, opt, k,
+                                                 batches)
+            require(got == {"gather_rows": k + 1, "gather_bags": 0,
+                            "scatter_add_rows_sorted": 1,
+                            "hot_accumulate": 0},
+                    f"{name} {label} k={k}: launches {got}")
+            err = None
+            if k == 4:
+                b0 = batches[0]
+                err = step_parity(S, G, step, model,
+                                  (b0["dense"], b0["cat"], b0["label"]),
+                                  None if opt is sgd else 1e-6)
+            emit({"phase": "microbatch", "family": name, "recipe": label,
+                  "k": k, "batch": B_TRAIN, "launches_per_step": got,
+                  "parity": None if err is None else (
+                      "bitwise" if opt is sgd else "rtol 1e-6"),
+                  "parity_max_abs_err": err, **t, "peak_memory_gb": peak})
+        del model
+        torch.cuda.empty_cache()
+    worst, towers = microbatch_vs_monolithic(ett, sgd, batches[0])
+    emit({"phase": "microbatch_vs_monolithic", "k": 4, "towers": "float32",
+          "tables_worst_share_of_bound": worst,
+          "bound": "1e-5 x largest update + 2^-22 x largest value",
+          "towers_worst_diff_over_update": towers})
+    root = tempfile.mkdtemp(prefix="chip_smoke_dense_tx_")
+    try:
+        free = shutil.disk_usage(root).free
+        require(free >= 10e9, f"dense_tx checkpoints need 10 GB free under "
+                f"{root}, have {free / 1e9:.2f} GB")
+        for name, cfg, opt in (
+                ("dlrm", ett.dlrm_small_config(vocab=VOCAB), sgd),
+                ("dcn", ett.dcn_small_config(vocab=VOCAB), adagrad),
+                ("deepfm", ett.deepfm_small_config(vocab=VOCAB), adagrad)):
+            adam_towers_case(ett, S, G, counter, name, cfg, opt, batches,
+                             root)
+            shutil.rmtree(os.path.join(root, name))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "microbatch_done", "launches": counter.total,
+          "seconds": time.perf_counter() - t0})
+    return counter.total
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the input pipeline
+# ---------------------------------------------------------------------------
+
+PIPELINE_ROWS = 8 * B_TRAIN         # a 524,288-row Criteo-format file
+
+
+PREFETCH_STEPS = 40                 # the timed loops: 5 passes of the file
+
+
+def loop_kernel_ms(run) -> float:
+    """The device's kernel time of `run()` (a training loop), summed by the
+    profiler; the profiler's own host cost stays out of the wall time,
+    which an unprofiled run gives."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def input_pipeline_phase(ett, S, H, G):
+    """A 524,288-row Criteo-format file written by the port's writer (26
+    features hashed into the stacked DLRM's 250,000 rows): the native parser
+    (required) bitwise `criteo_kaggle_batches` on the first batch, each
+    parser's rows/s; the stacked DLRM trained from `CriteoFileLoader` ->
+    `parallel_batches` -> `DevicePrefetcher` for 8 steps; the same host
+    batches at `device_prefetch` 0 and 2 (losses and tables bitwise equal,
+    examples/s and idle share of each); `NativeSyntheticCriteo` against the
+    numpy generator at B = 65,536. Returns the launches."""
+    import shutil
+    import tempfile
+    from embeddingtables_tpu_torch.io import criteo_file, loader, synth
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    require(loader.native_available(),
+            f"the native Criteo parser did not build: {loader.native_error()}")
+    require(synth.native_synth_available(),
+            "the native synthesizer did not build")
+    vocabs = (VOCAB,) * 26
+    root = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    path = os.path.join(root, "train.txt")
+    try:
+        require(shutil.disk_usage(root).free >= 1e9,
+                f"the Criteo file needs 1 GB free under {root}")
+        w0 = time.perf_counter()
+        size = criteo_file.write_criteo_file(path, PIPELINE_ROWS, VOCAB, SEED)
+        write_s = time.perf_counter() - w0
+        p0 = time.perf_counter()
+        native = next(iter(loader.CriteoFileLoader(path, vocabs, B_TRAIN,
+                                                   max_batches=1)))
+        native_s = time.perf_counter() - p0
+        p0 = time.perf_counter()
+        oracle = next(ett.data.criteo_kaggle_batches(path, vocabs, B_TRAIN,
+                                                     1))
+        python_s = time.perf_counter() - p0
+        require(all(native[k].dtype == oracle[k].dtype
+                    and np.array_equal(native[k], oracle[k]) for k in oracle),
+                "native parser != criteo_kaggle_batches on the first batch")
+        p0 = time.perf_counter()
+        host = list(loader.CriteoFileLoader(path, vocabs, B_TRAIN))
+        file_s = time.perf_counter() - p0
+        require(len(host) == 8, f"{len(host)} batches from the file")
+        emit({"phase": "input_parse", "rows": PIPELINE_ROWS,
+              "file_bytes": size, "write_s": write_s,
+              "native_rows_per_s_first_batch": B_TRAIN / native_s,
+              "python_rows_per_s_first_batch": B_TRAIN / python_s,
+              "native_rows_per_s_whole_file": PIPELINE_ROWS / file_s,
+              "first_batch_bitwise_oracle": True})
+
+        cfg = ett.dlrm_small_config(vocab=VOCAB)
+        opt = ett.SparseRowWiseAdaGrad(1e-3, method="indexer")
+
+        def fresh():
+            return ett.init_dlrm(cfg, cuda_generator(SEED), sparse_opt=opt)
+
+        def shard(w):
+            return loader.CriteoFileLoader(path, vocabs, B_TRAIN,
+                                           skip_batches=4 * w, max_batches=4)
+
+        model = fresh()
+        res, got = counter.run(lambda: ett.train_dlrm(
+            cfg, loader.parallel_batches(shard, workers=2, depth=2), 8,
+            sparse_opt=opt, model=model, device_prefetch=2, log_every=1,
+            verbose=False))
+        require(len(res.losses) == 8
+                and all(math.isfinite(x) for x in res.losses)
+                and got["scatter_add_rows_sorted"] == 8
+                and got["gather_rows"] == 16,
+                f"file-fed loop: losses {res.losses}, launches {got}")
+        emit({"phase": "input_file_loop", "steps": 8, "workers": 2,
+              "device_prefetch": 2, "losses": res.losses, "launches": got,
+              "examples_per_s": res.examples_per_sec})
+        del model, res
+
+        runs = {}
+        for n in (0, 2):
+            model = fresh()
+            res, got = counter.run(lambda: ett.train_dlrm(
+                cfg, iter(host), 8, sparse_opt=opt, model=model,
+                device_prefetch=n, log_every=1, verbose=False))
+            runs[n] = (res.losses, model, got)
+        require(runs[0][0] == runs[2][0] and same_state(runs[0][1],
+                                                        runs[2][1]),
+                "device_prefetch=2 differs from device_prefetch=0")
+        # The timed loops: PREFETCH_STEPS steps over the same host batches,
+        # the loss read at the loop's default cadence, in the order 0, 2,
+        # 2, 0; then each loop's kernel time under the profiler.
+        rates = {0: [], 2: []}
+        for n in (0, 2, 2, 0):
+            rates[n].append(ett.train_dlrm(
+                cfg, itertools.cycle(host), PREFETCH_STEPS, sparse_opt=opt,
+                model=runs[n][1], device_prefetch=n,
+                verbose=False).examples_per_sec)
+        for n in (0, 2):
+            model = runs[n][1]
+            kernel_ms = loop_kernel_ms(lambda: ett.train_dlrm(
+                cfg, itertools.cycle(host), PREFETCH_STEPS, sparse_opt=opt,
+                model=model, device_prefetch=n, verbose=False))
+            wall_ms = PREFETCH_STEPS * B_TRAIN / max(rates[n]) * 1e3
+            emit({"phase": "input_prefetch", "device_prefetch": n,
+                  "bitwise_steps": 8, "losses": runs[n][0],
+                  "launches": runs[n][2], "bitwise_prefetch_0": True,
+                  "timed_steps": PREFETCH_STEPS,
+                  "examples_per_s": rates[n],
+                  "kernel_ms_per_step": kernel_ms / PREFETCH_STEPS,
+                  "wall_ms_per_step": wall_ms / PREFETCH_STEPS,
+                  "device_idle_share": 1.0 - kernel_ms / wall_ms})
+        del runs, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not os.path.exists(path), "the Criteo file was not deleted")
+
+    kw = dict(vocab_sizes=vocabs, batch_size=B_TRAIN, seed=SEED + 30)
+    nat = synth.NativeSyntheticCriteo(**kw)
+    py = ett.SyntheticCriteo(**kw)
+    rates = {}
+    for label, gen in (("native", nat.batches(4)), ("numpy", py.batches(4))):
+        next(gen)
+        s0 = time.perf_counter()
+        for b in gen:
+            require(b["cat"].shape == (26, B_TRAIN), "synthetic batch shape")
+        rates[label] = 3 / (time.perf_counter() - s0)
+    emit({"phase": "input_synth", "batch": B_TRAIN,
+          "native_batches_per_s": rates["native"],
+          "numpy_batches_per_s": rates["numpy"],
+          "native_threads": nat.nthreads})
+    emit({"phase": "input_done", "launches": counter.total,
+          "seconds": time.perf_counter() - t0})
+    return counter.total
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the binary RPC transport
+# ---------------------------------------------------------------------------
+
+RPC_CLIENTS = 8
+RPC_PIPELINE = 64                   # requests in flight on each connection
+
+
+def retrieval_ids_match(ids, ps, pi) -> int:
+    """`ids` equal the plain path's `pi` except where two plain scores `ps`
+    lie within 1e-5 of each other (a served batch's product may round
+    differently); returns the near-tie positions."""
+    gap = np.abs(np.diff(ps, axis=1)) <= 1e-5 * np.abs(ps[:, 1:])
+    tied = np.zeros_like(pi, dtype=bool)
+    tied[:, 1:] |= gap
+    tied[:, :-1] |= gap
+    require(bool(((ids == pi) | tied).all()),
+            "retrieval ids differ from the plain path's")
+    return int(tied.sum())
+
+
+def pipelined_clients(submit_for, make_reqs, swap=None, waves: int = 1):
+    """RPC_CLIENTS threads, each submitting its RPC_PIPELINE requests
+    through `submit_for(k)` (one connection or the batchers) in `waves`
+    rounds, all of a round at once, and waiting for the round's results
+    before the next: [(model, request, result, latency_s)]. `swap()` runs
+    once a quarter of the responses are in."""
+    done = threading.Semaphore(0)
+    total = RPC_CLIENTS * RPC_PIPELINE
+
+    def client(k):
+        submit = submit_for(k)
+        reqs = make_reqs(k)
+        per = -(-len(reqs) // waves)
+        out = []
+        for w in range(waves):
+            futs = []
+            for name, req in reqs[w * per:(w + 1) * per]:
+                t = time.perf_counter()
+                fut = submit(name, *req)
+                stamp = {}
+                fut.add_done_callback(lambda f, s=stamp: (
+                    s.setdefault("t", time.perf_counter()), done.release()))
+                futs.append((name, req, fut, t, stamp))
+            for name, req, fut, t, stamp in futs:
+                res = fut.result(timeout=300)
+                # A waiter may wake before the callbacks run.
+                out.append((name, req, res,
+                            stamp.get("t", time.perf_counter()) - t))
+        return out
+
+    with ThreadPoolExecutor(max_workers=RPC_CLIENTS) as pool:
+        futs = [pool.submit(client, k) for k in range(RPC_CLIENTS)]
+        if swap is not None:
+            for _ in range(total // 4):
+                require(done.acquire(timeout=300), "responses stalled")
+            swap()
+        return [r for f in futs for r in f.result(timeout=600)]
+
+
+def rpc_phase(ett, S, H, G):
+    """`serve_rpc` over a `ModelRouter` holding "dlrm" (the 26 x 250,000 x
+    128 DLRM, f32 tables and towers), "dlrm_int8" (its int8 rows) and
+    "retrieval" (the two-tower over 2M items); 8 clients, each pipelining
+    64 requests of 1-256 examples over one connection. The same clients on
+    the in-process batchers, then over RPC (p50 / p95 of both, and
+    `gather_rows` launches = served f32 and retrieval batches), then over
+    RPC again in four rounds of 16 requests a client, "dlrm" swapped once a
+    quarter of the responses are in. Every response is held to the
+    direct eval of its request (rtol 1e-5; the swapped run: the old or the
+    new model's), the int8 scores to the quantized eval, retrieval scores to
+    the plain path (rtol 1e-5) and its ids to the plain path's. Returns the
+    launches."""
+    from embeddingtables_tpu_torch import quant, rpc
+    t0 = time.perf_counter()
+    counter = LaunchCounter(S, H, G)
+    tt = ett.models.two_tower
+    cfg = dataclasses.replace(ett.dlrm_small_config(vocab=VOCAB),
+                              compute_dtype=torch.float32)
+    model = ett.init_dlrm(cfg, cuda_generator(SEED))
+    swapped = ett.init_dlrm(cfg, cuda_generator(SEED + 50))
+    tcfg = ett.TwoTowerConfig(query_vocab_sizes=TT_QUERY_VOCABS,
+                              item_vocab=TT_ITEMS, num_dense=4, dim=64,
+                              embed_dim=64, query_mlp=(256, 64),
+                              item_mlp=(256, 64))
+    tmodel = ett.init_two_tower(tcfg, cuda_generator(SEED + 51))
+    serve = dict(max_batch=2048, max_latency_ms=2.0)
+    router = rpc.ModelRouter()
+    router.register("dlrm", ett.make_dlrm_service(model, **serve))
+    router.register("dlrm_int8", ett.make_dlrm_service(model, quantized=True,
+                                                       **serve))
+    router.register("retrieval", ett.make_retrieval_service(
+        tmodel, k=10, max_batch=256, max_latency_ms=2.0))
+    _, int8_eval = quant.quantize_dlrm(model, bits=8)
+    eval_step = ett.make_eval_step(cfg)
+    run10 = tt.make_retriever(tmodel, k=10)
+    with plain_gathers(G):
+        index_p = tt.build_item_index(tmodel)
+    names = ("dlrm", "dlrm_int8", "retrieval")
+
+    def make_reqs(k):
+        rng = np.random.default_rng(SEED + 4000 + k)
+        out = []
+        for i in range(RPC_PIPELINE):
+            name, b = names[(k + i) % 3], int(rng.integers(1, 257))
+            if name == "retrieval":
+                req = (rng.standard_normal((b, 4)).astype(np.float32),
+                       np.stack([rng.integers(0, v, b) for v in
+                                 TT_QUERY_VOCABS]).astype(np.int32))
+            else:
+                req = make_request(rng, cfg, b)
+            out.append((name, req))
+        return out
+
+    def batches_served():
+        return {n: router.get(n).stats_snapshot()["batches"] for n in names}
+
+    def check(served, swap_models=None):
+        """Hold every response to its reference; returns the largest
+        errors, the near ties and how many answered from each model."""
+        errs = dict.fromkeys(names, 0.0)
+        ties, source = 0, {"old": 0, "new": 0}
+        for name, (dense, cat), res, _ in served:
+            if name == "retrieval":
+                scores, ids = res
+                with plain_gathers(G):
+                    ps, pi = run10(index_p, dense, cat)
+                ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+                np.testing.assert_allclose(scores, ps, rtol=1e-5, atol=1e-6)
+                ties += retrieval_ids_match(ids, ps, pi)
+                errs[name] = max(errs[name], float(np.abs(scores - ps).max()))
+                continue
+            if name == "dlrm_int8":
+                want = int8_eval(dense, cat).cpu().numpy()
+            elif swap_models is None:
+                want = eval_step(model, dense, cat).cpu().numpy()
+            else:
+                old, new = (eval_step(m, dense, cat).cpu().numpy()
+                            for m in swap_models)
+                is_old = np.allclose(res, old, rtol=1e-5, atol=1e-6)
+                is_new = np.allclose(res, new, rtol=1e-5, atol=1e-6)
+                require(is_old != is_new,
+                        "a swapped response is neither (or both) models'")
+                source["old" if is_old else "new"] += 1
+                want = old if is_old else new
+            np.testing.assert_allclose(res, want, rtol=1e-5, atol=1e-6)
+            errs[name] = max(errs[name], float(np.abs(res - want).max()))
+        return errs, ties, source
+
+    server = rpc.serve_rpc(router)
+    clients = []
+    try:
+        warm = rpc.RPCClient(*server.address, timeout=300)
+        for name, req in make_reqs(99)[:6]:
+            warm.predict(name, *req, timeout=300)
+        warm.close()
+        inproc = pipelined_clients(
+            lambda k: lambda name, d, c: router.get(name).submit(d, c),
+            make_reqs)
+        clients = [rpc.RPCClient(*server.address, timeout=300)
+                   for _ in range(RPC_CLIENTS)]
+        before = batches_served()
+        served, got = counter.run(lambda: pipelined_clients(
+            lambda k: clients[k].submit, make_reqs))
+        after = batches_served()
+        batches = {n: after[n] - before[n] for n in names}
+        require(len(served) == RPC_CLIENTS * RPC_PIPELINE,
+                f"{len(served)} RPC responses")
+        require(got["gather_rows"] == batches["dlrm"] + batches["retrieval"]
+                and got["scatter_add_rows_sorted"] == 0,
+                f"RPC launches {got}, batches {batches}")
+        errs, ties, _ = check(served)
+        lat = {label: dict(latency_ms([x[3] for x in runs]), by_model={
+            n: latency_ms([x[3] for x in runs if x[0] == n]) for n in names})
+            for label, runs in (("in_process", inproc), ("rpc", served))}
+        emit({"phase": "rpc_serve", "clients": RPC_CLIENTS,
+              "pipelined_per_client": RPC_PIPELINE,
+              "requests": len(served),
+              "examples": sum(x[1][0].shape[0] for x in served),
+              "batches": batches, "launches": got, "max_abs_err": errs,
+              "retrieval_near_ties": ties,
+              "in_process": lat["in_process"], "rpc": lat["rpc"],
+              "rpc_over_in_process_p50_ms": lat["rpc"]["latency_ms_p50"]
+              - lat["in_process"]["latency_ms_p50"],
+              "rpc_over_in_process_p95_ms": lat["rpc"]["latency_ms_p95"]
+              - lat["in_process"]["latency_ms_p95"]})
+
+        old = router.get("dlrm")
+
+        def swap():
+            # The old batcher stops after the new one takes the name, once
+            # requests routed to it a moment before have reached its queue.
+            router.register("dlrm", ett.make_dlrm_service(swapped, **serve),
+                            stop_previous=False)
+            time.sleep(0.05)
+            old.stop()
+
+        served, got_swap = counter.run(lambda: pipelined_clients(
+            lambda k: clients[k].submit, make_reqs, swap=swap, waves=4))
+        require(len(served) == RPC_CLIENTS * RPC_PIPELINE,
+                "a request was lost across the swap")
+        errs, ties2, source = check(served, (model, swapped))
+        require(source["old"] > 0 and source["new"] > 0,
+                f"the swap split the responses {source}")
+        emit({"phase": "rpc_hot_swap", "requests": len(served),
+              "dlrm_from": source, "launches": got_swap, "max_abs_err": errs,
+              "retrieval_near_ties": ties2, "lost": 0,
+              **latency_ms([x[3] for x in served])})
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()
+        router.stop_all()
+    del model, swapped, tmodel, index_p
+    torch.cuda.empty_cache()
+    emit({"phase": "rpc_done", "launches": counter.total,
+          "seconds": time.perf_counter() - t0})
+    return counter.total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3183,6 +3807,18 @@ def main() -> int:
         persistence_phase(ett, S, H, G, gen, train_batches)
         print(card_line(), flush=True)
         return 0
+    if "--microbatch" in sys.argv[1:]:
+        microbatch_phase(ett, S, H, G, train_batches)
+        print(card_line(), flush=True)
+        return 0
+    if "--rpc" in sys.argv[1:]:
+        rpc_phase(ett, S, H, G)
+        print(card_line(), flush=True)
+        return 0
+    if "--input-pipeline" in sys.argv[1:]:
+        input_pipeline_phase(ett, S, H, G)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -3218,6 +3854,11 @@ def main() -> int:
     wide_counter = LaunchCounter(S, H, G)
     wide_err, wide_times, _ = wide_rows_phase(ett, S, G, gen, wide_counter)
     persist, _ = persistence_phase(ett, S, H, G, gen, train_batches)
+    micro = microbatch_phase(ett, S, H, G, train_batches)
+    served_rpc = rpc_phase(ett, S, H, G)
+    # Last: loading the native libraries (built with -ffast-math, as the JAX
+    # package builds them) sets flush-to-zero in this thread.
+    piped = input_pipeline_phase(ett, S, H, G)
     for name, e in fam_errs.items():
         errs[name] = max(errs[name], e)
     errs["scatter_add_rows_sorted"] = max(errs["scatter_add_rows_sorted"],
@@ -3240,7 +3881,8 @@ def main() -> int:
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
-    counted = (ens, fam, var, wide_counter.total, persist)
+    counted = (ens, fam, var, wide_counter.total, persist, micro,
+               served_rpc, piped)
     paths = {
         "gather_rows": (serve_launches["gather_rows"]
                         + sum(c["gather_rows"] for c in counted),

@@ -17,7 +17,14 @@ lazy `SparseEmbeddingUpdate`s, which `SparseSGD`, `SparseRowWiseAdaGrad`,
 Models (`models`): the DLRM, DCN-v2 and DeepFM CTR rankers and the
 two-tower retriever, each an `nn.Module` with its train step, its loop
 (`train_dlrm`, `train_dcn`, `train_deepfm`, `train_two_tower`) and its
-service (`serving`, quantized to int8 or int4 rows by `quant`).
+service (`serving`, quantized to int8 or int4 rows by `quant`), reachable
+over the binary RPC transport (`rpc`). The CTR train steps take a
+`torch.optim` factory for the towers (`dense_tx`) and accumulate gradients
+over slices of the batch (`microbatch`).
+
+Input (`io`, `data`): the native Criteo parser and synthesizer, host
+prefetch, and `DevicePrefetcher`, which copies the next batches to the card
+on a side stream beside the step.
 
 Persistence (`utils`): checkpoints (`CheckpointManager`), delta checkpoints
 of the touched rows (`DeltaCheckpointManager`, resumed by `restore_delta`),
@@ -78,6 +85,8 @@ from .serving import (MicroBatcher, make_dcn_service, make_deepfm_service,
                       make_dlrm_service, make_refreshable_dlrm_service,
                       make_refreshable_service, make_retrieval_service,
                       serve_http)
+from .rpc import ModelRouter, RPCClient, RPCServer, serve_rpc
+from . import io
 
 __all__ = [
     "Static", "Dynamic", "TableSpec", "IndexingContext", "NoContext",
@@ -115,5 +124,6 @@ __all__ = [
     "MicroBatcher", "make_dlrm_service", "make_dcn_service",
     "make_deepfm_service", "make_retrieval_service", "serve_http",
     "make_refreshable_service", "make_refreshable_dlrm_service",
-    "config", "utils",
+    "ModelRouter", "RPCServer", "RPCClient", "serve_rpc",
+    "config", "utils", "io",
 ]

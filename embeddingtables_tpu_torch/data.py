@@ -1,5 +1,4 @@
-"""Synthetic training data (the port's copy of `SyntheticCriteo` and
-`SyntheticRetrieval` from `embeddingtables_tpu/data.py`).
+"""Training data (the port's copy of `embeddingtables_tpu/data.py`).
 
 The code is the JAX package's numpy code, so the same seed gives bitwise the
 same batches in both packages. `SyntheticCriteo` batches (CTR models) are
@@ -11,6 +10,11 @@ dicts of host numpy arrays:
 
 `SyntheticRetrieval` batches (the two-tower model): `dense (B, num_dense)`
 float32, `q_cat (T, B)` int32 and `item_ids (B,)` int32.
+
+`criteo_kaggle_batches` reads a Criteo Kaggle `train.txt` in pure Python
+(the semantic oracle of the native parser in `io/loader.py`), and
+`csr_to_padded` / `padded_to_csr` convert between CSR bags and the fixed
+width padded layout; all three are the JAX package's numpy code.
 """
 from __future__ import annotations
 
@@ -137,6 +141,112 @@ class SyntheticCriteo:
             label = (rng.random(b) < prob).astype(np.float32)
             yield dict(dense=dense, cat=cat, label=label)
             i += 1
+
+
+def csr_to_padded(values, offsets, *, bag: Optional[int] = None,
+                  pad_idx: int = -1):
+    """CSR/offsets bags (torch `EmbeddingBag(input, offsets)` format) ->
+    the engine's fixed-width `(B, bag)` padded layout.
+
+    values:  (nnz,) concatenated ids; offsets: (B,) bag start positions
+    (bag i = values[offsets[i]:offsets[i+1]], last bag runs to the end —
+    torch's include_last_offset=False convention).
+    bag: fixed width (default: the longest bag). Longer bags TRUNCATE to
+    the first `bag` entries (returned `n_truncated` counts the dropped
+    occurrences — never truncate silently); shorter bags right-pad with
+    `pad_idx`. Returns `(padded (B, bag) int32, n_truncated int)`.
+
+    Feed the result to any lookup/model with the same `pad_idx`: pads
+    contribute zero rows, no mean mass, no gradient (ops/lookup.py).
+    """
+    values = np.asarray(values)
+    offsets = np.asarray(offsets, np.int64)
+    if offsets.ndim != 1 or values.ndim != 1:
+        raise ValueError("values and offsets must be 1-D")
+    if offsets.size and (offsets[0] != 0 or np.any(np.diff(offsets) < 0)
+                         or offsets[-1] > values.size):
+        raise ValueError("offsets must be nondecreasing, start at 0, and "
+                         "stay within values")
+    b = offsets.size
+    ends = np.append(offsets[1:], values.size)
+    lengths = ends - offsets
+    width = int(bag if bag is not None else max(int(lengths.max()), 1)) \
+        if b else int(bag or 1)
+    padded = np.full((b, width), pad_idx, values.dtype)
+    kept = np.minimum(lengths, width)
+    for i in range(b):
+        padded[i, :kept[i]] = values[offsets[i]:offsets[i] + kept[i]]
+    n_truncated = int((lengths - kept).sum())
+    return padded.astype(np.int32), n_truncated
+
+
+def padded_to_csr(padded, *, pad_idx: int = -1):
+    """Inverse of `csr_to_padded`: `(B, bag)` padded bags -> (values,
+    offsets) with pads dropped (ragged export / torch interop)."""
+    padded = np.asarray(padded)
+    if padded.ndim != 2:
+        raise ValueError("padded must be (B, bag)")
+    valid = padded != pad_idx
+    values = padded[valid].astype(np.int64)
+    lengths = valid.sum(axis=1)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    return values, offsets
+
+
+def criteo_kaggle_batches(path: str, vocab_sizes: Sequence[int],
+                          batch_size: int = 8192,
+                          max_batches: Optional[int] = None) -> Iterator[dict]:
+    """Stream batches from a Criteo Kaggle `train.txt` TSV.
+
+    Row format: label \\t I1..I13 (ints, may be empty) \\t C1..C26 (8-hex
+    tokens, may be empty). Missing dense -> 0; categoricals hash (FNV-1a) into
+    `vocab_sizes[t]`. Dense is log1p'd (standard DLRM preprocessing).
+    """
+    t = len(vocab_sizes)
+    assert t == CRITEO_NUM_SPARSE, f"Criteo has 26 sparse features, got {t}"
+
+    def fnv1a(s: str) -> int:
+        h = 0xCBF29CE484222325
+        for ch in s.encode():
+            h = ((h ^ ch) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+        return h
+
+    dense_buf = np.zeros((batch_size, CRITEO_NUM_DENSE), np.float32)
+    cat_buf = np.zeros((t, batch_size), np.int32)
+    label_buf = np.zeros((batch_size,), np.float32)
+    n = 0
+    emitted = 0
+    with open(path, "r") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) != 1 + CRITEO_NUM_DENSE + CRITEO_NUM_SPARSE:
+                continue
+            # Malformed-input policy (matches native/criteo_parser.cpp): an
+            # unparseable label skips the row; an unparseable dense field
+            # becomes 0 — one bad record must not abort the whole stream.
+            try:
+                label = float(parts[0])
+            except ValueError:
+                continue
+            label_buf[n] = label
+            for j in range(CRITEO_NUM_DENSE):
+                v = parts[1 + j]
+                try:
+                    x = float(v) if v else 0.0
+                except ValueError:
+                    x = 0.0
+                dense_buf[n, j] = np.log1p(max(x, 0.0))
+            for j in range(CRITEO_NUM_SPARSE):
+                v = parts[1 + CRITEO_NUM_DENSE + j]
+                cat_buf[j, n] = fnv1a(v) % vocab_sizes[j] if v else 0
+            n += 1
+            if n == batch_size:
+                yield dict(dense=dense_buf.copy(), cat=cat_buf.copy(),
+                           label=label_buf.copy())
+                n = 0
+                emitted += 1
+                if max_batches is not None and emitted >= max_batches:
+                    return
 
 
 @dataclasses.dataclass

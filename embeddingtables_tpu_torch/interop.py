@@ -16,6 +16,10 @@ layers `(U, V, b)`). A sparse optimizer's state (`emb_state=` and the
 like) is any object with named fields, a NamedTuple such as the JAX
 package's or a dict: `accum` (SGD's zero-size one, or row-wise AdaGrad's);
 `m`, `v`, `count` (lazy Adam); or `z`, `n` (FTRL). None: SGD's empty state.
+The CTR models' `dense_opt_state=` carries the towers' `optax.adam`
+state, `(count, mu, nu)` with `mu` and `nu` nested like the JAX model's
+tower parameters, into the `DenseOptState` that `torch.optim.Adam` steps
+(`count` becomes every parameter's `step`).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from .models.two_tower import TwoTower, TwoTowerConfig
 from .ops.ensemble import StackedTables
 from .md import MDEmbedding
 from .offload import host_put
-from .optim import SparseOptState
+from .optim import DenseOptState, SparseOptState
 from .qr import QREmbedding
 from .quant import Int4QuantizedEmbedding, QuantizedEmbedding
 from .tiered import TieredEmbedding
@@ -67,6 +71,37 @@ def _state(state, device):
     return cls(**{k: tensor_from_array(v, device) for k, v in fields.items()})
 
 
+def _leaves(tree) -> list:
+    """The arrays of nested tuples and lists, in JAX's flattening order."""
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _with_adam_state(model, dense_opt_state):
+    """`model` holding optax Adam's `(count, mu, nu)` as the tower state
+    `torch.optim.Adam` steps (None: no tower state)."""
+    if dense_opt_state is None:
+        return model
+    count, mu, nu = dense_opt_state
+    named = model.tower_params()
+    mu, nu = _leaves(mu), _leaves(nu)
+    if not len(mu) == len(nu) == len(named):
+        raise ValueError(f"dense_opt_state has {len(mu)} / {len(nu)} "
+                         f"moments for {len(named)} tower parameters")
+    step = float(np.asarray(count))
+    fields = {}
+    for (name, p), m, v in zip(named, mu, nu):
+        m, v = tensor_from_array(m, p.device), tensor_from_array(v, p.device)
+        if m.shape != p.shape or v.shape != p.shape:
+            raise ValueError(f"{name}: moments {tuple(m.shape)} / "
+                             f"{tuple(v.shape)}, parameter {tuple(p.shape)}")
+        fields[name] = {"step": torch.tensor(step, dtype=torch.float32),
+                        "exp_avg": m, "exp_avg_sq": v}
+    model.dense_opt_state = DenseOptState([n for n, _ in named], fields)
+    return model
+
+
 def _stack(data, offsets, device) -> StackedTables:
     t = tensor_from_array(data, device)
     return StackedTables(t, tuple(offsets), t.shape[1])
@@ -74,12 +109,14 @@ def _stack(data, offsets, device) -> StackedTables:
 
 def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
                      table_data, offsets: Sequence[int],
-                     device=None, emb_accum=None, emb_state=None) -> DLRM:
+                     device=None, emb_accum=None, emb_state=None,
+                     dense_opt_state=None) -> DLRM:
     """The port's `DLRM` from numpy arrays: `bottom`/`top` the towers,
     `table_data` the stacked `(sum V, dim)` table, `offsets` its T+1 row
     offsets, and the sparse optimizer's state, so both packages train from
     one state: `emb_accum`, the row-wise-AdaGrad accumulator `(sum V,)`, or
-    `emb_state` (module docstring)."""
+    `emb_state`, and the towers' Adam state `dense_opt_state` (module
+    docstring)."""
     device = resolve_device(device)
     if emb_accum is not None and emb_state is not None:
         raise ValueError("pass emb_accum= or emb_state=, not both")
@@ -87,39 +124,44 @@ def dlrm_from_arrays(cfg: DLRMConfig, bottom: Sequence, top: Sequence,
         emb_state = SparseOptState(accum=tensor_from_array(emb_accum, device))
     else:
         emb_state = _state(emb_state, device)
-    return DLRM(cfg, _layers(bottom, device), _layers(top, device),
-                _stack(table_data, offsets, device), emb_state)
+    return _with_adam_state(
+        DLRM(cfg, _layers(bottom, device), _layers(top, device),
+             _stack(table_data, offsets, device), emb_state), dense_opt_state)
 
 
 def dcn_from_arrays(cfg: DCNConfig, cross: Sequence, deep: Sequence, head,
                     table_data, offsets: Sequence[int], device=None,
-                    emb_state=None) -> DCN:
+                    emb_state=None, dense_opt_state=None) -> DCN:
     """The port's `DCN` from numpy arrays: `cross` the cross layers, `deep`
-    the tower, `head` one `(W, b)`, the stacked table, its offsets and its
-    optimizer state."""
+    the tower, `head` one `(W, b)`, the stacked table, its offsets, its
+    optimizer state and the towers' Adam state."""
     device = resolve_device(device)
-    return DCN(cfg, _layers(cross, device), _layers(deep, device),
-               _layers([head], device)[0],
-               _stack(table_data, offsets, device), _state(emb_state, device))
+    return _with_adam_state(
+        DCN(cfg, _layers(cross, device), _layers(deep, device),
+            _layers([head], device)[0], _stack(table_data, offsets, device),
+            _state(emb_state, device)), dense_opt_state)
 
 
 def deepfm_from_arrays(cfg: DeepFMConfig, deep: Sequence, head, dense_w,
                        bias, table_data, offsets: Sequence[int],
                        fm_w_data=None, device=None, emb_state=None,
-                       fm_state=None) -> DeepFM:
+                       fm_state=None, dense_opt_state=None) -> DeepFM:
     """The port's `DeepFM` from numpy arrays, in either layout: `table_data`
     is the fused `(sum V, D+1)` stack when `cfg.folded`, else the D-wide
     vectors with the `(sum V, 1)` first-order weights in `fm_w_data` and
-    their state in `fm_state`."""
+    their state in `fm_state`; `dense_opt_state` the Adam state of
+    `(deep, head, dense_w, bias)`."""
     device = resolve_device(device)
     if cfg.use_fm and not cfg.folded and fm_w_data is None:
         raise ValueError("the unfolded layout needs fm_w_data=")
     fm_w = None if fm_w_data is None else _stack(fm_w_data, offsets, device)
-    return DeepFM(cfg, _layers(deep, device), _layers([head], device)[0],
-                  tensor_from_array(dense_w, device),
-                  tensor_from_array(bias, device),
-                  _stack(table_data, offsets, device), fm_w,
-                  _state(emb_state, device), _state(fm_state, device))
+    return _with_adam_state(
+        DeepFM(cfg, _layers(deep, device), _layers([head], device)[0],
+               tensor_from_array(dense_w, device),
+               tensor_from_array(bias, device),
+               _stack(table_data, offsets, device), fm_w,
+               _state(emb_state, device), _state(fm_state, device)),
+        dense_opt_state)
 
 
 def two_tower_from_arrays(cfg: TwoTowerConfig, query_mlp: Sequence,

@@ -15,7 +15,9 @@ by side, concatenated into the head).
 The embedding path is the DLRM's: one `StackedTables`, one gather, and a
 train step that differentiates the loss with respect to the looked-up
 `(T, B, D)` activations and applies one lazy update to the stacked table in
-place. The towers take a plain SGD step.
+place. The towers take a plain SGD step or one of `dense_tx`, and
+`microbatch=k` takes the gradients over k slices of the batch, as in the
+DLRM step.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from torch import nn
 
 from ..config import resolve_device
 from ..ops.ensemble import StackedTables
-from ..optim import SparseSGD, apply_dense_tx
+from ..optim import (SparseSGD, apply_dense_tx, check_dense_tx,
+                     require_dense_state)
 from .dlrm import (RowState, _init_mlp, _mlp, _pairs, _param_list,
                    _stacked_lookup, bce_loss, embedding_forward,
-                   lazy_stack_update, refuse_unported_step_options,
-                   stacked_flat_indices, stacked_table_init, step_generator)
+                   lazy_stack_update, microbatch_slices, stacked_flat_indices,
+                   stacked_table_init, step_generator, with_dense_tx)
+from .microbatch import microbatch_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,13 +93,14 @@ def dcn_small_config(vocab: int = 100_000, **kw) -> DCNConfig:
 class DCN(nn.Module):
     """Cross layers (`(U, V, b)` low-rank or `(W, b)` full), the deep tower
     and the head as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
-    the stacked ensemble, and the sparse optimizer's row state
-    (`emb_state`), held as buffers."""
+    the stacked ensemble, the sparse optimizer's row state (`emb_state`),
+    held as buffers, and the towers' optimizer state (`dense_opt_state`, a
+    `DenseOptState`, or None for plain SGD)."""
 
     emb_state = RowState("emb")
 
     def __init__(self, config: DCNConfig, cross, deep, head,
-                 tables: StackedTables, emb_state=None):
+                 tables: StackedTables, emb_state=None, dense_opt_state=None):
         super().__init__()
         self.config = config
         self.cross_params = _param_list(cross)
@@ -104,6 +109,11 @@ class DCN(nn.Module):
         self.tables = tables
         self.emb_state = (SparseSGD().init(tables.data) if emb_state is None
                           else emb_state)
+        self.dense_opt_state = dense_opt_state
+
+    def tower_params(self) -> list:
+        """`(name, parameter)` in JAX's order, `(cross, deep, head)`."""
+        return list(self.named_parameters())
 
     @property
     def cross(self):
@@ -149,10 +159,11 @@ def init_dense_params(cfg: DCNConfig, generator: torch.Generator, device):
 
 
 def init_dcn(cfg: DCNConfig, generator: torch.Generator | None = None,
-             device=None, sparse_opt=None) -> DCN:
+             device=None, sparse_opt=None, dense_tx=None) -> DCN:
     """Random DCN on `device` (CUDA unless given) with `sparse_opt`'s
-    initial row state (default `SparseSGD`). `generator` must live on that
-    device; by default one seeded with 0."""
+    initial row state (default `SparseSGD`) and `dense_tx`'s initial tower
+    state (`init_dlrm`). `generator` must live on that device; by default
+    one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -160,7 +171,8 @@ def init_dcn(cfg: DCNConfig, generator: torch.Generator | None = None,
     tables = stacked_table_init(cfg.vocab_sizes, cfg.dim, cfg.tables_dtype,
                                 generator, device)
     state = (sparse_opt or SparseSGD()).init(tables.data)
-    return DCN(cfg, cross, deep, head, tables, state)
+    return with_dense_tx(DCN(cfg, cross, deep, head, tables, state),
+                         dense_tx)
 
 
 def cross_layers(cross, x0: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -224,20 +236,16 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
     `step(model, dense, cat, label, lr=None, generator=None) -> loss`, the
     DLRM step's discipline (`models/dlrm.py::make_train_step`): one lazy
     update of the stacked table and its row state in place, then plain SGD
-    on the cross layers, deep tower and head. `dense_tx` and `microbatch`
-    are not ported yet."""
-    refuse_unported_step_options(dense_tx, microbatch)
+    on the cross layers, deep tower and head, or one step of `dense_tx`
+    (`init_dcn(dense_tx=)` holds its state); `microbatch=k` takes the
+    gradients over k slices of the batch before that one update."""
+    check_dense_tx(dense_tx)
     sparse_opt = sparse_opt or SparseSGD()
+    k = microbatch_slices(microbatch)
 
-    def step(model: DCN, dense, cat, label, lr=None, generator=None):
-        kw = step_generator(sparse_opt, generator, "train_dcn")
+    def grads(model, params, dense, cat, label):
         tables = model.tables
-        device = tables.data.device
-        dense = torch.as_tensor(dense).to(device)
-        cat = torch.as_tensor(cat).to(device)
-        label = torch.as_tensor(label).to(device)
         flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
-        params = list(model.parameters())     # the tables are buffers
         with torch.enable_grad():
             with torch.no_grad():
                 emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
@@ -247,10 +255,30 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
                 model.cross, model.deep, model.head, cfg, dense, emb_t), label)
             *dense_grads, delta_t = torch.autograd.grad(loss,
                                                         params + [emb_t])
+        return loss.detach(), dense_grads, (delta_t,), (flat, valid)
+
+    def step(model: DCN, dense, cat, label, lr=None, generator=None):
+        kw = step_generator(sparse_opt, generator, "train_dcn")
+        require_dense_state(model, dense_tx, "init_dcn")
+        tables = model.tables
+        device = tables.data.device
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        params = [p for _, p in model.tower_params()]  # the tables are buffers
+        if k > 1:
+            loss, dense_grads, (delta_t,) = microbatch_grads(
+                params, dense, cat, label, k,
+                lambda *s: grads(model, params, *s)[:3])
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
+        else:
+            loss, dense_grads, (delta_t,), (flat, valid) = grads(
+                model, params, dense, cat, label)
         upd = lazy_stack_update(flat, valid, delta_t, cfg.dim, cfg.combiner)
         tables.data, model.emb_state = sparse_opt.apply(
             tables.data, upd, model.emb_state, lr=lr, **kw)
-        apply_dense_tx(params, dense_grads, None, None, dense_lr)
-        return loss.detach()
+        apply_dense_tx(params, dense_grads, dense_tx, model.dense_opt_state,
+                       dense_lr)
+        return loss
 
     return step

@@ -19,7 +19,9 @@ embeddings,
     the D-wide part of each row only.
 
 Training differentiates the loss with respect to the looked-up activation
-sets; each stack gets its lazy update, applied in place.
+sets; each stack gets its lazy update, applied in place. The towers take
+plain SGD or one step of `dense_tx` over JAX's `(deep, head, dense_w,
+bias)`; `microbatch=k` takes the gradients over k slices of the batch.
 """
 from __future__ import annotations
 
@@ -32,11 +34,13 @@ from torch import nn
 from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..optim import (SparseAdamState, SparseFTRLState, SparseOptState,
-                     SparseSGD, apply_dense_tx)
+                     SparseSGD, apply_dense_tx, check_dense_tx,
+                     require_dense_state)
 from .dlrm import (RowState, _init_mlp, _mlp, _pairs, _param_list,
                    bce_loss, embedding_forward, lazy_stack_update,
-                   refuse_unported_step_options, stacked_flat_indices,
-                   stacked_table_init, step_generator)
+                   microbatch_slices, stacked_flat_indices,
+                   stacked_table_init, step_generator, with_dense_tx)
+from .microbatch import microbatch_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,14 +110,16 @@ class DeepFM(nn.Module):
     and `fm_state` are None. Unfolded: `tables` holds the D-wide vectors and
     `fm_w` the 1-wide first-order weights, each with its own state. Without
     the deep tower (`use_deep=False`) the head is a `(1, 1)` placeholder of
-    zeros and the tower is empty, so the parameters round-trip with JAX."""
+    zeros and the tower is empty, so the parameters round-trip with JAX.
+    `dense_opt_state` is the towers' optimizer state (a `DenseOptState`),
+    or None for plain SGD."""
 
     emb_state = RowState("emb")
     fm_state = RowState("fm", optional=True)
 
     def __init__(self, config: DeepFMConfig, deep, head, dense_w, bias,
                  tables: StackedTables, fm_w: Optional[StackedTables] = None,
-                 emb_state=None, fm_state=None):
+                 emb_state=None, fm_state=None, dense_opt_state=None):
         super().__init__()
         self.config = config
         self.deep_params = _param_list(deep)
@@ -127,6 +133,14 @@ class DeepFM(nn.Module):
         if fm_w is not None and fm_state is None:
             fm_state = SparseSGD().init(fm_w.data)
         self.fm_state = fm_state
+        self.dense_opt_state = dense_opt_state
+
+    def tower_params(self) -> list:
+        """`(name, parameter)` in JAX's order, `(deep, head, dense_w,
+        bias)` (the module registers `dense_w` and `bias` first)."""
+        named = list(self.named_parameters())
+        rank = {"deep_params": 0, "head_params": 1, "dense_w": 2, "bias": 3}
+        return sorted(named, key=lambda nv: rank[nv[0].split(".")[0]])
 
     @property
     def deep(self):
@@ -155,12 +169,13 @@ def _stack_offsets(vocab_sizes):
 
 
 def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator | None = None,
-                device=None, sparse_opt=None) -> DeepFM:
+                device=None, sparse_opt=None, dense_tx=None) -> DeepFM:
     """Random DeepFM on `device` (CUDA unless given): Glorot-normal tower,
     zero biases, FM vectors uniform in [-1, 1) / sqrt(dim), first-order
-    weights, `dense_w` and `bias` at zero, and `sparse_opt`'s initial row
-    state for each stack (default `SparseSGD`). `generator` must live on
-    that device; by default one seeded with 0."""
+    weights, `dense_w` and `bias` at zero, `sparse_opt`'s initial row
+    state for each stack (default `SparseSGD`) and `dense_tx`'s initial
+    tower state (`init_dlrm`). `generator` must live on that device; by
+    default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -186,10 +201,11 @@ def init_deepfm(cfg: DeepFMConfig, generator: torch.Generator | None = None,
         tables = vecs
         fm_w = StackedTables(zeros, offs, 1)
         fm_state = sparse_opt.init(fm_w.data)
-    return DeepFM(cfg, deep, head,
-                  torch.zeros((cfg.num_dense,), dtype=dt, device=device),
-                  torch.zeros((), dtype=dt, device=device), tables, fm_w,
-                  sparse_opt.init(tables.data), fm_state)
+    return with_dense_tx(DeepFM(
+        cfg, deep, head, torch.zeros((cfg.num_dense,), dtype=dt,
+                                     device=device),
+        torch.zeros((), dtype=dt, device=device), tables, fm_w,
+        sparse_opt.init(tables.data), fm_state), dense_tx)
 
 
 def split_fused(g_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -299,17 +315,15 @@ def make_train_step(cfg: DeepFMConfig, sparse_opt=None,
     two updates, the FM vectors' and then the first-order weights', each
     with its own state (under stochastic rounding the second draws its
     noise from the same generator after the first). The towers take plain
-    SGD. `dense_tx` and `microbatch` are not ported yet."""
-    refuse_unported_step_options(dense_tx, microbatch)
+    SGD, or one step of `dense_tx` over `(deep, head, dense_w, bias)`
+    (`init_deepfm(dense_tx=)` holds its state). `microbatch=k` takes both
+    activation sets' gradients over k slices of the batch before those
+    updates."""
+    check_dense_tx(dense_tx)
     sparse_opt = sparse_opt or SparseSGD()
+    k = microbatch_slices(microbatch)
 
-    def step(model: DeepFM, dense, cat, label, lr=None, generator=None):
-        kw = step_generator(sparse_opt, generator, "train_deepfm")
-        device = model.tables.data.device
-        dense = torch.as_tensor(dense).to(device)
-        cat = torch.as_tensor(cat).to(device)
-        label = torch.as_tensor(label).to(device)
-        params = list(model.parameters())     # the tables are buffers
+    def grads(model, params, dense, cat, label):
         with torch.no_grad():
             emb_t, w_t = _acts(model, cat)
         acts = [emb_t.detach().requires_grad_(True)]
@@ -319,13 +333,29 @@ def make_train_step(cfg: DeepFMConfig, sparse_opt=None,
             loss = bce_loss(forward_from_embeddings(
                 model.dense_params, cfg, dense, acts[0],
                 acts[1] if cfg.use_fm else None), label)
-            grads = torch.autograd.grad(loss, params + acts,
-                                        allow_unused=True)
+            out = torch.autograd.grad(loss, params + acts, allow_unused=True)
         # The placeholder head (use_deep=False) and dense_w (use_fm=False)
         # take no part in the forward: zero gradients, as in JAX.
         dense_grads = [torch.zeros_like(p) if g is None else g
-                       for p, g in zip(params, grads[:len(params)])]
-        delta_emb, *delta_w = grads[len(params):]
+                       for p, g in zip(params, out[:len(params)])]
+        return loss.detach(), dense_grads, tuple(out[len(params):])
+
+    def step(model: DeepFM, dense, cat, label, lr=None, generator=None):
+        kw = step_generator(sparse_opt, generator, "train_deepfm")
+        require_dense_state(model, dense_tx, "init_deepfm")
+        device = model.tables.data.device
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        params = [p for _, p in model.tower_params()]  # the tables are buffers
+        if k > 1:
+            loss, dense_grads, deltas = microbatch_grads(
+                params, dense, cat, label, k,
+                lambda *s: grads(model, params, *s))
+        else:
+            loss, dense_grads, deltas = grads(model, params, dense, cat,
+                                              label)
+        delta_emb, *delta_w = deltas
         if cfg.folded:
             delta_emb = fuse_delta(delta_w[0], delta_emb)
         upd = _lazy_update(model.tables, cat, delta_emb, cfg.stack_dim,
@@ -337,8 +367,9 @@ def make_train_step(cfg: DeepFMConfig, sparse_opt=None,
                                  cfg.combiner, cfg.pad_idx)
             model.fm_w.data, model.fm_state = sparse_opt.apply(
                 model.fm_w.data, upd_w, model.fm_state, lr=lr, **kw)
-        apply_dense_tx(params, dense_grads, None, None, dense_lr)
-        return loss.detach()
+        apply_dense_tx(params, dense_grads, dense_tx, model.dense_opt_state,
+                       dense_lr)
+        return loss
 
     return step
 
@@ -377,6 +408,13 @@ def _copy_dense(model: DeepFM):
         model.bias.detach().clone()
 
 
+def _copy_dense_state(model: DeepFM):
+    """The tower optimizer state as fresh tensors (None stays None): a
+    layout conversion keeps it, as JAX's does."""
+    st = model.dense_opt_state
+    return None if st is None else st.clone()
+
+
 def fuse_deepfm(model: DeepFM) -> DeepFM:
     """Unfolded DeepFM -> the folded fused-stack layout, as a new model
     (exact for every optimizer state, `_fuse_states`). A folded model comes
@@ -390,7 +428,8 @@ def fuse_deepfm(model: DeepFM) -> DeepFM:
     data = torch.cat([model.fm_w.data, model.tables.data], dim=1)
     return DeepFM(new_cfg, *_copy_dense(model),
                   StackedTables(data, model.tables.offsets, new_cfg.stack_dim),
-                  None, _fuse_states(model.emb_state, model.fm_state, cfg.dim))
+                  None, _fuse_states(model.emb_state, model.fm_state, cfg.dim),
+                  dense_opt_state=_copy_dense_state(model))
 
 
 def unfuse_deepfm(model: DeepFM, sparse_opt=None) -> DeepFM:
@@ -429,4 +468,5 @@ def unfuse_deepfm(model: DeepFM, sparse_opt=None) -> DeepFM:
     return DeepFM(new_cfg, *_copy_dense(model),
                   StackedTables(data[:, 1:].contiguous(), offs, cfg.dim),
                   StackedTables(data[:, :1].contiguous(), offs, 1),
-                  emb_state, fm_state)
+                  emb_state, fm_state,
+                  dense_opt_state=_copy_dense_state(model))

@@ -12,9 +12,12 @@
   - Training (`make_train_step`) differentiates the loss with respect to the
     looked-up `(T, B, D)` activations, never the tables: the block
     interaction is a `torch.autograd.Function` whose backward is the JAX
-    package's symmetrized-selection VJP, the towers take a plain SGD step,
-    and the embedding gradient becomes one lazy `SparseEmbeddingUpdate` on
-    the stacked table, applied in place by the sparse optimizer.
+    package's symmetrized-selection VJP, the towers take a plain SGD step
+    or one of a `torch.optim` optimizer (`dense_tx`, its state held by the
+    model as `dense_opt_state`), and the embedding gradient becomes one lazy
+    `SparseEmbeddingUpdate` on the stacked table, applied in place by the
+    sparse optimizer. `microbatch=k` takes the gradients over k slices of
+    the batch (`models/microbatch.py`) before that one update.
 """
 from __future__ import annotations
 
@@ -30,10 +33,11 @@ from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..ops.lookup import lookup
 from ..ops.sparse_update import SparseEmbeddingUpdate
-from ..optim import (SparseAdamState, SparseFTRLState, SparseOptState,
-                     SparseSGD, apply_dense_tx)
+from ..optim import (DenseOptState, SparseAdamState, SparseFTRLState,
+                     SparseOptState, SparseSGD, apply_dense_tx,
+                     check_dense_tx, require_dense_state)
 from ..tables import SimpleEmbedding
-from ..unported import refuse_unported
+from .microbatch import microbatch_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +166,14 @@ class DLRM(nn.Module):
     """Dense towers as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
     the stacked embedding ensemble, and the sparse optimizer's row state
     (`emb_state`: a `SparseOptState`, with a zero-size accumulator for SGD,
-    a `SparseAdamState` or a `SparseFTRLState`), held as buffers."""
+    a `SparseAdamState` or a `SparseFTRLState`), held as buffers; and the
+    towers' optimizer state (`dense_opt_state`: a `DenseOptState`
+    submodule, or None for plain SGD)."""
 
     emb_state = RowState("emb")
 
     def __init__(self, config: DLRMConfig, bottom, top, tables: StackedTables,
-                 emb_state=None):
+                 emb_state=None, dense_opt_state=None):
         super().__init__()
         self.config = config
         self.bottom_params = _param_list(bottom)
@@ -175,6 +181,12 @@ class DLRM(nn.Module):
         self.tables = tables
         self.emb_state = (SparseSGD().init(tables.data) if emb_state is None
                           else emb_state)
+        self.dense_opt_state = dense_opt_state
+
+    def tower_params(self) -> list:
+        """`(name, parameter)` of the towers in JAX's order,
+        `(bottom, top)`: what the train step passes to `dense_tx`."""
+        return list(self.named_parameters())
 
     @property
     def bottom(self):
@@ -216,11 +228,21 @@ def stacked_table_init(vocab_sizes, dim: int, dtype, generator, device
                                       device), offs, dim)
 
 
+def with_dense_tx(model, dense_tx):
+    """`model` holding `dense_tx`'s initial tower state (None: none)."""
+    if dense_tx is not None:
+        model.dense_opt_state = DenseOptState.create(model.tower_params(),
+                                                     dense_tx)
+    return model
+
+
 def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
-              device=None, sparse_opt=None) -> DLRM:
+              device=None, sparse_opt=None, dense_tx=None) -> DLRM:
     """Random DLRM on `device` (CUDA unless given): Glorot-normal towers,
-    zero biases, tables uniform in [-1, 1) / sqrt(dim), and `sparse_opt`'s
-    initial row state (default `SparseSGD`). `generator` must live on that
+    zero biases, tables uniform in [-1, 1) / sqrt(dim), `sparse_opt`'s
+    initial row state (default `SparseSGD`) and, with `dense_tx` (a
+    factory from the tower parameters to a `torch.optim.Optimizer`), its
+    initial tower state as `dense_opt_state`. `generator` must live on that
     device; by default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
@@ -232,7 +254,7 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator | None = None,
     tables = stacked_table_init(cfg.vocab_sizes, cfg.dim, cfg.tables_dtype,
                                 generator, device)
     state = (sparse_opt or SparseSGD()).init(tables.data)
-    return DLRM(cfg, bottom, top, tables, state)
+    return with_dense_tx(DLRM(cfg, bottom, top, tables, state), dense_tx)
 
 
 # ---------------------------------------------------------------------------
@@ -512,13 +534,6 @@ def lazy_stack_update(flat, valid, delta_t: torch.Tensor, dim: int,
         weights=None if w is None else w.to(flat.device))
 
 
-def refuse_unported_step_options(dense_tx, microbatch) -> None:
-    """The train steps' options that wait for later slices
-    (`unported.py`)."""
-    refuse_unported("make_train_step", dense_tx=dense_tx,
-                    microbatch=microbatch)
-
-
 def step_generator(sparse_opt, generator, loop: str) -> dict:
     """`apply`'s stochastic-rounding keywords for one step: the generator
     when `sparse_opt` rounds stochastically (required then), else none."""
@@ -531,6 +546,11 @@ def step_generator(sparse_opt, generator, loop: str) -> dict:
     return {"generator": generator}
 
 
+def microbatch_slices(microbatch) -> int:
+    """The k of `microbatch=`: None, 0 and 1 are the monolithic step."""
+    return microbatch if microbatch and microbatch > 1 else 1
+
+
 def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
                     dense_tx=None, microbatch: Optional[int] = None):
     """The single-device train step,
@@ -540,24 +560,27 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
     model): the stacked table and its row state by ONE `sparse_opt.apply`
     (default `SparseSGD()`; also `SparseRowWiseAdaGrad`, `SparseLazyAdam`,
     `SparseFTRL`) of the lazy `(delta, indices)` update, then the towers by
-    plain SGD at `dense_lr`. The table is read by the forward lookup before
-    the update writes it (one stream, in order), and an `apply` that refuses
-    the step (FTRL given another `lr`) leaves the model as it was. `lr`
-    overrides `sparse_opt.lr` for this step; `generator` feeds stochastic
-    rounding and is required when `sparse_opt.stochastic_rounding` is set.
-    `dense_tx` and `microbatch` are not ported yet."""
-    refuse_unported_step_options(dense_tx, microbatch)
-    sparse_opt = sparse_opt or SparseSGD()
+    plain SGD at `dense_lr`, or by one step of `dense_tx` (a factory from
+    the tower parameters to a `torch.optim.Optimizer`, whose state the model
+    holds: `init_dlrm(dense_tx=)`). The table is read by the forward lookup
+    before the update writes it (one stream, in order), and an `apply` that
+    refuses the step (FTRL given another `lr`) leaves the model as it was.
+    `lr` overrides `sparse_opt.lr` for this step; `generator` feeds
+    stochastic rounding and is required when
+    `sparse_opt.stochastic_rounding` is set.
 
-    def step(model: DLRM, dense, cat, label, lr=None, generator=None):
-        kw = step_generator(sparse_opt, generator, "train_dlrm")
+    `microbatch=k` (k > 1) takes the loss and gradients over k equal slices
+    of the batch, one lookup and one backward each, so only B/k examples'
+    activations are live at once (`models/microbatch.py`); the update is
+    still one `apply` of the whole batch's delta: the monolithic step up to
+    float re-association."""
+    check_dense_tx(dense_tx)
+    sparse_opt = sparse_opt or SparseSGD()
+    k = microbatch_slices(microbatch)
+
+    def grads(model, params, dense, cat, label):
         tables = model.tables
-        device = tables.data.device
-        dense = torch.as_tensor(dense).to(device)
-        cat = torch.as_tensor(cat).to(device)
-        label = torch.as_tensor(label).to(device)
         flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
-        params = list(model.bottom_params) + list(model.top_params)
         with torch.enable_grad():
             with torch.no_grad():
                 emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
@@ -568,10 +591,30 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
             loss = bce_loss(logits, label)
             *dense_grads, delta_t = torch.autograd.grad(loss,
                                                         params + [emb_t])
+        return loss.detach(), dense_grads, (delta_t,), (flat, valid)
+
+    def step(model: DLRM, dense, cat, label, lr=None, generator=None):
+        kw = step_generator(sparse_opt, generator, "train_dlrm")
+        require_dense_state(model, dense_tx, "init_dlrm")
+        tables = model.tables
+        device = tables.data.device
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        params = [p for _, p in model.tower_params()]
+        if k > 1:
+            loss, dense_grads, (delta_t,) = microbatch_grads(
+                params, dense, cat, label, k,
+                lambda *s: grads(model, params, *s)[:3])
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
+        else:
+            loss, dense_grads, (delta_t,), (flat, valid) = grads(
+                model, params, dense, cat, label)
         upd = lazy_stack_update(flat, valid, delta_t, cfg.dim, cfg.combiner)
         tables.data, model.emb_state = sparse_opt.apply(
             tables.data, upd, model.emb_state, lr=lr, **kw)
-        apply_dense_tx(params, dense_grads, None, None, dense_lr)
-        return loss.detach()
+        apply_dense_tx(params, dense_grads, dense_tx, model.dense_opt_state,
+                       dense_lr)
+        return loss
 
     return step

@@ -18,10 +18,14 @@ points.
   - `restore_delta` resumes any family's tables and sparse optimizer state
     from the delta chain a loop wrote, in place.
 
-Every loop takes every parameter of its JAX counterpart. The mesh,
-planner, prefetch, microbatch and `dense_tx` options are not ported yet:
-`unported.py` holds their table, and a value other than the one that
-leaves an option off raises `NotImplementedError`.
+Every loop takes every parameter of its JAX counterpart. The CTR loops
+read `dense_tx` (the towers' `torch.optim` factory; a fresh model is built
+with its state) and `microbatch` (passed to the family's train step), and
+every loop reads `device_prefetch`: the next batches are copied to the card
+on a side stream while the current step runs (`io.loader.DevicePrefetcher`).
+The mesh and planner options are not ported yet: `unported.py` holds their
+table, and a value other than the one that leaves an option off raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import torch
 from ..config import resolve_device
 from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
-from ..optim import SparseFTRL, SparseSGD
+from ..optim import SparseFTRL, SparseSGD, require_dense_state
 from ..unported import check_jax_combinations, refuse_unported
 from ..utils import telemetry as _telemetry
 from ..utils.deltackpt import TouchedRowTracker
@@ -114,8 +118,10 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
               evict_every=0, evict_fn=None, split_out=None, log_every=100,
               verbose=True, on_log=None, guard=None, on_rollback=None,
               eval_every=0, eval_batches=None, eval_fn=None, delta_fn=None,
-              ckpt_manager=None, ckpt_every=0):
-    """The shared per-step cadence. Hooks:
+              ckpt_manager=None, ckpt_every=0, device_prefetch=0):
+    """The shared per-step cadence. `device_prefetch > 0` runs `put` on
+    the next batches beside the step (`io.loader.DevicePrefetcher`, that
+    many batches ahead). Hooks:
 
       put(batch) -> args              the step's positional inputs
       track_fn(batch)                 feed the frequency trackers
@@ -132,11 +138,19 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
     losses, evals = [], []
     examples = 0
     evicted_total = 0
+    prefetcher = None
+    if device_prefetch:
+        from ..io.loader import DevicePrefetcher
+        prefetcher = DevicePrefetcher(train_iter, put, depth=device_prefetch,
+                                      device=device)
     t_start = time.perf_counter()
     for i in range(num_steps):
         with tel.phase("data"):
-            batch = next(train_iter)
-            args = put(batch)
+            if prefetcher is not None:
+                batch, args = next(prefetcher)
+            else:
+                batch = next(train_iter)
+                args = put(batch)
         if track_fn is not None:
             track_fn(batch)
         kw = {} if generator is None else {"generator": generator}
@@ -198,8 +212,9 @@ class _Family:
     builder's keyword arguments, a model trained by the JAX package)."""
 
     name: str
-    init: Callable         # (cfg, generator, device=, sparse_opt=) -> model
-    train_step: Callable   # (cfg, sparse_opt=, dense_lr=) -> step
+    init: Callable         # (cfg, generator, device=, sparse_opt=, dense_tx=)
+    train_step: Callable   # (cfg, sparse_opt=, dense_lr=, dense_tx=,
+                           #  microbatch=) -> step
     eval_step: Callable    # (cfg) -> step
     from_arrays: Callable  # (cfg, device=, **arrays) -> model
 
@@ -226,10 +241,11 @@ def _deepfm_family() -> _Family:
 
 
 def _model_for(init, from_arrays, cfg, model, seed: int, device,
-               sparse_opt, tel):
+               sparse_opt, tel, **init_kw):
     """The model to train in place: `model` itself, one built from numpy
     arrays (`model` a dict of `from_arrays`'s keyword arguments), or a fresh
-    `init` from `seed` on `device` (CUDA unless given)."""
+    `init` from `seed` on `device` (CUDA unless given), with `init_kw`
+    (the CTR loops' `dense_tx`)."""
     if isinstance(model, dict):
         return from_arrays(cfg, device=resolve_device(device), **model)
     if model is not None:
@@ -237,7 +253,7 @@ def _model_for(init, from_arrays, cfg, model, seed: int, device,
     device = resolve_device(device)
     with tel.phase("init"):
         return init(cfg, torch.Generator(device=device).manual_seed(seed),
-                    device=device, sparse_opt=sparse_opt)
+                    device=device, sparse_opt=sparse_opt, **init_kw)
 
 
 def _maybe_evict(model, trackers, evict_threshold: float, stacks,
@@ -345,24 +361,30 @@ def _ctr_delta_fn(delta_ckpt, delta_every, tracker, pad_idx, tel):
 
 
 def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
-               dense_lr, model, seed, eval_batches, eval_every, eval_metrics,
-               log_every, lr_schedule, verbose, device, evict_every,
-               evict_threshold, freq_decay, ckpt_manager, ckpt_every, guard,
-               delta_ckpt, delta_every, evict_stacks=None) -> TrainResult:
-    """The CTR (dense/cat/label) training run of any family."""
+               dense_lr, dense_tx, microbatch, device_prefetch, model, seed,
+               eval_batches, eval_every, eval_metrics, log_every, lr_schedule,
+               verbose, device, evict_every, evict_threshold, freq_decay,
+               ckpt_manager, ckpt_every, guard, delta_ckpt, delta_every,
+               evict_stacks=None) -> TrainResult:
+    """The CTR (dense/cat/label) training run of any family. A given
+    `model` trained with `dense_tx` must hold its tower state
+    (`init_*(dense_tx=)`): `ValueError` before the first step otherwise,
+    where JAX's loop fails inside optax."""
     if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
         raise ValueError(
             "SparseFTRL cannot change lr per step: alpha is baked into the "
             "accumulated z state, so it takes no lr_schedule")
     tel = _telemetry.get_telemetry()
     model = _model_for(fam.init, fam.from_arrays, cfg, model, seed, device,
-                       sparse_opt, tel)
+                       sparse_opt, tel, dense_tx=dense_tx)
+    require_dense_state(model, dense_tx, f"init_{fam.name}")
     device = model.tables.data.device
-    step = fam.train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
+    step = fam.train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr,
+                          dense_tx=dense_tx, microbatch=microbatch)
     eval_step = fam.eval_step(cfg)
 
     def put(b):
-        return tuple(torch.as_tensor(b[k]).to(device)
+        return tuple(torch.as_tensor(b[k]).to(device, non_blocking=True)
                      for k in ("dense", "cat", "label"))
 
     def eval_fn(m):
@@ -396,7 +418,8 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         eval_batches=eval_batches, eval_fn=eval_fn,
         delta_fn=_ctr_delta_fn(delta_ckpt, delta_every, delta_tracker,
                                getattr(cfg, "pad_idx", None), tel),
-        ckpt_manager=ckpt_manager, ckpt_every=ckpt_every)
+        ckpt_manager=ckpt_manager, ckpt_every=ckpt_every,
+        device_prefetch=device_prefetch)
     return TrainResult(model=model, losses=losses, aucs=aucs,
                        examples_per_sec=eps, evicted_rows=evicted)
 
@@ -441,16 +464,25 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     cadence); evicted rows count as touched. It covers
     `(tables.data, emb_state)`; resume with `restore_delta`.
 
+    `dense_tx` (a factory from the tower parameters to a
+    `torch.optim.Optimizer`, e.g. `functools.partial(torch.optim.Adam,
+    lr=1e-3)`) steps the towers in place of plain SGD at `dense_lr`; a
+    fresh model is built with its state, and a given one must hold it
+    (`init_dlrm(dense_tx=)`). `microbatch=k` takes each step's gradients over
+    k slices of the batch (`make_train_step`). `device_prefetch=n` copies
+    the next n batches to the card on a side stream beside the step; the
+    results are bitwise those without it.
+
     JAX's other options follow `unported.py`: set, an unported one raises,
     as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
     state), before the first step, as the JAX loop's first step does."""
     _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
             delta_ckpt=delta_ckpt, delta_every=delta_every, mesh=mesh,
-            plan=plan, dense_tx=dense_tx, microbatch=microbatch,
-            device_prefetch=device_prefetch)
+            plan=plan)
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
-        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
+        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
@@ -473,11 +505,11 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
     and options: row eviction, checkpoints, the guard and delta checkpoints
     included."""
     _refuse("train_dcn", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan, dense_tx=dense_tx, microbatch=microbatch,
-            device_prefetch=device_prefetch)
+            mesh=mesh, plan=plan)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
-        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
+        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
@@ -510,11 +542,11 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
         return (("tables", "emb_state"),) + fm
 
     _refuse("train_deepfm", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan, dense_tx=dense_tx, microbatch=microbatch,
-            device_prefetch=device_prefetch)
+            mesh=mesh, plan=plan)
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
-        dense_lr=dense_lr, model=model, seed=seed, eval_batches=eval_batches,
+        dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
+        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
         eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
@@ -548,7 +580,7 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     from . import two_tower as tt
     from ..interop import two_tower_from_arrays
     _refuse("train_two_tower", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan, device_prefetch=device_prefetch)
+            mesh=mesh, plan=plan)
     tel = _telemetry.get_telemetry()
     sparse_opt = sparse_opt or SparseSGD(0.05)
     model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg, model,
@@ -557,7 +589,7 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     step = tt.make_train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
 
     def put(b):
-        return tuple(torch.as_tensor(b[key]).to(device)
+        return tuple(torch.as_tensor(b[key]).to(device, non_blocking=True)
                      for key in ("dense", "q_cat", "item_ids"))
 
     def eval_fn(m):
@@ -612,7 +644,7 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
         split_out=split_out, log_every=log_every, verbose=verbose,
         on_log=on_log, eval_every=eval_every, eval_batches=eval_batches,
         eval_fn=eval_fn, delta_fn=delta_fn, ckpt_manager=ckpt_manager,
-        ckpt_every=ckpt_every)
+        ckpt_every=ckpt_every, device_prefetch=device_prefetch)
     return RetrievalTrainResult(model=model, losses=losses, accs=accs,
                                 recalls=recalls, examples_per_sec=eps)
 

@@ -31,13 +31,13 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch import nn
 
 from .ops.cuda.scatter import scatter_update
 from .ops.cuda.segsum import hot_accumulate
 from .ops.sparse_update import (SparseEmbeddingUpdate, dense_scatter,
                                 occurrence_values, resolve_rows)
 from .rounding import stochastic_cast
-from .unported import refuse_unported
 
 
 class SparseOptState(NamedTuple):
@@ -240,13 +240,143 @@ def ftrl_dense_body(data, z, n, rows, g, alpha, beta, l1, l2,
     return data.copy_(torch.where(touched, out, data)), z, n
 
 
+def _adam_state(group, p: torch.Tensor) -> dict:
+    """The state `torch.optim.Adam` / `AdamW` create at a parameter's first
+    step, made now: `step` on the parameter's device when the group is
+    `capturable` or `fused`, else a 0-d f32 tensor on the CPU (torch's
+    choice, which keeps the bias correction off the device), and zero
+    moments beside the parameter."""
+    on_device = group.get("capturable") or group.get("fused")
+    state = {"step": torch.zeros((), dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+             "exp_avg": torch.zeros_like(p),
+             "exp_avg_sq": torch.zeros_like(p)}
+    if group.get("amsgrad"):
+        state["max_exp_avg_sq"] = torch.zeros_like(p)
+    return state
+
+
+def _initial_state(opt: torch.optim.Optimizer, p: torch.Tensor) -> dict:
+    """`opt`'s state for `p` before its first step: what the optimizer made
+    at construction (`Adagrad`), Adam's, or none for momentum-free SGD.
+    Other optimizers make their state at their first step, so a model could
+    not hold it (and a checkpoint could not carry it) before then."""
+    if opt.state.get(p):
+        return dict(opt.state[p])
+    group = next(g for g in opt.param_groups
+                 if any(q is p for q in g["params"]))
+    if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        return _adam_state(group, p)
+    if isinstance(opt, torch.optim.SGD) and not group.get("momentum"):
+        return {}
+    raise ValueError(
+        f"dense_tx built a {type(opt).__name__}, whose state appears at its "
+        "first step; the port holds tower state from init_*(dense_tx=) on, "
+        "for Adam, AdamW, Adagrad and SGD without momentum")
+
+
+class DenseOptState(nn.Module):
+    """A tower optimizer's state (the port's `dense_opt_state`): one buffer
+    per parameter and state field, `<parameter name>__<field>`, made when the
+    model is made, so the model's `state_dict()` (its checkpoints, the
+    guard's rollback, a resume) carries it with the towers.
+
+    `dense_tx` is a factory from the tower parameters to a
+    `torch.optim.Optimizer`, such as `functools.partial(torch.optim.Adam,
+    lr=1e-2)`. `optimizer(dense_tx, params)` builds it over the model's own
+    parameters and points its state at these buffers, so every step updates
+    them in place; the optimizer's `param_groups` (lr, betas) come from the
+    factory at each step and are not part of the state, so a restored or
+    copied model steps with the factory it is given."""
+
+    def __init__(self, names, fields: dict):
+        """`names`: the tower parameters' names, in the order the train step
+        passes the parameters; `fields[name]`: that parameter's state
+        tensors by field."""
+        super().__init__()
+        self.names = list(names)
+        self.fields = {n: list(fields[n]) for n in self.names}
+        for n in self.names:
+            for f, t in fields[n].items():
+                self.register_buffer(self._key(n, f), t)
+
+    @staticmethod
+    def _key(name: str, field: str) -> str:
+        return f"{name.replace('.', '_')}__{field}"
+
+    @classmethod
+    def create(cls, named_params, dense_tx) -> "DenseOptState":
+        """The initial state of `dense_tx(params)` for `named_params`
+        (`(name, parameter)` pairs, the train step's order)."""
+        check_dense_tx(dense_tx)
+        named_params = list(named_params)
+        opt = dense_tx([p for _, p in named_params])
+        return cls([n for n, _ in named_params],
+                   {n: _initial_state(opt, p) for n, p in named_params})
+
+    def clone(self) -> "DenseOptState":
+        """A copy with its own buffers (a converted model's state)."""
+        return DenseOptState(self.names, {
+            n: {f: t.clone() for f, t in self.state_of(n).items()}
+            for n in self.names})
+
+    def state_of(self, name: str) -> dict:
+        return {f: getattr(self, self._key(name, f))
+                for f in self.fields[name]}
+
+    def optimizer(self, dense_tx, params) -> torch.optim.Optimizer:
+        """`dense_tx(params)` with its state pointed at this module's
+        buffers."""
+        params = list(params)
+        if len(params) != len(self.names):
+            raise ValueError(f"the tower state holds {len(self.names)} "
+                             f"parameters, the step passed {len(params)}")
+        opt = dense_tx(params)
+        for name, p in zip(self.names, params):
+            opt.state[p] = self.state_of(name)
+        return opt
+
+
+def check_dense_tx(dense_tx) -> None:
+    """`dense_tx` is None (plain SGD) or a callable optimizer factory."""
+    if dense_tx is not None and not callable(dense_tx):
+        raise TypeError(
+            "dense_tx must be a factory from the tower parameters to a "
+            "torch.optim.Optimizer (e.g. functools.partial("
+            f"torch.optim.Adam, lr=1e-2)), got {type(dense_tx).__name__}")
+
+
+def require_dense_state(model, dense_tx, init: str) -> None:
+    """A step with `dense_tx` needs the tower state `init(dense_tx=)`
+    makes; raised before the step changes anything."""
+    if dense_tx is not None and getattr(model, "dense_opt_state",
+                                        None) is None:
+        raise ValueError(
+            f"dense_tx= needs the model's tower optimizer state: build the "
+            f"model with {init}(dense_tx=...) (or *_from_arrays("
+            "dense_opt_state=...))")
+
+
 @torch.no_grad()
 def apply_dense_tx(params, grads, dense_tx, state, lr):
-    """Tower update: plain SGD `p -= lr * g` in place when `dense_tx` is
-    None. Returns `(params, state)`."""
-    refuse_unported("apply_dense_tx", dense_tx=dense_tx)
+    """Tower update, in place: plain SGD `p -= lr * g` when `dense_tx` is
+    None, else one step of `state.optimizer(dense_tx, params)` (a
+    `DenseOptState`) on `grads`, which `lr` does not touch (the factory
+    holds the optimizer's lr, as JAX's optax transform does). Returns
+    `(params, state)`."""
+    check_dense_tx(dense_tx)
+    if dense_tx is None:
+        for p, g in zip(params, grads):
+            p.copy_((p - lr * g).to(p.dtype))
+        return params, state
+    if state is None:
+        raise ValueError("dense_tx= needs a DenseOptState (init_*(dense_tx=))")
+    opt = state.optimizer(dense_tx, params)
     for p, g in zip(params, grads):
-        p.copy_((p - lr * g).to(p.dtype))
+        p.grad = g
+    opt.step()
+    for p in params:
+        p.grad = None
     return params, state
 
 

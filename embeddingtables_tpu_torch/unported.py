@@ -11,12 +11,13 @@ ignores them, since the one that gives them a meaning is unported:
     (`mesh` with `exchange="a2a"`).
 
 The loops' `evict_every` (with `evict_threshold` and `freq_decay`),
-`ckpt_manager` (with `ckpt_every`), `guard` and `delta_ckpt` (with
-`delta_every`), and the services' `quantized` (with `quantize_bits`) are
-ported and read; as in JAX, `evict_threshold` and `freq_decay` mean nothing
-without `evict_every`, `ckpt_every` nothing without `ckpt_manager`,
-`delta_every` nothing without `delta_ckpt`, nor `quantize_bits` without
-`quantized`.
+`ckpt_manager` (with `ckpt_every`), `guard`, `delta_ckpt` (with
+`delta_every`) and `device_prefetch`, the CTR loops' and train steps'
+`dense_tx` and `microbatch`, and the services' `quantized` (with
+`quantize_bits`) are ported and read; as in JAX, `evict_threshold` and
+`freq_decay` mean nothing without `evict_every`, `ckpt_every` nothing
+without `ckpt_manager`, `delta_every` nothing without `delta_ckpt`, nor
+`quantize_bits` without `quantized`.
 
 Where JAX raises on a combination, the callers raise the same exception
 class first (`plan` without `mesh`, `wire_dtype` without an `a2a` mesh,
@@ -30,11 +31,6 @@ from __future__ import annotations
 UNPORTED = {
     "mesh": ((None,), "multi-device placement (ROADMAP.md queue 1, item I)"),
     "plan": ((None,), "the planner (ROADMAP.md queue 1, item I)"),
-    "device_prefetch": ((0,), "io/loader.py (ROADMAP.md queue 1, item H)"),
-    "microbatch": ((None, 0, 1),
-                   "models/microbatch.py (ROADMAP.md queue 1, item F)"),
-    "dense_tx": ((None,),
-                 "the port's torch.optim support (ROADMAP.md queue 1, item F)"),
 }
 
 

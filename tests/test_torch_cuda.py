@@ -838,3 +838,116 @@ def test_cuda_delta_chain_restores_bitwise_and_refreshes_a_service(
         assert np.array_equal(got, want.cpu().numpy())
     finally:
         svc.stop()
+
+
+# ---------------------------------------------------------------------------
+# Microbatching, the towers' torch.optim state and the device prefetcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dlrm", "dcn", "deepfm_folded"])
+def test_cuda_microbatch_step_is_bitwise_the_plain_step(cuda_device, family):
+    # k = 4 slices: four lookups (one gather_rows launch each) and one
+    # run-scatter per stack; the kernels' step equals the plain versions'
+    # k = 4 step bit for bit (f32 towers, SparseSGD).
+    import copy
+    import embeddingtables_tpu_torch as ett
+    if family == "dlrm":
+        g = torch.Generator().manual_seed(1)
+        cfg = ett.DLRMConfig(vocab_sizes=(300, 500, 200), num_dense=5,
+                             dim=128, bottom_mlp=(64, 128), top_mlp=(64, 1),
+                             compute_dtype=torch.float32)
+        model = ett.init_dlrm(cfg, g, device="cpu").to(cuda_device)
+        step = ett.make_train_step(cfg, microbatch=4)
+        b = 256
+        batch = (torch.randn((b, 5), generator=g),
+                 torch.stack([torch.randint(0, v, (b,), generator=g,
+                                            dtype=torch.int32)
+                              for v in cfg.vocab_sizes]),
+                 (torch.rand((b,), generator=g) < 0.5).float())
+    else:
+        model, _, batch, _ = _family_case(ett, family, cuda_device)
+        mod = ett.models.dcn if family == "dcn" else ett.models.deepfm
+        step = mod.make_train_step(model.config, microbatch=4)
+    plain = copy.deepcopy(model)
+    rows, scat = G.gather_rows.launches, S.scatter_add_rows_sorted.launches
+    loss = step(model, *batch)
+    torch.cuda.synchronize()
+    # Four lookups, and the run-scatter's value permute.
+    assert G.gather_rows.launches == rows + 4 + 1
+    assert S.scatter_add_rows_sorted.launches == scat + 1
+    with _plain_update_path(), _plain_forward_gathers():
+        loss_p = step(plain, *batch)
+    assert torch.equal(loss, loss_p)
+    for (name, a), (_, b) in zip(model.state_dict().items(),
+                                 plain.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_adam_tower_step_is_bitwise_the_plain_step(cuda_device):
+    # torch.optim.Adam on the towers, its state in the model's buffers:
+    # `step` stays a CPU scalar (torch's own choice without capturable),
+    # the moments lie beside the parameters on the card.
+    import copy
+    import functools
+    import embeddingtables_tpu_torch as ett
+    adam = functools.partial(torch.optim.Adam, lr=1e-2)
+    cfg = ett.DLRMConfig(vocab_sizes=(300, 500, 200), num_dense=5, dim=128,
+                         bottom_mlp=(64, 128), top_mlp=(64, 1),
+                         compute_dtype=torch.float32)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    model = ett.init_dlrm(cfg, g, device=cuda_device, dense_tx=adam)
+    state = model.dense_opt_state.state_dict()
+    assert state["bottom_params_0__step"].device.type == "cpu"
+    assert state["bottom_params_0__exp_avg"].device == model.tables.data.device
+    plain = copy.deepcopy(model)
+    gh = torch.Generator().manual_seed(3)
+    b = 512
+    batch = (torch.randn((b, 5), generator=gh),
+             torch.stack([torch.randint(0, v, (b,), generator=gh,
+                                        dtype=torch.int32)
+                          for v in cfg.vocab_sizes]),
+             (torch.rand((b,), generator=gh) < 0.5).float())
+    step = ett.make_train_step(cfg, dense_tx=adam)
+    for _ in range(2):
+        loss = step(model, *batch)
+        with _plain_update_path(), _plain_forward_gathers():
+            loss_p = step(plain, *batch)
+        assert torch.equal(loss, loss_p)
+    assert float(model.dense_opt_state.bottom_params_0__step) == 2.0
+    for (name, a), (_, b) in zip(model.state_dict().items(),
+                                 plain.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_device_prefetcher_copies_on_a_side_stream(cuda_device):
+    import numpy as np
+    from embeddingtables_tpu_torch.io import DevicePrefetcher
+    rng = np.random.default_rng(0)
+    host = [dict(dense=rng.standard_normal((4096, 13)).astype(np.float32),
+                 cat=rng.integers(0, 100, (26, 4096)).astype(np.int32),
+                 step=i) for i in range(9)]
+    streams = []
+
+    def put(b):
+        streams.append(torch.cuda.current_stream(cuda_device))
+        assert b["dense"].is_pinned() and b["step"] == len(streams) - 1
+        return tuple(b[k].to(cuda_device, non_blocking=True)
+                     for k in ("dense", "cat"))
+
+    pf = DevicePrefetcher(iter(host), put, depth=2, device=cuda_device)
+    main = torch.cuda.current_stream(cuda_device)
+    got = []
+    for want in host:
+        batch, (dense, cat) = next(pf)
+        assert batch is want and dense.device.type == "cuda"
+        got.append((dense * 2, cat + 1))          # work on the main stream
+    with pytest.raises(StopIteration):
+        next(pf)
+    torch.cuda.synchronize()
+    assert all(s != main for s in streams)
+    for want, (dense, cat) in zip(host, got):
+        assert torch.equal(dense.cpu(), torch.from_numpy(want["dense"]) * 2)
+        assert torch.equal(cat.cpu(), torch.from_numpy(want["cat"]) + 1)

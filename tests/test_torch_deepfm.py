@@ -13,6 +13,7 @@ loop steps. bf16 towers: the logits to 2^-7 of the largest logit.
 """
 import dataclasses
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -31,6 +32,8 @@ from _torch_threads import _one_torch_thread  # noqa: F401
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The towers' Adam, as the loops take it (`dense_tx`).
+ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 SMALL = dict(vocab_sizes=(13, 29, 7, 21), num_dense=5, dim=8,
              deep_mlp=(16, 8))
 B = 16
@@ -212,11 +215,20 @@ def test_three_train_steps_match_jax(case, jax_programs):
 
 
 def test_train_step_refuses_what_is_not_ported():
+    # A batch that microbatch=k does not divide: JAX's ValueError, raised
+    # before the step changes the model.
     cfg = ett.DeepFMConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="torch.optim"):
-        PF.make_train_step(cfg, dense_tx=object())
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        PF.make_train_step(cfg, microbatch=2)
+    batch = _batch(np.random.default_rng(0), cfg)
+    jm = JF.init_deepfm(jax.random.key(0), JF.DeepFMConfig(**SMALL))
+    want = f"batch {B} not divisible by microbatch 3"
+    with pytest.raises(ValueError, match=want):
+        JF.make_train_step(JF.DeepFMConfig(**SMALL), microbatch=3)(
+            jm, *(jnp.asarray(x) for x in batch))
+    model = ett.init_deepfm(cfg, device="cpu")
+    before = model.tables.data.clone()
+    with pytest.raises(ValueError, match=want):
+        PF.make_train_step(cfg, microbatch=3)(model, *batch)
+    assert torch.equal(model.tables.data, before)
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +326,18 @@ def test_deepfm_service_gives_the_eval_steps_results():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_deepfm_options_not_ported_raise(name):
-    # evict_every, delta_ckpt, ckpt_manager and guard are ported: each comes
-    # with an unported option, which alone is refused.
-    value = {"evict_every": 10, "device_prefetch": 2,
-             "microbatch": 2}.get(name, object())
+    # evict_every, delta_ckpt, ckpt_manager, guard, device_prefetch,
+    # microbatch and dense_tx are ported: each comes with a mesh, which
+    # alone is refused.
+    value = {"evict_every": 10, "device_prefetch": 2, "microbatch": 2,
+             "dense_tx": ADAM}.get(name, object())
     extra = {"plan": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2, "mesh": object()},
-             "evict_every": {"dense_tx": object()},
-             "ckpt_manager": {"device_prefetch": 2},
-             "guard": {"microbatch": 2}}.get(name, {})
-    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard")
-    refused = {"evict_every": "dense_tx", "delta_ckpt": "mesh",
-               "ckpt_manager": "device_prefetch",
-               "guard": "microbatch"}.get(name, name)
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
+    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard",
+              "device_prefetch", "microbatch", "dense_tx")
+    if name in ported:
+        extra["mesh"] = object()
+    refused = "mesh" if name in ported else name
     cfg = ett.DeepFMConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=refused) as err:
         ett.train_deepfm(cfg, iter(()), 1, device="cpu", **{name: value},

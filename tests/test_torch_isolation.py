@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, builds
 nothing at import time, and never falls back to the CPU on its own."""
+import functools
 import re
 import subprocess
 import sys
@@ -17,7 +18,9 @@ REPO = PKG.parent
 
 NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
                "utils.rowstats", "utils.checkpoint", "utils.deltackpt",
-               "utils.resilience", "utils.telemetry")
+               "utils.resilience", "utils.telemetry", "rpc", "io.loader",
+               "io.synth", "io.criteo_file", "models.microbatch")
+ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -132,6 +135,10 @@ def _no_device_calls():
             guard=object(), delta_ckpt=object(), delta_every=1),
         "make_refreshable_service": lambda: ett.make_refreshable_service(
             ett.init_dlrm(dlrm)),
+        "init_dlrm_dense_tx": lambda: ett.init_dlrm(dlrm, dense_tx=ADAM),
+        "train_dlrm_input_options": lambda: ett.train_dlrm(
+            dlrm, iter(()), 0, dense_tx=ADAM, microbatch=2,
+            device_prefetch=2),
     }
 
 
@@ -149,7 +156,9 @@ def _no_device_calls():
                                    "md_from_arrays", "tt_from_arrays",
                                    "tiered_from_arrays",
                                    "train_dlrm_persistent",
-                                   "make_refreshable_service"])
+                                   "make_refreshable_service",
+                                   "init_dlrm_dense_tx",
+                                   "train_dlrm_input_options"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -189,3 +198,24 @@ def test_persistence_runs_where_its_templates_lie_without_a_card(
     assert follower.poll() == 1 and follower.data.device.type == "cpu"
     with utils.phase("sync_without_a_card", sync=True):
         pass
+
+
+def test_input_options_run_where_the_model_lies_without_a_card(monkeypatch):
+    # dense_tx, microbatch and device_prefetch on the CPU: the prefetcher is
+    # a host thread there, and nothing asks for a card.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                         bottom_mlp=(4,), top_mlp=(3, 1))
+    data = ett.SyntheticCriteo(vocab_sizes=(5, 6), num_dense=2, batch_size=8)
+    res = ett.train_dlrm(cfg, data.batches(), 2, dense_tx=ADAM, microbatch=2,
+                         device_prefetch=2, device="cpu", verbose=False,
+                         log_every=1)
+    assert len(res.losses) == 2 and res.model.tables.data.device.type == "cpu"
+    st = res.model.dense_opt_state
+    assert float(st.bottom_params_0__step) == 2.0
+    pf = ett.io.DevicePrefetcher(iter([{"x": np.ones(3)}]),
+                                 lambda b: torch.as_tensor(b["x"]),
+                                 device="cpu")
+    batch, arg = next(pf)
+    assert arg.device.type == "cpu" and torch.equal(arg, torch.ones(3,
+                                                     dtype=torch.float64))

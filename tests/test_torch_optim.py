@@ -306,7 +306,8 @@ def test_apply_dense_tx_is_plain_sgd_in_place():
     assert [p.data_ptr() for p in ps] == before
     for p, w in zip(ps, want):
         np.testing.assert_allclose(p.numpy(), np.asarray(w), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="torch.optim"):
+    # A dense_tx that is not an optimizer factory is refused.
+    with pytest.raises(TypeError, match="torch.optim"):
         P.apply_dense_tx(ps, gs, object(), None, 0.1)
 
 

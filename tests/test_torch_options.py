@@ -168,9 +168,9 @@ def test_planner_with_another_exchange_raises_as_jax_does():
 
 @pytest.mark.parametrize("entry,kw", [
     ("train_dlrm", dict(mesh=object())),
-    ("train_dcn", dict(dense_tx=object())),
-    ("train_deepfm", dict(microbatch=2)),
-    ("train_two_tower", dict(device_prefetch=2)),
+    ("train_dcn", dict(mesh=object())),
+    ("train_deepfm", dict(mesh=object(), plan=object())),
+    ("train_two_tower", dict(mesh=object())),
     ("make_deepfm_service", dict(mesh=object())),
     ("make_retrieval_service", dict(mesh=object())),
 ])

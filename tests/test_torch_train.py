@@ -15,6 +15,7 @@ after three steps or four loop steps. bf16 towers: XLA and PyTorch may round
 bf16 matmul partial results differently, so three steps are held to 2^-6
 of the largest value: a few bf16 roundings (2^-9 each), compounded.
 """
+import functools
 import numpy as np
 import pytest
 import torch
@@ -95,6 +96,8 @@ def test_block_interaction_gradcheck(offset):
 # make_train_step against JAX's
 # ---------------------------------------------------------------------------
 
+# The towers' Adam, as the loops take it (`dense_tx`).
+ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 SMALL = dict(vocab_sizes=(13, 29, 7, 21), num_dense=5, dim=8,
              bottom_mlp=(16, 8), top_mlp=(32, 16, 1))
 B = 16
@@ -213,14 +216,22 @@ def test_a_step_reads_the_table_before_it_writes_it():
 
 
 def test_train_step_refuses_what_is_not_ported():
+    # A batch that microbatch=k does not divide: JAX's ValueError, raised
+    # before the step changes the model.
     cfg = ett.DLRMConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="torch.optim"):
-        ett.make_train_step(cfg, dense_tx=object())
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        ett.make_train_step(cfg, microbatch=2)
+    batch = _batch(np.random.default_rng(0), cfg)
+    jm = jax_init_dlrm(jax.random.key(0), JaxConfig(**SMALL))
+    want = f"batch {B} not divisible by microbatch 3"
+    with pytest.raises(ValueError, match=want):
+        jax_train_step(JaxConfig(**SMALL), microbatch=3)(
+            jm, *(jnp.asarray(x) for x in batch))
+    model = ett.init_dlrm(cfg, device="cpu")
+    before = model.tables.data.clone()
+    with pytest.raises(ValueError, match=want):
+        ett.make_train_step(cfg, microbatch=3)(model, *batch)
+    assert torch.equal(model.tables.data, before)
     step = ett.make_train_step(
         cfg, sparse_opt=P.SparseSGD(stochastic_rounding=True))
-    model = ett.init_dlrm(cfg, device="cpu")
     with pytest.raises(ValueError, match="generator="):
         step(model, *_batch(np.random.default_rng(0), cfg))
 
@@ -329,19 +340,17 @@ def test_train_dlrm_options_not_ported_raise(name):
     # Options that JAX reads only beside another come with it (plan and
     # exchange with a mesh): alone, JAX ignores exchange and raises
     # ValueError on plan (tests/test_torch_options.py). evict_every,
-    # delta_ckpt, ckpt_manager and guard are ported: each comes with an
-    # unported option, which alone is refused.
+    # delta_ckpt, ckpt_manager, guard, device_prefetch, microbatch and
+    # dense_tx are ported: each comes with a mesh, which alone is refused.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
-             "microbatch": 2}.get(name, object())
-    extra = {"plan": {"mesh": object()}, "exchange": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2, "mesh": object()},
-             "evict_every": {"dense_tx": object()},
-             "ckpt_manager": {"device_prefetch": 2},
-             "guard": {"microbatch": 2}}.get(name, {})
-    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard")
-    refused = {"exchange": "mesh", "evict_every": "dense_tx",
-               "delta_ckpt": "mesh", "ckpt_manager": "device_prefetch",
-               "guard": "microbatch"}.get(name, name)
+             "microbatch": 2, "dense_tx": ADAM}.get(name, object())
+    extra = {"plan": {"mesh": object()},
+             "delta_ckpt": {"delta_every": 2}}.get(name, {})
+    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard",
+              "device_prefetch", "microbatch", "dense_tx")
+    if name in ported + ("exchange",):
+        extra["mesh"] = object()
+    refused = "mesh" if name in ported + ("exchange",) else name
     cfg = ett.DLRMConfig(**SMALL)
     with pytest.raises(NotImplementedError, match=refused) as err:
         train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value}, **extra)

@@ -13,6 +13,8 @@
     python3 chip_smoke.py --microbatch         # only microbatching and dense_tx
     python3 chip_smoke.py --rpc                # only the binary RPC transport
     python3 chip_smoke.py --input-pipeline     # only the input pipeline
+    python3 chip_smoke.py --mesh               # only the sharded DLRM, every card
+    python3 chip_smoke.py --compat             # only compat, nn and the bridge
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -131,14 +133,38 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     request (rtol 1e-5; retrieval ids to the plain path's); "dlrm" swapped
     under load with no request lost, each response the old or the new
     model's; `gather_rows` launches = the served f32 and retrieval batches.
-16. The input pipeline: a 524,288-row Criteo-format file written by
+16. The mesh: the sharded DLRM (26 x 250,000 x 128, B = 65,536 global,
+    Zipf(1.1) batches) over every card of the machine, one rank per card
+    in one NCCL group spawned from here after the build (`/dev/shm`'s size,
+    the NCCL version and `nvidia-smi topo -m` first): SGD, indexer
+    AdaGrad, lazy Adam and FTRL on the gather exchange and on the
+    butterfly (capacity factor 2.0), 6 timed steps each with the
+    collectives' CUDA-event times, the overflow, each rank's peak memory,
+    the bytes each rank hands the collectives and its `gather_rows` and
+    run-scatter launches (1 + 1 and 1 a step on the gather exchange, 2 + 1
+    and 1 on the butterfly; 1 and 2 `gather_rows` and no run-scatter for
+    Adam and FTRL); two steps of each against the single-device step (one
+    rank: SGD and AdaGrad bitwise, Adam and FTRL rtol 1e-6 under
+    deterministic algorithms; more ranks: rank 0 replays them unsharded,
+    losses rtol 1e-5, SGD and AdaGrad tables rtol 1e-5 with atol 1e-6, and
+    Adam's and FTRL's tables through the same delta's update, rtol 1e-6);
+    `make_dlrm_service(mesh=)` to 4 closed-loop clients, each
+    response held to the unsharded model's eval (rtol 1e-5), the other
+    ranks following until the stop.
+17. compat, nn and the torch bridge: a stock loop at B = 65,536 with
+    `torch.optim.SGD` on the DLRM's towers and 26 `nn.SparseEmbed` tables
+    (the Criteo Kaggle cardinalities capped at 250,000) through
+    `sparse_updates_from_grads` / `apply_sparse_updates`, against the same
+    steps on the plain versions; `to_torch_embedding(bag=True)` of a trained
+    table (an `nn.EmbeddingBag` on the card) against its `lookup`.
+18. The input pipeline: a 524,288-row Criteo-format file written by
     `io.criteo_file`, parsed natively (the library must build) bitwise
     `criteo_kaggle_batches` on the first batch, rows/s of both parsers;
     the stacked DLRM trained from `CriteoFileLoader` -> `parallel_batches`
     -> `DevicePrefetcher` for 8 steps; the same host batches at
     `device_prefetch` 0 and 2, bitwise equal, with examples/s and the idle
     share of each; `NativeSyntheticCriteo` against the numpy generator.
-17. A `kernels` JSON line (every hand kernel, its launches on its paths and
+19. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one, the
     D = 129 times of both gathers and the run-scatter, the D = 1 times
     of `gather_rows` and the run-scatter, and the run-scatter's wide-row
@@ -155,13 +181,15 @@ measures that commit's kernels the same way. With `--ensemble` it runs
 phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
 phase 12; with `--persistence` phases 1-2 and phase 13; with `--microbatch`,
-`--rpc` and `--input-pipeline` phases 1-2 and phase 14, 15 or 16.
+`--rpc`, `--mesh`, `--compat` and `--input-pipeline` phases 1-2 and phase
+14, 15, 16, 17 or 18.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -3739,6 +3767,547 @@ def rpc_phase(ett, S, H, G):
     return counter.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded DLRM over every card (one rank per card, NCCL)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 6                      # timed steps per recipe, after a warm-up
+MESH_BATCHES = 4                    # cycled SyntheticCriteo batches
+MESH_CAPACITY = 2.0                 # the butterfly's capacity factor
+
+
+def mesh_recipes(ett):
+    """(name, optimizer) of the mesh phase; each runs on both exchanges."""
+    return (("sgd", ett.SparseSGD(1e-4)),
+            ("adagrad_indexer", ett.SparseRowWiseAdaGrad(1e-3,
+                                                         method="indexer")),
+            ("lazy_adam", ett.SparseLazyAdam(1e-3)),
+            ("ftrl_l1", ett.SparseFTRL(0.05, l1=1e-3)))
+
+
+class CollectiveTimer:
+    """CUDA events around every collective of a placement (an
+    `Exchange`'s `timer`), summed by name."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events.append((name, start, end))
+
+    def totals(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for name, s, e in self.events:
+            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        return out
+
+
+def exchange_bytes(ex, exchange: str, b_local: int, t: int, d: int,
+                   tower_params: int) -> dict:
+    """The bytes one rank hands the collectives in one step, from the
+    shapes (f32 rows and deltas, int32 ids), and the bytes a ring moves
+    over its links for them ((n-1)/n of an all-gather's output or a
+    reduce-scatter's input, 2(n-1)/n of an all-reduce, (n-1)/n of an
+    all-to-all's input)."""
+    from embeddingtables_tpu_torch.parallel.alltoall import capacity
+    n, b = ex.n, b_local * ex.n_data
+    share = (n - 1) / n
+    towers = 4 * (tower_params + 1)
+    if exchange == "gather":
+        parts = {"ids_all_gather": (4 * b_local * t, 4 * b * t * share),
+                 "rows_reduce_scatter": (4 * b * t * d, 4 * b * t * d * share),
+                 "update_all_gather": (4 * b_local * t * (d + 1),
+                                       4 * b * t * (d + 1) * share)}
+    else:
+        cap = capacity(b_local * t // ex.n_model, n, MESH_CAPACITY)
+        slots, rows = 4 * n * cap, 4 * n * cap * d
+        parts = {"lookup_all_to_all": (slots + rows, (slots + rows) * share),
+                 "update_all_to_all": (slots + rows, (slots + rows) * share),
+                 "overflow_all_reduce": (16, 32 * share)}
+    parts["towers_all_reduce"] = (towers, 2 * towers * share)
+    return {"input_bytes": sum(v[0] for v in parts.values()),
+            "ring_bytes": sum(v[1] for v in parts.values()),
+            "by_collective": {k: v[0] for k, v in parts.items()}}
+
+
+def same_delta_update(ett, P, mesh, n, cfg32, opt, exchange, fresh,
+                      batch):
+    """The sharded update of one step's delta against the single-device
+    update of the same delta, on every rank: the single-device model's
+    forward and backward on the global `batch` give the `(T, B, D)` delta;
+    each rank feeds its block to the exchange's update (`owned_apply`, or
+    `sharded_update_a2a` at a capacity of n), the single-device model
+    applies the whole. Returns the largest difference of the table and the
+    row state, unsharded, against the single-device ones."""
+    from embeddingtables_tpu_torch.models.dlrm import (
+        bce_loss, embedding_forward, forward_from_embeddings,
+        lazy_stack_update, stacked_flat_indices)
+    from embeddingtables_tpu_torch.parallel.alltoall import \
+        sharded_update_a2a
+    from embeddingtables_tpu_torch.parallel.sharded import owned_apply
+    single = fresh()
+    flat, valid = stacked_flat_indices(single.tables, batch["cat"])
+    emb = embedding_forward(single.tables, batch["cat"]).requires_grad_(True)
+    loss = bce_loss(forward_from_embeddings(single.bottom, single.top, cfg32,
+                                            batch["dense"], emb),
+                    batch["label"])
+    (delta,) = torch.autograd.grad(loss, [emb])
+    delta = delta.float()
+    sm = P.shard_dlrm(fresh(), mesh, "data", sparse_opt=opt)
+    ex = sm.tables.exchange
+    t, b = batch["cat"].shape
+    size = b // ex.n_data
+    sl = slice(ex.data_index * size, (ex.data_index + 1) * size)
+    idx = flat.view(t, b)[:, sl].t().contiguous()
+    rows = delta[:, sl].transpose(0, 1).contiguous()
+    if exchange == "gather":
+        sm.emb_state = owned_apply(sm.tables, idx, rows, None, opt,
+                                   sm.emb_state)
+    else:
+        sm.emb_state, _ = sharded_update_a2a(
+            mesh, sm.tables, sm.emb_state, ett.SparseEmbeddingUpdate(
+                delta=rows.reshape(-1, cfg32.dim), indices=idx.reshape(-1)),
+            opt, capacity_factor=float(n))
+    _, state = opt.apply(single.tables.data, lazy_stack_update(
+        flat, valid, delta, cfg32.dim, cfg32.combiner), single.emb_state)
+    un = P.unshard_dlrm(sm)
+    torch.cuda.synchronize()
+    pairs = [(un.tables.data, single.tables.data)] + [
+        (a, b) for a, b in zip(un.emb_state, state) if a.is_floating_point()]
+    for a, b in pairs:
+        require(torch.allclose(a, b, rtol=1e-6, atol=1e-7),
+                f"mesh same-delta update {exchange} {type(opt).__name__}: "
+                f"off by {max_abs_err(a, b)}")
+    return max(max_abs_err(a, b) for a, b in pairs)
+
+
+def mesh_parity(ett, P, mesh, rank, n, cfg32, blocks, global_batches):
+    """Two sharded steps against two single-device steps from the same
+    weights, each exchange and optimizer. One rank: SGD and indexer AdaGrad
+    bitwise (tables, row state, towers, losses), lazy Adam and FTRL to rtol
+    1e-6 under deterministic algorithms. More ranks: rank 0 replays the
+    global batches unsharded on its card; losses to rtol 1e-5; tables of
+    SGD and AdaGrad to rtol 1e-5 with an atol of 1e-6. Lazy Adam's first
+    steps move each touched entry by about lr whatever the size of its
+    gradient, so a gradient near zero whose sign the ranks' other order of
+    additions flips moves it the other way (9e-4 at lr 1e-3 on four cards),
+    and FTRL's l1 threshold can flip an entry to zero the same way: for
+    them the tables are held instead through `same_delta_update`, the
+    sharded update of one delta against the single-device update of it
+    (rtol 1e-6 under deterministic algorithms). The butterfly runs at a
+    capacity factor of n, which drops nothing."""
+    out = []
+    for exchange in ("gather", "a2a"):
+        for name, opt in mesh_recipes(ett):
+            dense = name in ("lazy_adam", "ftrl_l1")
+            torch.use_deterministic_algorithms(dense, warn_only=True)
+            try:
+                def fresh(opt=opt):
+                    return ett.init_dlrm(cfg32, torch.Generator(
+                        device="cuda").manual_seed(SEED), device="cuda",
+                        sparse_opt=opt)
+                sm = P.shard_dlrm(fresh(), mesh, "data", sparse_opt=opt)
+                step = P.make_sharded_train_step(
+                    cfg32, mesh, "data", sparse_opt=opt, dense_lr=0.1,
+                    exchange=exchange, capacity_factor=float(n))
+                losses = [float(step(sm, *b)) for b in blocks[:2]]
+                un = P.unshard_dlrm(sm)
+                del sm
+                row = {"exchange": exchange, "recipe": name}
+                if rank == 0:
+                    single = fresh()
+                    step1 = ett.make_train_step(cfg32, sparse_opt=opt,
+                                                dense_lr=0.1)
+                    want = [float(step1(single, b["dense"], b["cat"],
+                                        b["label"]))
+                            for b in global_batches[:2]]
+                    torch.cuda.synchronize()
+                    err = max_abs_err(un.tables.data, single.tables.data)
+                    if n == 1 and not dense:
+                        tolerance = "bitwise"
+                        require(losses == want, f"mesh parity {exchange} "
+                                f"{name}: losses {losses} != {want}")
+                        pairs = ([(un.tables.data, single.tables.data)]
+                                 + list(zip(un.emb_state, single.emb_state))
+                                 + list(zip(un.parameters(),
+                                            single.parameters())))
+                        for a, b in pairs:
+                            require(torch.equal(a, b), f"mesh parity "
+                                    f"{exchange} {name}: not bitwise")
+                    else:
+                        rtol, atol = (1e-6, 1e-7) if n == 1 else (1e-5, 1e-6)
+                        np.testing.assert_allclose(losses, want, rtol=rtol)
+                        tolerance = f"losses rtol {rtol}"
+                        if n == 1 or not dense:
+                            tolerance += f", tables rtol {rtol} atol {atol}"
+                            require(torch.allclose(un.tables.data,
+                                                   single.tables.data,
+                                                   rtol=rtol, atol=atol),
+                                    f"mesh parity {exchange} {name}: tables "
+                                    f"off by {err} (rtol {rtol}, atol "
+                                    f"{atol})")
+                    row.update(tolerance=tolerance, max_abs_err=err,
+                               losses=losses)
+                    del single
+                del un
+                torch.cuda.empty_cache()
+                if n > 1 and dense:
+                    row["same_delta_max_abs_err"] = same_delta_update(
+                        ett, P, mesh, n, cfg32, opt, exchange, fresh,
+                        global_batches[0])
+                    row["same_delta_tolerance"] = "rtol 1e-6"
+                    torch.cuda.empty_cache()
+                out.append(row)
+            finally:
+                torch.use_deterministic_algorithms(False)
+    return out
+
+
+def mesh_service(ett, P, mesh, rank, cfg32, blocks):
+    """The sharded model behind `make_dlrm_service(mesh=...)`: rank 0 sends
+    64 requests of 1-256 examples from 4 closed-loop clients, each held to
+    the unsharded model's eval on rank 0 (rtol 1e-5); the other ranks
+    follow until rank 0 stops. Returns (rank 0's summary, gather_rows
+    launches)."""
+    from embeddingtables_tpu_torch.ops.cuda import gather as G
+    opt = ett.SparseSGD(1e-4)
+    sm = P.shard_dlrm(ett.init_dlrm(cfg32, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda"), mesh, "data")
+    P.make_sharded_train_step(cfg32, mesh, "data", sparse_opt=opt,
+                              dense_lr=0.1)(sm, *blocks[0])
+    ref = P.unshard_dlrm(sm)
+    torch.cuda.synchronize()
+    G.gather_rows.launches = 0
+    svc = ett.make_dlrm_service(sm, mesh=mesh, max_batch=1024,
+                                max_latency_ms=2.0)
+    if rank != 0:
+        torch.cuda.synchronize()
+        return {"followed_batches": svc.batches}, G.gather_rows.launches
+    t0 = time.perf_counter()
+    try:
+        served = closed_loop(svc, lambda rng, b: make_request(rng, cfg32, b),
+                             clients=4, per_client=16)
+    finally:
+        svc.stop()
+    torch.cuda.synchronize()
+    launches = G.gather_rows.launches
+    seconds = time.perf_counter() - t0
+    step = ett.make_eval_step(cfg32)
+    err = 0.0
+    for (dense, cat), got, _ in served:
+        want = step(ref, dense, cat).cpu().numpy()
+        require(np.all(np.isfinite(got)), "mesh service: non-finite scores")
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        err = max(err, float(np.abs(got - want).max()))
+    stats = svc.stats_snapshot()
+    return ({"requests": len(served), "batches": stats["batches"],
+             "examples": stats["examples"], "seconds": seconds,
+             "max_abs_err_vs_unsharded": err, "gather_rows_launches": launches,
+             **latency_ms([lat for _, _, lat in served])}, launches)
+
+
+def mesh_rank(rank: int, n: int, port: int, results):
+    """One rank of the mesh phase, on card `rank`: every recipe, the parity
+    runs and the service, each result put on `results`."""
+    import datetime
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import parallel as P
+    from embeddingtables_tpu_torch.ops.cuda import gather as G
+    from embeddingtables_tpu_torch.ops.cuda import scatter as S
+    from embeddingtables_tpu_torch.parallel import sharded as PS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    P.init_process(f"tcp://localhost:{port}", n, rank,
+                   timeout=datetime.timedelta(seconds=600))
+    mesh = P.local_mesh(n)
+    ex = PS.Exchange(mesh, "data")
+    cfg = ett.dlrm_small_config(vocab=VOCAB)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    data = ett.SyntheticCriteo(vocab_sizes=cfg.vocab_sizes,
+                               batch_size=B_TRAIN, seed=SEED + 6)
+    host = list(data.batches(MESH_BATCHES))
+    global_batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                      for b in host]
+    blocks = [tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in P.local_batch(mesh, "data", b["dense"], b["cat"],
+                                           b["label"])) for b in host]
+    b_local = blocks[0][0].shape[0]
+    for name, opt in mesh_recipes(ett):
+        for exchange in ("gather", "a2a"):
+            r0 = time.perf_counter()
+            model = P.shard_dlrm(ett.init_dlrm(cfg, torch.Generator(
+                device="cuda").manual_seed(SEED), device="cuda",
+                sparse_opt=opt), mesh, "data", sparse_opt=opt)
+            torch.cuda.empty_cache()
+            # The peak is the training's: the full model made before the
+            # shard is gone.
+            torch.cuda.reset_peak_memory_stats()
+            step = P.make_sharded_train_step(
+                cfg, mesh, "data", sparse_opt=opt, dense_lr=0.1,
+                exchange=exchange, capacity_factor=MESH_CAPACITY,
+                with_overflow=exchange == "a2a")
+            outs = [step(model, *blocks[0])]                  # warm-up
+            torch.cuda.synchronize()
+            G.gather_rows.launches = 0
+            S.scatter_add_rows_sorted.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(MESH_STEPS):
+                outs.append(step(model, *blocks[(i + 1) % MESH_BATCHES]))
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+            launches = {"gather_rows": G.gather_rows.launches,
+                        "scatter_add_rows_sorted":
+                            S.scatter_add_rows_sorted.launches}
+            losses = [float(o[0] if isinstance(o, tuple) else o)
+                      for o in outs]
+            overflow = [int(o[1]) for o in outs if isinstance(o, tuple)]
+            timer = CollectiveTimer()
+            model.tables.exchange.timer = timer
+            step(model, *blocks[0])
+            collectives = timer.totals()
+            model.tables.exchange.timer = None
+            tower_params = sum(p.numel() for _, p in model.tower_params())
+            results.put({
+                "kind": "recipe", "rank": rank, "recipe": name,
+                "exchange": exchange, "losses": losses,
+                "step_ms": start.elapsed_time(end) / MESH_STEPS,
+                "host_wall_ms": wall, "launches": launches,
+                "overflow": overflow,
+                "overflow_fraction": (sum(overflow) / (
+                    len(overflow) * 2 * B_TRAIN * cfg.num_tables)
+                    if overflow else None),
+                "collective_ms": collectives,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "shard_rows": model.tables.rows_local,
+                "exchange_bytes": exchange_bytes(
+                    ex, exchange, b_local, cfg.num_tables, cfg.dim,
+                    tower_params),
+                "seconds": time.perf_counter() - r0})
+            del model, step, outs
+    results.put({"kind": "parity", "rank": rank, "rows": mesh_parity(
+        ett, P, mesh, rank, n, cfg32, blocks, global_batches)})
+    summary, launches = mesh_service(ett, P, mesh, rank, cfg32, blocks)
+    results.put({"kind": "service", "rank": rank, "launches": launches,
+                 **summary})
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(ett, S, H, G):
+    """The sharded DLRM (`dlrm_small_config(vocab=250_000)`, 26 x 250,000 x
+    128, B = 65,536 global, Zipf(1.1) `SyntheticCriteo` batches) over every
+    card of the machine, one rank per card in one NCCL group spawned from
+    here: SGD, indexer AdaGrad, lazy Adam and FTRL on the gather exchange
+    and the butterfly (capacity factor 2.0), each timed with its
+    collectives, overflow, peak memory, bytes and per-rank launches; the
+    parity runs (`mesh_parity`) and the service (`mesh_service`). The
+    kernels are built before spawning (every rank loads that build).
+    Returns the launches of the counted runs, summed over the ranks."""
+    import shutil
+    import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    shm = shutil.disk_usage("/dev/shm")
+    emit({"phase": "mesh_start", "ranks": n,
+          "dev_shm_bytes": {"total": shm.total, "free": shm.free},
+          "nccl_version": str(torch.cuda.nccl.version()),
+          "topology": subprocess.run(["nvidia-smi", "topo", "-m"],
+                                     capture_output=True, text=True,
+                                     timeout=60).stdout})
+    torch.cuda.empty_cache()
+    results = tmp.get_context("spawn").SimpleQueue()
+    ranks = tmp.spawn(mesh_rank, args=(n, free_port(), results), nprocs=n,
+                      join=False)
+    got = []
+    done = False
+    while not done:
+        done = ranks.join(timeout=1)     # raises if a rank failed
+        while not results.empty():
+            got.append(results.get())
+            # Each result as it arrives, so a later failure keeps it.
+            emit({"phase": f"mesh_{got[-1]['kind']}", "ranks": n,
+                  **{k: v for k, v in got[-1].items() if k != "kind"}})
+    recipes = [g for g in got if g["kind"] == "recipe"]
+    require(len(recipes) == n * 8, f"mesh: {len(recipes)} recipe results")
+    total = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
+    for name, _ in mesh_recipes(ett):
+        for exchange in ("gather", "a2a"):
+            rows = sorted((g for g in recipes if g["recipe"] == name
+                           and g["exchange"] == exchange),
+                          key=lambda g: g["rank"])
+            dense = name in ("lazy_adam", "ftrl_l1")
+            per_step = {"gather_rows": (1 if exchange == "gather" else 2)
+                        + (0 if dense else 1),
+                        "scatter_add_rows_sorted": 0 if dense else 1}
+            for g in rows:
+                require(all(math.isfinite(x) for x in g["losses"]),
+                        f"mesh {exchange} {name}: losses {g['losses']}")
+                require(g["losses"] == rows[0]["losses"],
+                        f"mesh {exchange} {name}: ranks disagree on losses")
+                want = {k: v * MESH_STEPS for k, v in per_step.items()}
+                require(g["launches"] == want, f"mesh {exchange} {name} rank "
+                        f"{g['rank']}: launches {g['launches']}, want {want}")
+                for k in total:
+                    total[k] += g["launches"][k]
+    parity = [g for g in got if g["kind"] == "parity" and g["rank"] == 0]
+    require(len(parity) == 1 and len(parity[0]["rows"]) == 8,
+            "mesh: parity results missing")
+    service = sorted((g for g in got if g["kind"] == "service"),
+                     key=lambda g: g["rank"])
+    require(len(service) == n and service[0]["requests"] == 64,
+            "mesh: service results missing")
+    require(all(s["followed_batches"] == service[0]["batches"]
+                for s in service[1:]), "mesh: followers missed batches")
+    require(all(s["launches"] == service[0]["batches"] for s in service),
+            "mesh service: gather_rows launches != served batches")
+    total["gather_rows"] += sum(s["launches"] for s in service)
+    emit({"phase": "mesh_done", "ranks": n, "batch": B_TRAIN,
+          "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return {"gather_bags": 0, "hot_accumulate": 0, **total}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: compat, nn and the torch bridge in a stock torch loop
+# ---------------------------------------------------------------------------
+
+COMPAT_STEPS = 4
+
+
+class CompatDLRM(torch.nn.Module):
+    """A stock torch model: the DLRM's towers as parameters (stepped by
+    `torch.optim.SGD`) and one `nn.SparseEmbed` per Criteo feature (stepped
+    by `apply_sparse_updates`)."""
+
+    def __init__(self, ett, cfg, model):
+        super().__init__()
+        self.cfg = cfg
+        self.bottom_params = model.bottom_params
+        self.top_params = model.top_params
+        self.tables = torch.nn.ModuleList([
+            ett.nn.SparseEmbed(v, cfg.dim, table=model.tables.table(t).data,
+                               device="cuda")
+            for t, v in enumerate(cfg.vocab_sizes)])
+
+    def forward(self, dense, cat):
+        from embeddingtables_tpu_torch.models.dlrm import (
+            _pairs, forward_from_embeddings)
+        emb = torch.stack([m(cat[t]) for t, m in enumerate(self.tables)])
+        return forward_from_embeddings(_pairs(self.bottom_params),
+                                       _pairs(self.top_params), self.cfg,
+                                       dense, emb)
+
+
+def compat_phase(ett, S, H, G):
+    """A stock loop at B = 65,536: `torch.optim.SGD` on the DLRM's towers,
+    26 `nn.SparseEmbed` tables with the Criteo Kaggle cardinalities capped
+    at 250,000 through `sparse_updates_from_grads` and
+    `apply_sparse_updates` (SGD: 26 lookups and 17 value permutes through
+    `gather_rows`, 17 run-scatters and 9 `hot_accumulate`s a step), against the same steps with every kernel
+    swapped for its plain version (tables to rtol 1e-5: `hot_accumulate`
+    sums in another order; towers and losses to 1e-5); then
+    `to_torch_embedding(bag=True)` of a trained table, an
+    `nn.EmbeddingBag` on the card, against the table's `lookup`
+    (`gather_bags`). Returns the launches of the counted run."""
+    from embeddingtables_tpu_torch.models.dlrm import bce_loss
+    t0 = time.perf_counter()
+    vocabs = tuple(min(c, VOCAB) for c in CRITEO_KAGGLE_CARDINALITIES)
+    cfg = ett.DLRMConfig(vocab_sizes=vocabs, compute_dtype=torch.float32)
+    batches = criteo_batches(ett, vocabs, 2, SEED + 9)
+    opt = ett.SparseSGD(1e-2)
+
+    def train():
+        model = CompatDLRM(ett, cfg, ett.init_dlrm(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda"))
+        towers = torch.optim.SGD([p for n, p in model.named_parameters()],
+                                 lr=1e-2)
+        states, losses, counts, ms = None, [], [], []
+        for i in range(COMPAT_STEPS):
+            b = batches[i % len(batches)]
+            G.gather_rows.launches = 0
+            S.scatter_add_rows_sorted.launches = 0
+            H.hot_accumulate.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            towers.zero_grad()
+            loss = bce_loss(model(b["dense"], b["cat"]), b["label"])
+            loss.backward()
+            upds = ett.nn.sparse_updates_from_grads(model)
+            _, states = ett.nn.apply_sparse_updates(model, upds, opt, states)
+            towers.step()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            counts.append((G.gather_rows.launches,
+                           S.scatter_add_rows_sorted.launches,
+                           H.hot_accumulate.launches))
+            losses.append(float(loss.detach()))
+        return model, losses, counts, ms
+
+    model, losses, counts, ms = train()
+    require(all(c == (43, 17, 9) for c in counts),
+            f"compat: (gather_rows, run-scatter, hot_accumulate) launches "
+            f"{counts}, want (43, 17, 9) a step")
+    require(all(math.isfinite(x) for x in losses), f"compat: {losses}")
+    with plain_gathers(G), plain_kernels(S, G), plain_segsum(H):
+        plain, plain_losses, plain_counts, _ = train()
+    require(all(c == (0, 0, 0) for c in plain_counts),
+            "compat: the plain run launched kernels")
+    np.testing.assert_allclose(losses, plain_losses, rtol=1e-5)
+    err = 0.0
+    for a, b in zip(model.tables, plain.tables):
+        torch.testing.assert_close(a.table, b.table, rtol=1e-5, atol=1e-6)
+        err = max(err, max_abs_err(a.table, b.table))
+    for (_, a), (_, b) in zip(model.named_parameters(),
+                              plain.named_parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # The bridge: a trained table as an nn.EmbeddingBag on the card.
+    table = ett.SimpleEmbedding(model.tables[2].table)
+    bag = ett.to_torch_embedding(table, bag=True, mode="sum")
+    require(bag.weight.device.type == "cuda", "bridge: module off the card")
+    ids = batches[0]["cat"][2].reshape(-1, 8)
+    before = G.gather_bags.launches
+    got = ett.lookup(table, ids)
+    bag_launches = G.gather_bags.launches - before
+    require(bag_launches == 1, "bridge: lookup did not launch gather_bags")
+    want = bag(ids.long())
+    torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=1e-6)
+    emit({"phase": "compat", "batch": B_TRAIN, "tables": len(vocabs),
+          "steps": COMPAT_STEPS, "losses": losses,
+          "launches_per_step": {"gather_rows": 43,
+                                "scatter_add_rows_sorted": 17,
+                                "hot_accumulate": 9},
+          "step_ms": ms, "max_abs_err_vs_plain": err,
+          "embedding_bag_vs_lookup_max_abs": max_abs_err(got, want.detach()),
+          "seconds": time.perf_counter() - t0})
+    del model, plain
+    torch.cuda.empty_cache()
+    return {"gather_rows": 43 * COMPAT_STEPS, "gather_bags": 0,
+            "scatter_add_rows_sorted": 17 * COMPAT_STEPS,
+            "hot_accumulate": 9 * COMPAT_STEPS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3819,6 +4388,14 @@ def main() -> int:
         input_pipeline_phase(ett, S, H, G)
         print(card_line(), flush=True)
         return 0
+    if "--mesh" in sys.argv[1:]:
+        mesh_phase(ett, S, H, G)
+        print(card_line(), flush=True)
+        return 0
+    if "--compat" in sys.argv[1:]:
+        compat_phase(ett, S, H, G)
+        print(card_line(), flush=True)
+        return 0
     t0 = time.perf_counter()
     errs, timings = kernel_phase(G, gen)
     torch.cuda.empty_cache()
@@ -3856,6 +4433,8 @@ def main() -> int:
     persist, _ = persistence_phase(ett, S, H, G, gen, train_batches)
     micro = microbatch_phase(ett, S, H, G, train_batches)
     served_rpc = rpc_phase(ett, S, H, G)
+    meshed = mesh_phase(ett, S, H, G)
+    compat = compat_phase(ett, S, H, G)
     # Last: loading the native libraries (built with -ffast-math, as the JAX
     # package builds them) sets flush-to-zero in this thread.
     piped = input_pipeline_phase(ett, S, H, G)
@@ -3882,7 +4461,7 @@ def main() -> int:
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
     counted = (ens, fam, var, wide_counter.total, persist, micro,
-               served_rpc, piped)
+               served_rpc, meshed, compat, piped)
     paths = {
         "gather_rows": (serve_launches["gather_rows"]
                         + sum(c["gather_rows"] for c in counted),

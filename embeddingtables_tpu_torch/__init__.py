@@ -33,6 +33,17 @@ profiler traces, and refreshable services
 (`serving.make_refreshable_service`) that follow a trainer's deltas through
 `DeltaFollower`.
 
+Multi-device (`parallel`): one process per card over `torch.distributed`
+(NCCL; gloo on the CPU), the stacked table mod-row-sharded over a
+`DeviceMesh`, the exact gather exchange and the capacity-bounded
+butterfly, the sharded DLRM step, `train_dlrm(mesh=)` and
+`make_dlrm_service(mesh=)`.
+
+Ecosystem: `nn.Embed` / `nn.SparseEmbed` modules for stock torch models,
+`compat`'s optax-shaped sparse transform, and the torch bridge
+(`from_torch`, `to_torch_embedding`, `stacked_from_torch`,
+`stacked_to_torch`).
+
 Table variants: `QuantizedEmbedding` and `Int4QuantizedEmbedding` (serving);
 the compositional `QREmbedding`, `MDEmbedding` and `TTEmbedding` with their
 `*_lookup_vjp`; `HostOffloadEmbedding` and `TieredEmbedding` (rows in pinned
@@ -77,16 +88,17 @@ from .optim import (SparseAdamState, SparseFTRL, SparseFTRLState,
 from .rounding import stochastic_cast, stochastic_round_to_bf16
 from .data import SyntheticCriteo, SyntheticRetrieval
 from .interop import (dcn_from_arrays, deepfm_from_arrays, dlrm_from_arrays,
-                      md_from_arrays, qr_from_arrays, quantized_from_arrays,
-                      tiered_from_arrays, tt_from_arrays,
-                      two_tower_from_arrays)
+                      from_torch, md_from_arrays, qr_from_arrays,
+                      quantized_from_arrays, stacked_from_torch,
+                      stacked_to_torch, tiered_from_arrays, to_torch_embedding,
+                      tt_from_arrays, two_tower_from_arrays)
 from . import utils
 from .serving import (MicroBatcher, make_dcn_service, make_deepfm_service,
                       make_dlrm_service, make_refreshable_dlrm_service,
                       make_refreshable_service, make_retrieval_service,
                       serve_http)
 from .rpc import ModelRouter, RPCClient, RPCServer, serve_rpc
-from . import io
+from . import compat, io, nn, parallel
 
 __all__ = [
     "Static", "Dynamic", "TableSpec", "IndexingContext", "NoContext",
@@ -120,10 +132,11 @@ __all__ = [
     "SyntheticCriteo", "SyntheticRetrieval", "dlrm_from_arrays",
     "dcn_from_arrays", "deepfm_from_arrays", "two_tower_from_arrays",
     "quantized_from_arrays", "qr_from_arrays", "md_from_arrays",
-    "tt_from_arrays", "tiered_from_arrays",
+    "tt_from_arrays", "tiered_from_arrays", "from_torch",
+    "to_torch_embedding", "stacked_from_torch", "stacked_to_torch",
     "MicroBatcher", "make_dlrm_service", "make_dcn_service",
     "make_deepfm_service", "make_retrieval_service", "serve_http",
     "make_refreshable_service", "make_refreshable_dlrm_service",
     "ModelRouter", "RPCServer", "RPCClient", "serve_rpc",
-    "config", "utils", "io",
+    "config", "utils", "io", "compat", "nn", "parallel",
 ]

@@ -20,6 +20,15 @@ The CTR models' `dense_opt_state=` carries the towers' `optax.adam`
 state, `(count, mu, nu)` with `mu` and `nu` nested like the JAX model's
 tower parameters, into the `DenseOptState` that `torch.optim.Adam` steps
 (`count` becomes every parameter's `step`).
+
+The torch bridge (JAX's `interop.py` moves weights between its tables and
+`torch.nn` modules; here both sides are torch): `from_torch` copies an
+`nn.Embedding`, an `nn.EmbeddingBag` or a `(V, D)` tensor into a
+`SimpleEmbedding` on that tensor's device, `to_torch_embedding` gives an
+`nn.Embedding` (or `nn.EmbeddingBag`) holding a table's rows as float32 on
+the table's device, and `stacked_from_torch` / `stacked_to_torch` do the
+same for a `StackedTables` and its per-table modules. Each copies, as JAX's
+does, so training one side leaves the other as it was.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from .qr import QREmbedding
 from .quant import Int4QuantizedEmbedding, QuantizedEmbedding
 from .tiered import TieredEmbedding
 from .tt import TTEmbedding
+from .tables import SimpleEmbedding, as_table
 from .types import Dynamic, TableSpec
 
 _STATES = {c._fields: c for c in _STATE_TYPES}
@@ -251,3 +261,71 @@ def tiered_from_arrays(hot, cold, *, device=None, name=None
                      dtype=hot.dtype, lookup=Dynamic(), name=name)
     return TieredEmbedding(hot=hot, cold=cold, spec=spec,
                            hot_rows=hot.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# The torch bridge
+# ---------------------------------------------------------------------------
+
+def _weight_of(src, device=None) -> torch.Tensor:
+    """A copy of the `(vocab, dim)` rows of an `nn.Embedding` /
+    `nn.EmbeddingBag`, a tensor (on its device) or an array (on
+    `resolve_device(device)`)."""
+    w = src.weight if hasattr(src, "weight") else src
+    if torch.is_tensor(w):
+        w = w.detach().clone()
+    else:
+        w = tensor_from_array(np.asarray(w), resolve_device(device))
+    if w.dim() != 2:
+        raise ValueError(f"expected (vocab, dim) weights, got "
+                         f"{tuple(w.shape)}")
+    return w
+
+
+def from_torch(src, *, name: str | None = None,
+               device=None) -> SimpleEmbedding:
+    """`nn.Embedding` / `nn.EmbeddingBag` / `(V, D)` tensor -> a
+    `SimpleEmbedding` of a copy of its rows, on the tensor's device (an
+    array goes to `device`, CUDA unless given)."""
+    return SimpleEmbedding(_weight_of(src, device), name=name)
+
+
+def _module(w: torch.Tensor, bag: bool = False, mode: str = "sum"):
+    v, d = w.shape
+    m = (torch.nn.EmbeddingBag(v, d, mode=mode, device=w.device) if bag
+         else torch.nn.Embedding(v, d, device=w.device))
+    with torch.no_grad():
+        m.weight.copy_(w.float())
+    return m
+
+
+def to_torch_embedding(table, *, bag: bool = False, mode: str = "sum"):
+    """A table -> `nn.Embedding` (or `nn.EmbeddingBag(mode=mode)` with
+    `bag=True`) holding a float32 copy of its rows on the table's device.
+    Any protocol table with a dense form exports: `data`, or
+    `materialize()` of the compositional, offloaded and tiered tables."""
+    t = as_table(table)
+    data = getattr(t, "data", None)
+    if data is None:
+        data = t.materialize()
+    return _module(data, bag=bag, mode=mode)
+
+
+def stacked_from_torch(sources: Sequence, device=None) -> StackedTables:
+    """Per-table torch weights (modules or tensors) -> ONE stacked
+    `(sum V, D)` ensemble, offsets rebuilt from the vocab sizes."""
+    ws = [_weight_of(s, device) for s in sources]
+    dims = {w.shape[1] for w in ws}
+    if len(dims) != 1:
+        raise ValueError(f"stacked tables need one dim, got {sorted(dims)}")
+    offs = [0]
+    for w in ws:
+        offs.append(offs[-1] + w.shape[0])
+    return StackedTables(torch.cat([w.to(ws[0].device) for w in ws]),
+                         tuple(offs), ws[0].shape[1])
+
+
+def stacked_to_torch(tables: StackedTables) -> list:
+    """A `StackedTables` -> one `nn.Embedding` per member table."""
+    return [_module(tables.data[tables.offsets[i]:tables.offsets[i + 1]])
+            for i in range(tables.ntables)]

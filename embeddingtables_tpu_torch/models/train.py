@@ -23,7 +23,10 @@ read `dense_tx` (the towers' `torch.optim` factory; a fresh model is built
 with its state) and `microbatch` (passed to the family's train step), and
 every loop reads `device_prefetch`: the next batches are copied to the card
 on a side stream while the current step runs (`io.loader.DevicePrefetcher`).
-The mesh and planner options are not ported yet: `unported.py` holds their
+`train_dlrm(mesh=...)` trains the sharded DLRM (`parallel/dlrm.py`): every
+rank runs the loop on the same global batch iterator and steps on its
+data-axis block. The planner, the other families' meshes, and sharded
+persistence and eviction are not ported yet: `unported.py` holds their
 table, and a value other than the one that leaves an option off raises
 `NotImplementedError`.
 """
@@ -40,7 +43,8 @@ from ..config import resolve_device
 from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD, require_dense_state
-from ..unported import check_jax_combinations, refuse_unported
+from ..unported import (check_jax_combinations, refuse_beside_mesh,
+                         refuse_unported)
 from ..utils import telemetry as _telemetry
 from ..utils.deltackpt import TouchedRowTracker
 from ..utils.rowstats import FrequencyTracker, evict_rows, reset_rows_state
@@ -66,15 +70,20 @@ class RetrievalTrainResult:
 
 
 def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_ckpt=None,
-            delta_every=0, **unported) -> None:
-    """JAX's own errors on `unported`'s combinations first, then the
-    unported options that are set (the rest of JAX's options are ignored,
-    as `unported.py` says)."""
+            delta_every=0, mesh=None, plan=None, **beside_mesh) -> None:
+    """JAX's own errors on the combinations first, then the unported
+    options that are set: `plan`, `mesh` on every loop but `train_dlrm`
+    (which passes the options it refuses beside a mesh as
+    `beside_mesh`), and those options beside a mesh (the rest of JAX's
+    options are ignored, as `unported.py` says)."""
     check_jax_combinations(
-        mesh=unported.get("mesh"), plan=unported.get("plan"),
-        delta_ckpt=delta_ckpt, delta_every=delta_every,
+        mesh=mesh, plan=plan, delta_ckpt=delta_ckpt, delta_every=delta_every,
         wire_dtype=wire_dtype, exchange=exchange)
-    refuse_unported(loop, **unported)
+    if beside_mesh:
+        refuse_unported(loop, plan=plan)
+        refuse_beside_mesh(loop, mesh, delta_ckpt=delta_ckpt, **beside_mesh)
+    else:
+        refuse_unported(loop, mesh=mesh, plan=plan)
 
 
 def _collect_scores(eval_step, model, batches):
@@ -113,15 +122,42 @@ def _sr_generator_for(sparse_opt, seed: int, device: torch.device):
     return None
 
 
+def _check_schedule(sparse_opt, lr_schedule) -> None:
+    """FTRL takes no `lr_schedule`: `ValueError` before the first step."""
+    if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
+        raise ValueError(
+            "SparseFTRL cannot change lr per step: alpha is baked into the "
+            "accumulated z state, so it takes no lr_schedule")
+
+
+def _ctr_eval_fn(eval_step, eval_batches, eval_metrics: bool):
+    """The CTR loops' eval hook: AUC, or with `eval_metrics` the whole
+    sweep, of `eval_step`'s logits over `eval_batches`."""
+    def eval_fn(m):
+        if eval_metrics:
+            met = evaluate_metrics(eval_step, m, eval_batches)
+            return met["auc"], (
+                f"eval AUC {met['auc']:.4f}  logloss {met['log_loss']:.5f}  "
+                f"NE {met['normalized_entropy']:.4f}  calib "
+                f"{met['calibration']:.3f}")
+        a = evaluate_auc(eval_step, m, eval_batches)
+        return a, f"eval AUC {a:.4f}"
+    return eval_fn
+
+
 def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
               batch_count, lr_schedule=None, generator=None, track_fn=None,
               evict_every=0, evict_fn=None, split_out=None, log_every=100,
               verbose=True, on_log=None, guard=None, on_rollback=None,
               eval_every=0, eval_batches=None, eval_fn=None, delta_fn=None,
-              ckpt_manager=None, ckpt_every=0, device_prefetch=0):
+              ckpt_manager=None, ckpt_every=0, device_prefetch=0,
+              tuner=None, tuner_occ_fn=None, rebuild_step=None):
     """The shared per-step cadence. `device_prefetch > 0` runs `put` on
     the next batches beside the step (`io.loader.DevicePrefetcher`, that
-    many batches ahead). Hooks:
+    many batches ahead). With a `tuner` (`parallel.alltoall.
+    CapacityAutoTuner`) the step returns `(loss, overflow)`: the tuner
+    reads the overflow at the log cadence and the loop rebuilds the step at
+    the factor it returns (`rebuild_step(factor)`). Hooks:
 
       put(batch) -> args              the step's positional inputs
       track_fn(batch)                 feed the frequency trackers
@@ -165,9 +201,22 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
             evicted_total += evict_fn(model)
         loss = out if split_out is None else split_out(out)
         examples += batch_count(batch)
+        if tuner is not None and i == 0:
+            tuner.occ = tuner_occ_fn(batch)
         if log_every and (i % log_every == 0 or i == num_steps - 1):
             lv = float(loss)       # waits for the step: keeps the rate honest
             losses.append(lv)
+            if tuner is not None:
+                # The overflow is summed over the ranks inside the step, so
+                # every rank takes the same decision.
+                new_cf = tuner.observe(int(out[1]))
+                if new_cf is not None:
+                    with tel.phase("retune"):
+                        step = rebuild_step(new_cf)
+                    if verbose:
+                        print(f"step {i:6d}  overflow {int(out[1])} — "
+                              f"capacity factor -> {new_cf:.2f} (step "
+                              "rebuilt)", flush=True)
             if guard is not None:
                 # The divergence watchdog reads the loss at the log cadence
                 # (a read every step would wait for every step). A rollback
@@ -370,10 +419,7 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
     `model` trained with `dense_tx` must hold its tower state
     (`init_*(dense_tx=)`): `ValueError` before the first step otherwise,
     where JAX's loop fails inside optax."""
-    if lr_schedule is not None and isinstance(sparse_opt, SparseFTRL):
-        raise ValueError(
-            "SparseFTRL cannot change lr per step: alpha is baked into the "
-            "accumulated z state, so it takes no lr_schedule")
+    _check_schedule(sparse_opt, lr_schedule)
     tel = _telemetry.get_telemetry()
     model = _model_for(fam.init, fam.from_arrays, cfg, model, seed, device,
                        sparse_opt, tel, dense_tx=dense_tx)
@@ -387,16 +433,7 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         return tuple(torch.as_tensor(b[k]).to(device, non_blocking=True)
                      for k in ("dense", "cat", "label"))
 
-    def eval_fn(m):
-        if eval_metrics:
-            met = evaluate_metrics(eval_step, m, eval_batches)
-            return met["auc"], (
-                f"eval AUC {met['auc']:.4f}  logloss {met['log_loss']:.5f}  "
-                f"NE {met['normalized_entropy']:.4f}  calib "
-                f"{met['calibration']:.3f}")
-        a = evaluate_auc(eval_step, m, eval_batches)
-        return a, f"eval AUC {a:.4f}"
-
+    eval_fn = _ctr_eval_fn(eval_step, eval_batches, eval_metrics)
     delta_tracker = _delta_setup(delta_ckpt, delta_every, model.tables)
     track_fn, evict_fn = _evict_hooks(cfg, evict_every, evict_threshold,
                                       freq_decay, evict_stacks, delta_tracker)
@@ -422,6 +459,101 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         device_prefetch=device_prefetch)
     return TrainResult(model=model, losses=losses, aucs=aucs,
                        examples_per_sec=eps, evicted_rows=evicted)
+
+
+def _sharded_dlrm_for(cfg, model, mesh, axis, sparse_opt, dense_tx, seed,
+                      tel):
+    """The sharded model to train in place: `model` itself when sharded,
+    else the single-device one (given, built from numpy arrays, or
+    `init_dlrm` from `seed` on this rank's device) placed by `shard_dlrm`."""
+    from ..parallel.dlrm import ShardedDLRM, shard_dlrm
+    from ..parallel.mesh import mesh_device
+    from . import dlrm
+    if isinstance(model, ShardedDLRM):
+        return model
+    device = mesh_device(mesh)
+    if isinstance(model, dict):
+        from ..interop import dlrm_from_arrays
+        model = dlrm_from_arrays(cfg, device=device, **model)
+    elif model is None:
+        with tel.phase("init"):
+            model = dlrm.init_dlrm(
+                cfg, torch.Generator(device=device).manual_seed(seed),
+                device=device, sparse_opt=sparse_opt, dense_tx=dense_tx)
+    return shard_dlrm(model, mesh, axis, sparse_opt=sparse_opt,
+                      dense_tx=dense_tx)
+
+
+def _train_dlrm_mesh(cfg, train_iter, num_steps: int, *, mesh, axis,
+                     exchange, capacity_factor, auto_capacity, wire_dtype,
+                     sparse_opt, dense_lr, dense_tx, microbatch,
+                     device_prefetch, model, seed, eval_batches, eval_every,
+                     eval_metrics, log_every, lr_schedule,
+                     verbose) -> TrainResult:
+    """`train_dlrm` on a mesh: every rank runs this loop on the same global
+    batches and steps on its data-axis block (`parallel.dlrm`). The eval
+    scores every global eval batch on every rank (each rank its block, then
+    an all-gather). With `exchange="a2a"` and `auto_capacity` the step
+    reports its overflow and `CapacityAutoTuner` rebuilds it at a larger
+    capacity factor when occurrences are dropped. Stochastic rounding draws
+    from a generator of each rank's own (`rank_generator`)."""
+    from ..parallel import dlrm as pdlrm
+    from ..parallel.alltoall import CapacityAutoTuner
+    sparse_opt = sparse_opt or SparseSGD()
+    _check_schedule(sparse_opt, lr_schedule)
+    tel = _telemetry.get_telemetry()
+    model = _sharded_dlrm_for(cfg, model, mesh, axis, sparse_opt, dense_tx,
+                              seed, tel)
+    require_dense_state(model, dense_tx, "init_sharded_dlrm")
+    ex = model.tables.exchange
+    device = model.tables.data.device
+    with_overflow = exchange == "a2a" and auto_capacity
+
+    def build_step(cf):
+        return pdlrm.make_sharded_train_step(
+            cfg, mesh, axis, sparse_opt=sparse_opt, dense_lr=dense_lr,
+            exchange=exchange, capacity_factor=cf,
+            with_overflow=with_overflow, dense_tx=dense_tx,
+            wire_dtype=wire_dtype, microbatch=microbatch)
+
+    tuner = tuner_occ_fn = None
+    if with_overflow:
+        tuner = CapacityAutoTuner(capacity_factor, 1)   # occ: first batch
+        # Routed occurrences of a step: the forward's and the update's.
+        tuner_occ_fn = lambda b: (2 * b["label"].shape[0]  # noqa: E731
+                                  * len(cfg.vocab_sizes) * (cfg.bag or 1))
+    eval_step = pdlrm.make_sharded_eval_step(cfg, mesh, axis)
+
+    def global_eval(m, dense, cat):
+        return pdlrm.sharded_logits(m, dense, cat, eval_step)
+
+    def put(b):
+        block = pdlrm._local_block(ex, b["dense"], b["cat"], b["label"])
+        return tuple(torch.as_tensor(x).to(device, non_blocking=True)
+                     for x in block)
+
+    generator = None
+    if getattr(sparse_opt, "stochastic_rounding", False):
+        generator = pdlrm.rank_generator(seed + 1_000_003, ex.me, device)
+    model, losses, aucs, eps, _ = _run_loop(
+        model=model, device=device, step=build_step(capacity_factor),
+        put=put, train_iter=train_iter, num_steps=num_steps, tel=tel,
+        batch_count=lambda b: b["label"].shape[0], lr_schedule=lr_schedule,
+        generator=generator,
+        split_out=(lambda out: out[0]) if with_overflow else None,
+        log_every=log_every, verbose=verbose and _rank() == 0,
+        eval_every=eval_every, eval_batches=eval_batches,
+        eval_fn=_ctr_eval_fn(global_eval, eval_batches, eval_metrics),
+        device_prefetch=device_prefetch, tuner=tuner,
+        tuner_occ_fn=tuner_occ_fn, rebuild_step=build_step)
+    return TrainResult(model=model, losses=losses, aucs=aucs,
+                       examples_per_sec=eps)
+
+
+def _rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
@@ -473,12 +605,31 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     the next n batches to the card on a side stream beside the step; the
     results are bitwise those without it.
 
+    `mesh` (a `DeviceMesh`, `parallel.mesh`) trains the sharded DLRM on
+    every rank of the mesh, each calling `train_dlrm` with the same
+    arguments and the same global batches: `axis` names the placement
+    (`"data"`, or `("data", "model")`), `exchange` the lookup and update
+    exchange ("gather", or the "a2a" butterfly with `capacity_factor`,
+    `auto_capacity` and `wire_dtype`). The result's model is the
+    `parallel.dlrm.ShardedDLRM`; `device` is the mesh's.
+
     JAX's other options follow `unported.py`: set, an unported one raises,
     as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
     state), before the first step, as the JAX loop's first step does."""
     _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
             delta_ckpt=delta_ckpt, delta_every=delta_every, mesh=mesh,
-            plan=plan)
+            plan=plan, ckpt_manager=ckpt_manager, guard=guard,
+            evict_every=evict_every)
+    if mesh is not None:
+        return _train_dlrm_mesh(
+            cfg, train_iter, num_steps, mesh=mesh, axis=axis,
+            exchange=exchange, capacity_factor=capacity_factor,
+            auto_capacity=auto_capacity, wire_dtype=wire_dtype,
+            sparse_opt=sparse_opt, dense_lr=dense_lr, dense_tx=dense_tx,
+            microbatch=microbatch, device_prefetch=device_prefetch,
+            model=model, seed=seed, eval_batches=eval_batches,
+            eval_every=eval_every, eval_metrics=eval_metrics,
+            log_every=log_every, lr_schedule=lr_schedule, verbose=verbose)
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,

@@ -288,6 +288,13 @@ class RPCServer:
         with self._conns_lock:
             conns = list(self._conns)
         for c in conns:
+            # shutdown first: close() alone neither wakes this server's
+            # reader blocked on the socket nor sends the client its EOF
+            # until that read returns.
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 c.close()
             except OSError:

@@ -10,7 +10,9 @@ of `embeddingtables_tpu/serving.py`).
   - `make_dlrm_service`, `make_dcn_service`, `make_deepfm_service`: glue
     from a CTR model, or its int8 / int4 quantized tables (`quant.py`), to a
     `MicroBatcher`; `make_retrieval_service` serves a two-tower model's
-    top-k retrieval the same way.
+    top-k retrieval the same way. `make_dlrm_service(mesh=)` serves a
+    sharded DLRM from every rank of its mesh: rank 0 batches and
+    broadcasts, the other ranks follow (`MeshFollower`).
   - `make_refreshable_service` (any CTR family) and
     `make_refreshable_dlrm_service`: a service whose tables (or whole model)
     can be swapped while it serves, for a replica that follows a trainer's
@@ -23,6 +25,7 @@ Shapes: dense `(b, num_dense)` float32, cat `(T, b[, bag])` int32
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import queue
@@ -255,16 +258,121 @@ def _scoring_service(model, make_eval_step, quantize, *, quantized: bool,
                         max_latency_ms=max_latency_ms)
 
 
+@dataclass
+class MeshFollower:
+    """What `make_dlrm_service(mesh=...)` returns on the ranks other than
+    0, once rank 0's service has stopped: the batches it helped score."""
+
+    batches: int
+
+
+_STOP, _SCORE = 0, 1
+
+
+class _MeshBatcher(MicroBatcher):
+    """Rank 0's batcher of a sharded service: `stop()` also ends the other
+    ranks' follower loops."""
+
+    def __init__(self, predict_fn, header, **kw):
+        super().__init__(predict_fn, **kw)
+        self._header = header
+        self._followers_stopped = False
+
+    def stop(self, drain: bool = True, timeout: float = 30.0):
+        super().stop(drain=drain, timeout=timeout)
+        if not self._followers_stopped:
+            self._followers_stopped = True
+            self._header(_STOP, 0, 0, 0, 0)
+
+
+def _mesh_dlrm_service(model, mesh, axis, max_batch: int,
+                       max_latency_ms: float):
+    """The sharded DLRM behind rank 0's `MicroBatcher`. Every eval is a
+    collective, so rank 0's worker broadcasts each flushed batch (a header
+    with its shape, then the dense and cat tensors) to every rank, padded
+    to a multiple of the placement's rank count with its tail row (JAX's
+    rule); every rank scores its data block and the logits are gathered.
+    The other ranks run that loop until rank 0's `stop()`."""
+    import torch.distributed as dist
+    from .parallel.dlrm import make_sharded_eval_step, sharded_logits
+    device = model.tables.data.device
+    n = model.tables.exchange.n
+    step = make_sharded_eval_step(model.config, mesh, axis)
+
+    def on_device():
+        return (torch.cuda.device(device) if device.type == "cuda"
+                else contextlib.nullcontext())
+
+    def header(cmd, b, f, t, bag):
+        h = torch.tensor([cmd, b, f, t, bag], dtype=torch.int64,
+                         device=device)
+        with on_device():
+            dist.broadcast(h, src=0)
+        return [int(x) for x in h.tolist()]
+
+    def score(dense, cat):
+        with on_device():
+            dist.broadcast(dense, src=0)
+            dist.broadcast(cat, src=0)
+            return sharded_logits(model, dense, cat, step)
+
+    if dist.get_rank() != 0:
+        batches = 0
+        while True:
+            cmd, b, f, t, bag = header(_STOP, 0, 0, 0, 0)
+            if cmd == _STOP:
+                return MeshFollower(batches)
+            dense = torch.empty((b, f), dtype=torch.float32, device=device)
+            cat = torch.empty((t, b) + ((bag,) if bag else ()),
+                              dtype=torch.int32, device=device)
+            score(dense, cat)
+            batches += 1
+
+    def predict(dense, cat):
+        b = dense.shape[0]
+        pad = (-b) % n
+        if pad:
+            dense = np.concatenate([dense] + [dense[-1:]] * pad, axis=0)
+            cat = np.concatenate([cat] + [cat[:, -1:]] * pad, axis=1)
+        header(_SCORE, dense.shape[0], dense.shape[1], cat.shape[0],
+               cat.shape[2] if cat.ndim == 3 else 0)
+        out = score(torch.from_numpy(np.ascontiguousarray(dense)).to(device),
+                    torch.from_numpy(np.ascontiguousarray(cat)).to(device))
+        return out.cpu().numpy()[:b]
+
+    return _MeshBatcher(predict, header, max_batch=max_batch,
+                        max_latency_ms=max_latency_ms)
+
+
 def make_dlrm_service(model, *, quantized: bool = False,
                       quantize_bits: int = 8, mesh=None, axis="data",
                       max_batch: int = 1024,
-                      max_latency_ms: float = 5.0) -> MicroBatcher:
+                      max_latency_ms: float = 5.0):
     """Batched DLRM scoring service on the model's device: `dlrm_forward`
     per flushed batch, or with `quantized=True` the stacked tables as int8
     (`quantize_bits=8`) or int4 rows (`quant.quantize_dlrm`). Returns a
     running `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
-    A `mesh` is not ported yet (`unported.py`); `axis` is ignored without
-    one, as in JAX."""
+
+    With `mesh` (a `parallel.dlrm.ShardedDLRM` placed on it over `axis`)
+    every rank of the group calls this: rank 0 gets the running
+    `MicroBatcher`, whose batches every rank scores through the sharded
+    eval step; the other ranks follow until rank 0's `stop()` and then
+    return a `MeshFollower`. `quantized` serving is single-device, as in
+    JAX, and a planned model waits for the planner; `axis` is ignored
+    without a mesh."""
+    if mesh is not None:
+        if quantized:
+            raise NotImplementedError(
+                "quantized serving is single-chip; unshard the model first")
+        from .parallel.dlrm import ShardedDLRM
+        if not isinstance(model, ShardedDLRM):
+            raise NotImplementedError(
+                f"make_dlrm_service(mesh=...) serves a ShardedDLRM "
+                f"(parallel.shard_dlrm), got a {type(model).__name__}; a "
+                "model placed by the planner waits for the planner "
+                "(ROADMAP.md queue 1, item I-3)")
+        return _mesh_dlrm_service(model, mesh, axis, max_batch,
+                                  max_latency_ms)
     return _scoring_service(model, dlrm.make_eval_step, quant.quantize_dlrm,
                             quantized=quantized, quantize_bits=quantize_bits,
                             mesh=mesh, entry="make_dlrm_service",

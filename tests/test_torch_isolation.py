@@ -19,7 +19,9 @@ REPO = PKG.parent
 NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
                "utils.rowstats", "utils.checkpoint", "utils.deltackpt",
                "utils.resilience", "utils.telemetry", "rpc", "io.loader",
-               "io.synth", "io.criteo_file", "models.microbatch")
+               "io.synth", "io.criteo_file", "models.microbatch",
+               "parallel", "parallel.mesh", "parallel.sharded",
+               "parallel.alltoall", "parallel.dlrm", "compat", "nn")
 ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 
 
@@ -139,6 +141,10 @@ def _no_device_calls():
         "train_dlrm_input_options": lambda: ett.train_dlrm(
             dlrm, iter(()), 0, dense_tx=ADAM, microbatch=2,
             device_prefetch=2),
+        "nn.Embed": lambda: ett.nn.Embed(5, 4),
+        "nn.SparseEmbed": lambda: ett.nn.SparseEmbed(5, 4),
+        "from_torch(array)": lambda: ett.from_torch(table),
+        "local_mesh": lambda: ett.parallel.local_mesh(1),
     }
 
 
@@ -158,7 +164,9 @@ def _no_device_calls():
                                    "train_dlrm_persistent",
                                    "make_refreshable_service",
                                    "init_dlrm_dense_tx",
-                                   "train_dlrm_input_options"])
+                                   "train_dlrm_input_options", "nn.Embed",
+                                   "nn.SparseEmbed", "from_torch(array)",
+                                   "local_mesh"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -219,3 +227,16 @@ def test_input_options_run_where_the_model_lies_without_a_card(monkeypatch):
     batch, arg = next(pf)
     assert arg.device.type == "cpu" and torch.equal(arg, torch.ones(3,
                                                      dtype=torch.float64))
+
+
+def test_a_mesh_forms_no_group_of_its_own():
+    # No fallback: without a process group a mesh refuses, on the card's
+    # backend or the CPU's, and forms no group itself.
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    for device in ("cpu", None):
+        with pytest.raises(RuntimeError, match="process group|device='cpu'"):
+            ett.parallel.default_mesh(("data",), device=device)
+    assert not dist.is_initialized()
+    assert ett.parallel.mesh.backend_for(torch.device("cuda")) == "nccl"
+    assert ett.parallel.mesh.backend_for(torch.device("cpu")) == "gloo"

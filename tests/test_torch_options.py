@@ -167,7 +167,7 @@ def test_planner_with_another_exchange_raises_as_jax_does():
 
 
 @pytest.mark.parametrize("entry,kw", [
-    ("train_dlrm", dict(mesh=object())),
+    ("train_dlrm", dict(mesh=object(), ckpt_manager=object())),
     ("train_dcn", dict(mesh=object())),
     ("train_deepfm", dict(mesh=object(), plan=object())),
     ("train_two_tower", dict(mesh=object())),
@@ -193,3 +193,45 @@ def test_an_unknown_name_raises_type_error():
     with pytest.raises(TypeError, match="guard"):
         port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
                                    device="cpu", guard=object())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ckpt_manager=object(), ckpt_every=1), dict(guard=object()),
+    dict(delta_ckpt=object(), delta_every=1), dict(evict_every=2),
+], ids=["ckpt_manager", "guard", "delta_ckpt", "evict_every"])
+def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
+    # Sharded persistence and eviction are ROADMAP item I-2; the refusal
+    # comes before anything touches the (here fake) mesh.
+    with pytest.raises(NotImplementedError, match=r"item I-2"):
+        _run_ctr("dlrm", mesh=object(), **kw)
+
+
+@pytest.mark.parametrize("entry", ["train_dcn", "train_deepfm",
+                                   "train_two_tower", "make_dcn_service",
+                                   "make_deepfm_service",
+                                   "make_retrieval_service"])
+def test_the_other_families_mesh_waits_for_item_i2(entry):
+    with pytest.raises(NotImplementedError, match=r"mesh=.*item I-2"):
+        if entry == "train_two_tower":
+            port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                       device="cpu", mesh=object())
+        elif entry.startswith("train_"):
+            _run_ctr(entry[len("train_"):], mesh=object())
+        else:
+            family = entry[len("make_"):-len("_service")]
+            getattr(ett, entry)(_service_model(family), mesh=object())
+
+
+def test_the_unported_table_names_each_option_and_its_item():
+    from embeddingtables_tpu_torch.unported import UNPORTED
+    items = {name: what.split("item ")[-1].rstrip(")")
+             for name, (_, what) in UNPORTED.items()}
+    assert items == {"mesh": "I-2", "plan": "I-3", "mesh+ckpt_manager": "I-2",
+                     "mesh+guard": "I-2", "mesh+delta_ckpt": "I-2",
+                     "mesh+evict_every": "I-2"}
+    assert {name: off for name, (off, _) in UNPORTED.items()} == {
+        "mesh": (None,), "plan": (None,), "mesh+ckpt_manager": (None,),
+        "mesh+guard": (None,), "mesh+delta_ckpt": (None,),
+        "mesh+evict_every": (0,)}
+    with pytest.raises(NotImplementedError, match="I-3"):
+        _run_ctr("dlrm", mesh=object(), plan=object())

@@ -337,23 +337,27 @@ def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_dlrm_options_not_ported_raise(name):
-    # Options that JAX reads only beside another come with it (plan and
-    # exchange with a mesh): alone, JAX ignores exchange and raises
-    # ValueError on plan (tests/test_torch_options.py). evict_every,
-    # delta_ckpt, ckpt_manager, guard, device_prefetch, microbatch and
-    # dense_tx are ported: each comes with a mesh, which alone is refused.
+    # train_dlrm's mesh is ported; beside it the planner (item I-3) and
+    # sharded persistence and eviction (item I-2: ckpt_manager, guard,
+    # delta_ckpt, evict_every) are refused by name. mesh, exchange,
+    # device_prefetch, microbatch and dense_tx are ported: each comes with
+    # a mesh and a ckpt_manager, and only ckpt_manager is refused, before
+    # anything touches the (here fake) mesh.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2, "dense_tx": ADAM}.get(name, object())
-    extra = {"plan": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2}}.get(name, {})
-    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard",
-              "device_prefetch", "microbatch", "dense_tx")
-    if name in ported + ("exchange",):
-        extra["mesh"] = object()
-    refused = "mesh" if name in ported + ("exchange",) else name
+    refused_by_name = ("plan", "evict_every", "delta_ckpt", "ckpt_manager",
+                       "guard")
+    kw = {"mesh": object()}
+    if name == "delta_ckpt":
+        kw["delta_every"] = 2
+    if name not in refused_by_name:
+        kw["ckpt_manager"] = object()
+    kw[name] = value
+    refused = name if name in refused_by_name else "ckpt_manager"
     cfg = ett.DLRMConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match=refused) as err:
-        train_dlrm(cfg, iter(()), 1, device="cpu", **{name: value}, **extra)
+    with pytest.raises(NotImplementedError, match=f"{refused}=") as err:
+        train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
+    ported = ("exchange", "device_prefetch", "microbatch", "dense_tx")
     assert not any(f"{p}=" in str(err.value) for p in ported)
     # JAX's axis= at its default is taken and does nothing.
     res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")

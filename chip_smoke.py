@@ -13,7 +13,7 @@
     python3 chip_smoke.py --microbatch         # only microbatching and dense_tx
     python3 chip_smoke.py --rpc                # only the binary RPC transport
     python3 chip_smoke.py --input-pipeline     # only the input pipeline
-    python3 chip_smoke.py --mesh               # only the sharded DLRM, every card
+    python3 chip_smoke.py --mesh               # only the mesh phase, every card
     python3 chip_smoke.py --compat             # only compat, nn and the bridge
 
 Phases, each of which ends the script with a non-zero exit if it fails:
@@ -150,7 +150,21 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     Adam's and FTRL's tables through the same delta's update, rtol 1e-6);
     `make_dlrm_service(mesh=)` to 4 closed-loop clients, each
     response held to the unsharded model's eval (rtol 1e-5), the other
-    ranks following until the stop.
+    ranks following until the stop. Then every other family on the mesh:
+    DCN-v2 and DeepFM (folded and unfolded) at the same widths and
+    batches, and the two-tower model (1M / 100k / 1k query rows, 2M items,
+    B = 16,384 global), SGD and indexer AdaGrad on the gather exchange,
+    each with its step ms, collective ms, peak memory and launches a rank
+    (required exactly); two steps of each against the single-device step
+    (one card bitwise; more cards rank 0 replays them, CTR losses rtol
+    1e-5 and tables rtol 1e-5 / atol 1e-6, the two-tower model losses rtol
+    1e-4 and tables rtol 5e-4 / atol 1e-5); the DCN and DeepFM mesh
+    services (every score the unsharded eval's) and the sharded retrieval
+    service over 2M items (ids the plain retriever's); and sharded
+    persistence on the DLRM: a delta chain written on the mesh restored
+    into one device and one written on one device restored into the mesh
+    (bitwise), a guard rollback on a NaN batch on every rank, and
+    `evict_every=2` against a replayed tracker.
 17. compat, nn and the torch bridge: a stock loop at B = 65,536 with
     `torch.optim.SGD` on the DLRM's towers and 26 `nn.SparseEmbed` tables
     (the Criteo Kaggle cardinalities capped at 250,000) through
@@ -196,6 +210,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4013,9 +4028,443 @@ def mesh_service(ett, P, mesh, rank, cfg32, blocks):
              **latency_ms([lat for _, _, lat in served])}, launches)
 
 
-def mesh_rank(rank: int, n: int, port: int, results):
+MESH_FAMILY_STEPS = 4               # timed steps per family recipe
+
+
+def mesh_family_cfgs(ett):
+    """(label, family, cfg) of the CTR families on the mesh, at the DLRM's
+    widths (26 x 250,000 x 128): DCN-v2, DeepFM folded and unfolded."""
+    fm = ett.deepfm_small_config(vocab=VOCAB)
+    return (("dcn", "dcn", ett.dcn_small_config(vocab=VOCAB)),
+            ("deepfm_folded", "deepfm", fm),
+            ("deepfm_unfolded", "deepfm",
+             dataclasses.replace(fm, fold_fm_w=False)))
+
+
+def mesh_family_opts(ett):
+    return (("sgd", ett.SparseSGD(1e-4)),
+            ("adagrad_indexer", ett.SparseRowWiseAdaGrad(1e-3,
+                                                         method="indexer")))
+
+
+def two_tower_config(ett):
+    """The repo's two-tower shape: dim 64, MLPs 256-64, 4 dense features,
+    1M / 100k / 1k query rows and 2M items."""
+    return ett.TwoTowerConfig(query_vocab_sizes=TT_QUERY_VOCABS,
+                              item_vocab=TT_ITEMS, num_dense=4, dim=64,
+                              embed_dim=64, query_mlp=(256, 64),
+                              item_mlp=(256, 64))
+
+
+def sharded_api(P, family):
+    """(shard, sharded train step, sharded eval step, unshard) of a
+    family."""
+    return {"dlrm": (P.shard_dlrm, P.make_sharded_train_step,
+                     P.make_sharded_eval_step, P.unshard_dlrm),
+            "dcn": (P.shard_dcn, P.make_sharded_dcn_train_step,
+                    P.make_sharded_dcn_eval_step, P.unshard_dcn),
+            "deepfm": (P.shard_deepfm, P.make_sharded_deepfm_train_step,
+                       P.make_sharded_deepfm_eval_step, P.unshard_deepfm),
+            "two_tower": (P.shard_two_tower, P.make_sharded_tt_train_step,
+                          None, P.unshard_two_tower)}[family]
+
+
+def family_launches(family, cfg) -> dict:
+    """A sharded gather step's launches on each rank: one `gather_rows` a
+    stack for the lookup and one for the update's value permute, one
+    run-scatter a stack (SGD and indexer AdaGrad)."""
+    stacks = 2 if family == "two_tower" or (
+        family == "deepfm" and not cfg.folded) else 1
+    return {"gather_rows": 2 * stacks, "scatter_add_rows_sorted": stacks}
+
+
+def timed_sharded_steps(S, G, step, model, blocks, steps: int) -> dict:
+    """A warm-up step, then `steps` steps timed with CUDA events and their
+    launches counted, then one more step with its collectives timed; the
+    peak memory since the caller's reset."""
+    outs = [step(model, *blocks[0])]
+    torch.cuda.synchronize()
+    G.gather_rows.launches = 0
+    S.scatter_add_rows_sorted.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        outs.append(step(model, *blocks[(i + 1) % len(blocks)]))
+    end.record()
+    torch.cuda.synchronize()
+    launches = {"gather_rows": G.gather_rows.launches,
+                "scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches}
+    tables = getattr(model, "tables", None) or model.query_tables
+    timer = CollectiveTimer()
+    tables.exchange.timer = timer
+    step(model, *blocks[0])
+    collectives = timer.totals()
+    tables.exchange.timer = None
+    return {"losses": [float(o[0] if isinstance(o, tuple) else o)
+                       for o in outs],
+            "step_ms": start.elapsed_time(end) / steps,
+            "launches": launches, "collective_ms": collectives,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_families(ett, P, S, G, mesh, rank, blocks, tt_blocks, results):
+    """DCN, DeepFM folded and unfolded (B = 65,536 global) and the two-tower
+    model (B = 16,384 global) on the mesh, SGD and indexer AdaGrad on the
+    gather exchange: each recipe's step ms, collective ms, peak memory and
+    launches a rank, put on `results`."""
+    tt_cfg = two_tower_config(ett)
+    recipes = [(label, family, cfg) for label, family, cfg
+               in mesh_family_cfgs(ett)] + [("two_tower", "two_tower",
+                                             tt_cfg)]
+    for label, family, cfg in recipes:
+        for name, opt in mesh_family_opts(ett):
+            r0 = time.perf_counter()
+            shard, make_step, _, _ = sharded_api(P, family)
+            single = getattr(ett, f"init_{family}")(
+                cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                device="cuda", sparse_opt=opt)
+            model = shard(single, mesh, "data", sparse_opt=opt)
+            del single
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = make_step(cfg, mesh, "data", sparse_opt=opt, dense_lr=0.1)
+            got = timed_sharded_steps(
+                S, G, step, model, tt_blocks if family == "two_tower"
+                else blocks, MESH_FAMILY_STEPS)
+            results.put({"kind": "family", "rank": rank, "family": label,
+                         "recipe": name, **got,
+                         "per_step": family_launches(family, cfg),
+                         "shard_rows": (model.tables.rows_local
+                                        if family != "two_tower" else
+                                        model.item_table.rows_local),
+                         "seconds": time.perf_counter() - r0})
+            del model, step
+            torch.cuda.empty_cache()
+
+
+def mesh_family_parity(ett, P, mesh, rank, n, blocks, global_batches,
+                       tt_blocks, tt_global):
+    """Two sharded steps of every family against two single-device steps
+    from the same weights (f32 towers), SGD and indexer AdaGrad. One rank:
+    bitwise (losses, tables, row states, towers). More ranks: rank 0
+    replays the global batches unsharded; CTR losses rtol 1e-5 and tables
+    rtol 1e-5 / atol 1e-6; the two-tower model at JAX's sharded-test
+    tolerances (losses rtol 1e-4, tables and towers rtol 5e-4 / atol
+    1e-5)."""
+    out = []
+    recipes = [(label, family, dataclasses.replace(
+        cfg, compute_dtype=torch.float32))
+        for label, family, cfg in mesh_family_cfgs(ett)]
+    recipes.append(("two_tower", "two_tower", two_tower_config(ett)))
+    for label, family, cfg in recipes:
+        tt = family == "two_tower"
+        for name, opt in mesh_family_opts(ett):
+            def fresh(cfg=cfg, family=family, opt=opt):
+                return getattr(ett, f"init_{family}")(
+                    cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda", sparse_opt=opt)
+            shard, make_step, _, unshard = sharded_api(P, family)
+            sm = shard(fresh(), mesh, "data", sparse_opt=opt)
+            step = make_step(cfg, mesh, "data", sparse_opt=opt, dense_lr=0.1)
+            outs = [step(sm, *b) for b in (tt_blocks if tt else blocks)[:2]]
+            losses = [float(o[0] if tt else o) for o in outs]
+            un = unshard(sm)
+            del sm
+            torch.cuda.empty_cache()
+            row = {"family": label, "recipe": name}
+            if rank == 0:
+                single = fresh()
+                step1 = (ett.models.two_tower.make_train_step(
+                    cfg, sparse_opt=opt, dense_lr=0.1) if tt else
+                    getattr(ett.models, {"dcn": "make_dcn_train_step",
+                                         "deepfm": "make_deepfm_train_step"}
+                            [family])(cfg, sparse_opt=opt, dense_lr=0.1))
+                keys = ("dense", "q_cat", "item_ids") if tt else (
+                    "dense", "cat", "label")
+                want = []
+                for b in (tt_global if tt else global_batches)[:2]:
+                    o = step1(single, *(b[k] for k in keys))
+                    want.append(float(o[0] if tt else o))
+                torch.cuda.synchronize()
+                pairs = [(a.detach(), b.detach()) for a, b in (
+                    list(zip(un.buffers(), single.buffers()))
+                    + list(zip(un.parameters(), single.parameters())))]
+                err = max(max_abs_err(a, b) for a, b in pairs
+                          if a.is_floating_point() and a.numel())
+                if n == 1:
+                    tolerance = "bitwise"
+                    require(losses == want, f"mesh family parity {label} "
+                            f"{name}: losses {losses} != {want}")
+                    for a, b in pairs:
+                        require(torch.equal(a, b), f"mesh family parity "
+                                f"{label} {name}: not bitwise")
+                else:
+                    lt, rtol, atol = ((1e-4, 5e-4, 1e-5) if tt
+                                      else (1e-5, 1e-5, 1e-6))
+                    np.testing.assert_allclose(losses, want, rtol=lt)
+                    for a, b in pairs:
+                        if a.is_floating_point() and a.numel():
+                            require(torch.allclose(a, b, rtol=rtol,
+                                                   atol=atol),
+                                    f"mesh family parity {label} {name}: "
+                                    f"off by {max_abs_err(a, b)}")
+                    tolerance = (f"losses rtol {lt}, tables and towers rtol "
+                                 f"{rtol} atol {atol}")
+                row.update(tolerance=tolerance, max_abs_err=err,
+                           losses=losses)
+                del single
+            del un
+            torch.cuda.empty_cache()
+            out.append(row)
+    return out
+
+
+def mesh_family_services(ett, P, G, mesh, rank, blocks):
+    """DCN and the folded DeepFM behind their mesh services (f32 towers, 4
+    closed-loop clients x 8 requests of 1-256 examples, every score the
+    unsharded eval's to rtol 1e-5) and the sharded retrieval service over
+    2M items (4 clients x 8 requests of 1-256 queries, ids the plain
+    single-device retriever's under `retrieval_ids_match`, scores rtol
+    1e-5). Rank 0 returns each service's summary, the others what they
+    followed; with the `gather_rows` launches of each."""
+    out = []
+    for label, family, cfg in mesh_family_cfgs(ett)[:2]:
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        shard, _, _, unshard = sharded_api(P, family)
+        sm = shard(getattr(ett, f"init_{family}")(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda"), mesh, "data")
+        ref = unshard(sm)
+        torch.cuda.synchronize()
+        G.gather_rows.launches = 0
+        svc = getattr(ett, f"make_{family}_service")(
+            sm, mesh=mesh, max_batch=1024, max_latency_ms=2.0)
+        if rank != 0:
+            torch.cuda.synchronize()
+            out.append({"service": label, "followed_batches": svc.batches,
+                        "launches": G.gather_rows.launches})
+            del sm, ref
+            continue
+        t0 = time.perf_counter()
+        try:
+            served = closed_loop(svc, lambda rng, b: make_request(rng, cfg,
+                                                                  b),
+                                 clients=4, per_client=8)
+        finally:
+            svc.stop()
+        torch.cuda.synchronize()
+        launches, seconds = G.gather_rows.launches, time.perf_counter() - t0
+        ev = getattr(ett.models, {"dcn": "make_dcn_eval_step",
+                                  "deepfm": "make_deepfm_eval_step"}[family])(
+            cfg)
+        err = 0.0
+        for (dense, cat), got, _ in served:
+            want = ev(ref, dense, cat).cpu().numpy()
+            require(np.all(np.isfinite(got)), f"mesh {label} service: "
+                    "non-finite scores")
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+            err = max(err, float(np.abs(got - want).max()))
+        stats = svc.stats_snapshot()
+        out.append({"service": label, "requests": len(served),
+                    "batches": stats["batches"], "seconds": seconds,
+                    "launches": launches, "max_abs_err_vs_unsharded": err,
+                    **latency_ms([lat for _, _, lat in served])})
+        del sm, ref
+        torch.cuda.empty_cache()
+
+    tt_cfg = two_tower_config(ett)
+    model = ett.init_two_tower(tt_cfg, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    G.gather_rows.launches = 0
+    svc = ett.make_retrieval_service(model, k=10, mesh=mesh, max_batch=256,
+                                     max_latency_ms=2.0)
+    if rank != 0:
+        torch.cuda.synchronize()
+        out.append({"service": "retrieval", "followed_batches": svc.batches,
+                    "launches": G.gather_rows.launches})
+        return out
+
+    def make_req(rng, b):
+        return (rng.standard_normal((b, 4)).astype(np.float32),
+                np.stack([rng.integers(0, v, b) for v in
+                          tt_cfg.query_vocab_sizes]).astype(np.int32))
+    t0 = time.perf_counter()
+    try:
+        served = closed_loop(svc, make_req, clients=4, per_client=8)
+    finally:
+        svc.stop()
+    torch.cuda.synchronize()
+    launches, seconds = G.gather_rows.launches, time.perf_counter() - t0
+    stats = svc.stats_snapshot()
+    tt = ett.models.two_tower
+    with plain_gathers(G):
+        index_p = tt.build_item_index(model)
+        run10 = tt.make_retriever(model, k=10)
+        near_ties, err = 0, 0.0
+        for (dense, q_cat), (scores, ids), _ in served:
+            ps, pi = run10(index_p, dense, q_cat)
+            ps, pi = ps.cpu().numpy(), pi.cpu().numpy()
+            np.testing.assert_allclose(scores, ps, rtol=1e-5, atol=1e-6)
+            err = max(err, float(np.abs(scores - ps).max()))
+            near_ties += retrieval_ids_match(ids, ps, pi)
+    out.append({"service": "retrieval", "k": 10, "items": tt_cfg.item_vocab,
+                "requests": len(served), "batches": stats["batches"],
+                "seconds": seconds, "launches": launches,
+                "scores_max_abs_vs_plain": err,
+                "near_tie_positions": near_ties,
+                **latency_ms([lat for _, _, lat in served])})
+    del model, index_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_persistence(ett, P, S, G, mesh, rank, host, root):
+    """Sharded persistence and eviction on the DLRM (26 x 250,000 x 128,
+    SGD, B = 65,536 global) under `root`: a delta chain written on the mesh
+    (a base of one part a rank, then deltas) restored into a single-device
+    model, bitwise; a single-device chain restored into the mesh, bitwise;
+    a guard rollback on a NaN batch on every rank, ending bitwise where the
+    run without that batch ends; `evict_every=2` with the trackers replayed
+    beside the loop (evicted rows zero, as many as the replay pops).
+    Returns this rank's summary and launches."""
+    import torch.distributed as dist
+    from embeddingtables_tpu_torch.utils import (CheckpointManager,
+                                                 DeltaCheckpointManager,
+                                                 DivergenceGuard, rowstats)
+    cfg = ett.dlrm_small_config(vocab=VOCAB)
+    opt = ett.SparseSGD(1e-4)
+    out = {}
+    launches = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
+
+    def fresh(seed=SEED):
+        return ett.init_dlrm(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda", sparse_opt=opt)
+
+    def counted(fn):
+        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        launches["gather_rows"] += G.gather_rows.launches
+        launches["scatter_add_rows_sorted"] += \
+            S.scatter_add_rows_sorted.launches
+        return got
+
+    def rows_equal(a, b, what):
+        require(torch.equal(a.tables.data, b.tables.data) and all(
+            torch.equal(x, y) for x, y in zip(a.emb_state, b.emb_state)),
+            f"mesh persistence: {what} not bitwise")
+
+    kw = dict(sparse_opt=opt, dense_lr=0.1, log_every=1, verbose=False,
+              mesh=mesh)
+    # A chain written on the mesh, restored into one device.
+    t0 = time.perf_counter()
+    mesh_dir = os.path.join(root, "mesh_chain")
+    res = counted(lambda: ett.train_dlrm(
+        cfg, iter(host[:3]), 3, model=fresh(), delta_ckpt=DeltaCheckpointManager(
+            mesh_dir, base_every=8), delta_every=1, **kw))
+    out["mesh_chain_write_s"] = time.perf_counter() - t0
+    trained = P.unshard_dlrm(res.model)
+    del res
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["mesh_chain_files"] = sorted(os.listdir(mesh_dir))
+        t0 = time.perf_counter()
+        single = ett.restore_delta(DeltaCheckpointManager(mesh_dir),
+                                   fresh(SEED + 1))
+        torch.cuda.synchronize()
+        out["mesh_chain_to_one_device_s"] = time.perf_counter() - t0
+        rows_equal(single, trained, "mesh chain -> one device")
+        del single
+    del trained
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # A chain written on one device, restored into the mesh.
+    flat_dir = os.path.join(root, "flat_chain")
+    if rank == 0:
+        single = fresh()
+        counted(lambda: ett.train_dlrm(
+            cfg, iter(host[:2]), 2, model=single,
+            delta_ckpt=DeltaCheckpointManager(flat_dir, base_every=8),
+            delta_every=1, sparse_opt=opt, dense_lr=0.1, log_every=1,
+            verbose=False))
+    dist.barrier()
+    t0 = time.perf_counter()
+    sm = P.shard_dlrm(fresh(SEED + 1), mesh, "data", sparse_opt=opt)
+    ett.restore_delta(DeltaCheckpointManager(flat_dir), sm)
+    torch.cuda.synchronize()
+    out["one_device_chain_to_mesh_s"] = time.perf_counter() - t0
+    back = P.unshard_dlrm(sm)
+    del sm
+    if rank == 0:
+        rows_equal(back, single, "one-device chain -> mesh")
+        del single
+    del back
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+        shutil.rmtree(flat_dir, ignore_errors=True)
+    # The guard: a NaN batch after a checkpoint at step 2.
+    nan = dict(host[2], dense=np.full_like(host[2]["dense"], np.nan))
+    mgr = CheckpointManager(os.path.join(root, "ckpt"))
+    guard = DivergenceGuard(mgr)
+    t0 = time.perf_counter()
+    res = counted(lambda: ett.train_dlrm(
+        cfg, iter([host[0], host[1], nan]), 3, model=fresh(),
+        ckpt_manager=mgr, ckpt_every=2, guard=guard, **kw))
+    out["guard_run_s"] = time.perf_counter() - t0
+    require(guard.rollbacks == 1 and math.isnan(res.losses[2]),
+            f"mesh guard: rollbacks {guard.rollbacks}, losses {res.losses}")
+    rolled = P.unshard_dlrm(res.model)
+    del res
+    ref = counted(lambda: ett.train_dlrm(cfg, iter(host[:2]), 2,
+                                         model=fresh(), **kw))
+    want = P.unshard_dlrm(ref.model)
+    del ref
+    if rank == 0:
+        rows_equal(rolled, want, "guard rollback")
+        require(all(torch.equal(a, b) for a, b in zip(
+            rolled.parameters(), want.parameters())),
+            "mesh guard: towers not bitwise")
+    out["guard_rollbacks"] = guard.rollbacks
+    del rolled, want
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
+    # Eviction every 2 steps, the trackers replayed.
+    steps, every, threshold, decay = 4, 2, 0.3, 0.5
+    res = counted(lambda: ett.train_dlrm(
+        cfg, itertools.cycle(host), steps, model=fresh(), evict_every=every,
+        evict_threshold=threshold, freq_decay=decay, **kw))
+    trackers = [rowstats.FrequencyTracker(VOCAB, decay) for _ in range(26)]
+    popped, last = 0, None
+    for i in range(steps):
+        for t, tr in enumerate(trackers):
+            tr.observe(host[i % len(host)]["cat"][t])
+        if (i + 1) % every == 0:
+            last = np.concatenate([tr.pop_cold(threshold) + t * VOCAB
+                                   for t, tr in enumerate(trackers)])
+            popped += last.size
+    require(res.evicted_rows == popped > 0 and last.size > 0,
+            f"mesh eviction: evicted {res.evicted_rows}, replay {popped}")
+    table = P.unshard_dlrm(res.model).tables.data
+    require(not table[torch.from_numpy(last.astype(np.int64)).cuda()].any(),
+            "mesh eviction: evicted rows not zero")
+    out.update(evicted_rows=res.evicted_rows,
+               last_eviction_rows=int(last.size))
+    del res, table
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_rank(rank: int, n: int, port: int, root: str, results):
     """One rank of the mesh phase, on card `rank`: every recipe, the parity
-    runs and the service, each result put on `results`."""
+    runs and the service of the DLRM, then the other families, their
+    parity runs and services, and sharded persistence under `root`, each
+    result put on `results`."""
     import datetime
     import embeddingtables_tpu_torch as ett
     from embeddingtables_tpu_torch import parallel as P
@@ -4100,6 +4549,35 @@ def mesh_rank(rank: int, n: int, port: int, results):
     summary, launches = mesh_service(ett, P, mesh, rank, cfg32, blocks)
     results.put({"kind": "service", "rank": rank, "launches": launches,
                  **summary})
+    del global_batches
+    torch.cuda.empty_cache()
+    tt_cfg = two_tower_config(ett)
+    tt_host = list(ett.SyntheticRetrieval(
+        tt_cfg.query_vocab_sizes, tt_cfg.item_vocab, num_dense=4,
+        batch_size=TT_BATCH, seed=SEED + 20).batches(MESH_BATCHES))
+    shardings = P.tt_batch_shardings(mesh, "data")
+    tt_blocks = [tuple(torch.from_numpy(np.ascontiguousarray(f(b[k]))).cuda()
+                       for f, k in zip(shardings, ("dense", "q_cat",
+                                                   "item_ids")))
+                 for b in tt_host]
+    mesh_families(ett, P, S, G, mesh, rank, blocks, tt_blocks, results)
+    global_batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                      for b in host[:2]]
+    tt_global = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                 for b in tt_host[:2]]
+    results.put({"kind": "family_parity", "rank": rank,
+                 "rows": mesh_family_parity(ett, P, mesh, rank, n, blocks,
+                                            global_batches, tt_blocks,
+                                            tt_global)})
+    del global_batches, tt_global
+    torch.cuda.empty_cache()
+    results.put({"kind": "family_service", "rank": rank,
+                 "rows": mesh_family_services(ett, P, G, mesh, rank,
+                                              blocks)})
+    summary, launches = mesh_persistence(ett, P, S, G, mesh, rank, host,
+                                         root)
+    results.put({"kind": "persistence", "rank": rank, "launches": launches,
+                 **summary})
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()
@@ -4122,30 +4600,38 @@ def mesh_phase(ett, S, H, G):
     parity runs (`mesh_parity`) and the service (`mesh_service`). The
     kernels are built before spawning (every rank loads that build).
     Returns the launches of the counted runs, summed over the ranks."""
-    import shutil
+    import tempfile
     import torch.multiprocessing as tmp
     t0 = time.perf_counter()
     n = torch.cuda.device_count()
     shm = shutil.disk_usage("/dev/shm")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    disk = shutil.disk_usage(root)
+    require(disk.free > 12e9, f"mesh persistence needs 12 GB free under "
+            f"{root}, has {disk.free / 1e9:.1f}")
     emit({"phase": "mesh_start", "ranks": n,
           "dev_shm_bytes": {"total": shm.total, "free": shm.free},
+          "persistence_dir_free_bytes": disk.free,
           "nccl_version": str(torch.cuda.nccl.version()),
           "topology": subprocess.run(["nvidia-smi", "topo", "-m"],
                                      capture_output=True, text=True,
                                      timeout=60).stdout})
     torch.cuda.empty_cache()
     results = tmp.get_context("spawn").SimpleQueue()
-    ranks = tmp.spawn(mesh_rank, args=(n, free_port(), results), nprocs=n,
-                      join=False)
+    ranks = tmp.spawn(mesh_rank, args=(n, free_port(), root, results),
+                      nprocs=n, join=False)
     got = []
     done = False
-    while not done:
-        done = ranks.join(timeout=1)     # raises if a rank failed
-        while not results.empty():
-            got.append(results.get())
-            # Each result as it arrives, so a later failure keeps it.
-            emit({"phase": f"mesh_{got[-1]['kind']}", "ranks": n,
-                  **{k: v for k, v in got[-1].items() if k != "kind"}})
+    try:
+        while not done:
+            done = ranks.join(timeout=1)     # raises if a rank failed
+            while not results.empty():
+                got.append(results.get())
+                # Each result as it arrives, so a later failure keeps it.
+                emit({"phase": f"mesh_{got[-1]['kind']}", "ranks": n,
+                      **{k: v for k, v in got[-1].items() if k != "kind"}})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     recipes = [g for g in got if g["kind"] == "recipe"]
     require(len(recipes) == n * 8, f"mesh: {len(recipes)} recipe results")
     total = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
@@ -4180,6 +4666,49 @@ def mesh_phase(ett, S, H, G):
     require(all(s["launches"] == service[0]["batches"] for s in service),
             "mesh service: gather_rows launches != served batches")
     total["gather_rows"] += sum(s["launches"] for s in service)
+    families = [g for g in got if g["kind"] == "family"]
+    require(len(families) == n * 8, f"mesh: {len(families)} family results")
+    for g in families:
+        want = {k: v * MESH_FAMILY_STEPS for k, v in g["per_step"].items()}
+        require(all(math.isfinite(x) for x in g["losses"]),
+                f"mesh {g['family']} {g['recipe']}: losses {g['losses']}")
+        require(g["launches"] == want, f"mesh {g['family']} {g['recipe']} "
+                f"rank {g['rank']}: launches {g['launches']}, want {want}")
+        require(g["losses"] == next(
+            h["losses"] for h in families if h["rank"] == 0
+            and h["family"] == g["family"] and h["recipe"] == g["recipe"]),
+            f"mesh {g['family']} {g['recipe']}: ranks disagree on losses")
+        for k in total:
+            total[k] += g["launches"][k]
+    parity = [g for g in got if g["kind"] == "family_parity"
+              and g["rank"] == 0]
+    require(len(parity) == 1 and len(parity[0]["rows"]) == 8,
+            "mesh: family parity results missing")
+    services = sorted((g for g in got if g["kind"] == "family_service"),
+                      key=lambda g: g["rank"])
+    require(len(services) == n, "mesh: family service results missing")
+    index_launches = -(-(-(-TT_ITEMS // n)) // 65_536)
+    for i, lead in enumerate(services[0]["rows"]):
+        require(lead["requests"] == 32, f"mesh {lead['service']} service: "
+                f"{lead['requests']} requests")
+        extra = index_launches if lead["service"] == "retrieval" else 0
+        for s in services:
+            row = s["rows"][i]
+            require(row.get("followed_batches", lead["batches"])
+                    == lead["batches"], f"mesh {lead['service']} service: "
+                    "followers missed batches")
+            require(row["launches"] == lead["batches"] + extra,
+                    f"mesh {lead['service']} service rank {s['rank']}: "
+                    f"gather_rows {row['launches']}, want "
+                    f"{lead['batches'] + extra}")
+            total["gather_rows"] += row["launches"]
+    persist = [g for g in got if g["kind"] == "persistence"]
+    require(len(persist) == n and all(g["guard_rollbacks"] == 1
+                                      for g in persist),
+            "mesh: persistence results missing")
+    for g in persist:
+        for k in total:
+            total[k] += g["launches"][k]
     emit({"phase": "mesh_done", "ranks": n, "batch": B_TRAIN,
           "launches": total,
           "seconds": time.perf_counter() - t0})

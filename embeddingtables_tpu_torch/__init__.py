@@ -34,10 +34,13 @@ profiler traces, and refreshable services
 `DeltaFollower`.
 
 Multi-device (`parallel`): one process per card over `torch.distributed`
-(NCCL; gloo on the CPU), the stacked table mod-row-sharded over a
+(NCCL; gloo on the CPU), the stacked tables mod-row-sharded over a
 `DeviceMesh`, the exact gather exchange and the capacity-bounded
-butterfly, the sharded DLRM step, `train_dlrm(mesh=)` and
-`make_dlrm_service(mesh=)`.
+butterfly, every family's sharded step (DLRM, DCN, DeepFM in both layouts,
+the two-tower retriever with its block-row sharded index), every loop and
+service with `mesh=`, and the loops' checkpoints, guard, delta
+checkpoints (`utils.ModRowLayout`) and eviction
+(`utils.evict_rows_sharded`) on the mesh.
 
 Ecosystem: `nn.Embed` / `nn.SparseEmbed` modules for stock torch models,
 `compat`'s optax-shaped sparse transform, and the torch bridge

@@ -1,10 +1,11 @@
-"""Training-quality metrics in numpy (the port's copy of the host metrics
-of `embeddingtables_tpu/metrics.py`: `auc`, `log_loss`,
-`normalized_entropy`, `calibration`, `accuracy`, `recall_at_k`; evaluation
-is a host-side concern)."""
+"""Training-quality metrics (the port's copy of
+`embeddingtables_tpu/metrics.py`): `auc`, `log_loss`, `normalized_entropy`,
+`calibration`, `accuracy` and `recall_at_k` in numpy on the host, and
+`auc_jax`, the same AUC on tensors where they lie."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def auc(labels, scores) -> float:
@@ -34,6 +35,30 @@ def auc(labels, scores) -> float:
     ranks[order] = avg[group]
     u = ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0
     return float(u / (n_pos * n_neg))
+
+
+def auc_jax(labels, scores) -> torch.Tensor:
+    """ROC-AUC with average-rank ties, computed on the device of `scores`
+    (JAX's jit-compatible `auc_jax`, in float32): a 0-d tensor, no host
+    sync. With one class only it is 0 where `auc` gives NaN, as JAX's."""
+    scores = torch.as_tensor(scores).reshape(-1).float()
+    labels = torch.as_tensor(labels).to(scores.device).reshape(-1).float()
+    n = scores.numel()
+    order = torch.argsort(scores, stable=True)
+    s = scores[order]
+    base = torch.arange(1, n + 1, dtype=torch.float32, device=s.device)
+    is_new = torch.ones(n, dtype=torch.bool, device=s.device)
+    is_new[1:] = s[1:] != s[:-1]
+    group = torch.cumsum(is_new.long(), 0) - 1
+    gsum = torch.zeros(n, device=s.device).index_add_(0, group, base)
+    gcnt = torch.zeros(n, device=s.device).index_add_(
+        0, group, torch.ones(n, device=s.device))
+    avg = torch.where(gcnt > 0, gsum / torch.clamp_min(gcnt, 1.0), 0.0)
+    ranks = torch.zeros(n, device=s.device).index_copy_(0, order, avg[group])
+    n_pos = labels.sum()
+    n_neg = n - n_pos
+    u = (ranks * labels).sum() - n_pos * (n_pos + 1) / 2.0
+    return u / torch.clamp_min(n_pos * n_neg, 1.0)
 
 
 def log_loss(labels, logits, eps: float = 1e-7) -> float:

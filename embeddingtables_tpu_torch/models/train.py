@@ -23,11 +23,15 @@ read `dense_tx` (the towers' `torch.optim` factory; a fresh model is built
 with its state) and `microbatch` (passed to the family's train step), and
 every loop reads `device_prefetch`: the next batches are copied to the card
 on a side stream while the current step runs (`io.loader.DevicePrefetcher`).
-`train_dlrm(mesh=...)` trains the sharded DLRM (`parallel/dlrm.py`): every
-rank runs the loop on the same global batch iterator and steps on its
-data-axis block. The planner, the other families' meshes, and sharded
-persistence and eviction are not ported yet: `unported.py` holds their
-table, and a value other than the one that leaves an option off raises
+With `mesh=...` every loop trains its family's sharded model
+(`parallel/{dlrm,dcn,deepfm,two_tower}.py`): every rank runs the loop on the
+same global batch iterator and steps on its data-axis block. The loop's
+options hold there too: full checkpoints are saved by every rank together
+(one part each), the guard's verdict is reduced over the ranks so that all
+of them roll back together, delta checkpoints go through the table's
+`ModRowLayout`, and every rank evicts the same rows (`evict_rows_sharded`;
+the trackers follow the same global batches). The planner is not ported
+yet: `unported.py` holds its entry, and a `plan` raises
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -43,11 +47,11 @@ from ..config import resolve_device
 from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD, require_dense_state
-from ..unported import (check_jax_combinations, refuse_beside_mesh,
-                         refuse_unported)
+from ..unported import check_jax_combinations, refuse_unported
 from ..utils import telemetry as _telemetry
-from ..utils.deltackpt import TouchedRowTracker
-from ..utils.rowstats import FrequencyTracker, evict_rows, reset_rows_state
+from ..utils.deltackpt import ModRowLayout, TouchedRowTracker
+from ..utils.rowstats import (FrequencyTracker, evict_rows,
+                              evict_rows_sharded, reset_rows_state)
 from .dlrm import DLRMConfig
 
 
@@ -70,20 +74,14 @@ class RetrievalTrainResult:
 
 
 def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_ckpt=None,
-            delta_every=0, mesh=None, plan=None, **beside_mesh) -> None:
-    """JAX's own errors on the combinations first, then the unported
-    options that are set: `plan`, `mesh` on every loop but `train_dlrm`
-    (which passes the options it refuses beside a mesh as
-    `beside_mesh`), and those options beside a mesh (the rest of JAX's
-    options are ignored, as `unported.py` says)."""
+            delta_every=0, mesh=None, plan=None) -> None:
+    """JAX's own errors on the combinations first, then the planner, which
+    is not ported yet (the rest of JAX's options are read or ignored, as
+    `unported.py` says)."""
     check_jax_combinations(
         mesh=mesh, plan=plan, delta_ckpt=delta_ckpt, delta_every=delta_every,
         wire_dtype=wire_dtype, exchange=exchange)
-    if beside_mesh:
-        refuse_unported(loop, plan=plan)
-        refuse_beside_mesh(loop, mesh, delta_ckpt=delta_ckpt, **beside_mesh)
-    else:
-        refuse_unported(loop, mesh=mesh, plan=plan)
+    refuse_unported(loop, plan=plan)
 
 
 def _collect_scores(eval_step, model, batches):
@@ -151,7 +149,8 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
               verbose=True, on_log=None, guard=None, on_rollback=None,
               eval_every=0, eval_batches=None, eval_fn=None, delta_fn=None,
               ckpt_manager=None, ckpt_every=0, device_prefetch=0,
-              tuner=None, tuner_occ_fn=None, rebuild_step=None):
+              tuner=None, tuner_occ_fn=None, rebuild_step=None,
+              agree=None):
     """The shared per-step cadence. `device_prefetch > 0` runs `put` on
     the next batches beside the step (`io.loader.DevicePrefetcher`, that
     many batches ahead). With a `tuner` (`parallel.alltoall.
@@ -167,6 +166,9 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
       on_rollback()                   the guard rolled the model back
       eval_fn(model) -> (value, line) at the eval_every cadence
       delta_fn(i, model, batch)       delta observe + cadence save
+      agree(loss_value) -> value      what the guard reads (a mesh: NaN on
+                                      every rank when any rank's guard
+                                      would count the loss as bad)
 
     Returns (model, losses, evals, examples_per_sec, evicted_total): the
     model the guard returned last, which its in-place restore keeps the
@@ -221,7 +223,8 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
                 # The divergence watchdog reads the loss at the log cadence
                 # (a read every step would wait for every step). A rollback
                 # copies the last checkpoint into the model in place.
-                model, rolled = guard.observe(lv, model)
+                model, rolled = guard.observe(
+                    lv if agree is None else agree(lv), model)
                 if rolled:
                     if on_rollback is not None:
                         on_rollback()
@@ -256,9 +259,11 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
 
 @dataclasses.dataclass(frozen=True)
 class _Family:
-    """One CTR family on one device: its init, train-step and eval-step
-    factories, and its builder from numpy arrays (`model=` may be the
-    builder's keyword arguments, a model trained by the JAX package)."""
+    """One CTR family: its init, train-step and eval-step factories, its
+    builder from numpy arrays (`model=` may be the builder's keyword
+    arguments, a model trained by the JAX package), and `sharded()`, its
+    mesh placement: `(sharded model class, shard function, sharded train-
+    and eval-step factories)`."""
 
     name: str
     init: Callable         # (cfg, generator, device=, sparse_opt=, dense_tx=)
@@ -266,27 +271,44 @@ class _Family:
                            #  microbatch=) -> step
     eval_step: Callable    # (cfg) -> step
     from_arrays: Callable  # (cfg, device=, **arrays) -> model
+    sharded: Callable      # () -> (cls, shard, train step, eval step)
 
 
 def _dlrm_family() -> _Family:
     from . import dlrm
     from ..interop import dlrm_from_arrays
+
+    def sharded():
+        from ..parallel import dlrm as p
+        return (p.ShardedDLRM, p.shard_dlrm, p.make_sharded_train_step,
+                p.make_sharded_eval_step)
     return _Family("dlrm", dlrm.init_dlrm, dlrm.make_train_step,
-                   dlrm.make_eval_step, dlrm_from_arrays)
+                   dlrm.make_eval_step, dlrm_from_arrays, sharded)
 
 
 def _dcn_family() -> _Family:
     from . import dcn
     from ..interop import dcn_from_arrays
+
+    def sharded():
+        from ..parallel import dcn as p
+        return (p.ShardedDCN, p.shard_dcn, p.make_sharded_dcn_train_step,
+                p.make_sharded_dcn_eval_step)
     return _Family("dcn", dcn.init_dcn, dcn.make_train_step,
-                   dcn.make_eval_step, dcn_from_arrays)
+                   dcn.make_eval_step, dcn_from_arrays, sharded)
 
 
 def _deepfm_family() -> _Family:
     from . import deepfm
     from ..interop import deepfm_from_arrays
+
+    def sharded():
+        from ..parallel import deepfm as p
+        return (p.ShardedDeepFM, p.shard_deepfm,
+                p.make_sharded_deepfm_train_step,
+                p.make_sharded_deepfm_eval_step)
     return _Family("deepfm", deepfm.init_deepfm, deepfm.make_train_step,
-                   deepfm.make_eval_step, deepfm_from_arrays)
+                   deepfm.make_eval_step, deepfm_from_arrays, sharded)
 
 
 def _model_for(init, from_arrays, cfg, model, seed: int, device,
@@ -305,12 +327,20 @@ def _model_for(init, from_arrays, cfg, model, seed: int, device,
                     device=device, sparse_opt=sparse_opt, **init_kw)
 
 
+def _layout(tables):
+    """The delta checkpoints' row layout of `tables`: None (flat) on one
+    device, the `ModRowLayout` of a sharded table."""
+    return ModRowLayout.for_tables(tables) if hasattr(tables, "exchange") \
+        else None
+
+
 def _maybe_evict(model, trackers, evict_threshold: float, stacks,
                  delta_tracker=None) -> int:
     """Pop each tracker's stale rows and evict them from the model, in
     place: every stack of `stacks` (`(tables, state)` attribute names
     sharing the first stack's offsets) gets the rows zeroed and its
-    optimizer state reset at them. DeepFM's unfolded layout passes its
+    optimizer state reset at them (on a mesh, on the rank that owns each
+    row: `evict_rows_sharded`). DeepFM's unfolded layout passes its
     first-order stack too, so a stale row loses both representations and
     both states. Returns the number of rows evicted.
 
@@ -327,8 +357,12 @@ def _maybe_evict(model, trackers, evict_threshold: float, stacks,
         delta_tracker.observe(cold)
     rows = torch.from_numpy(cold.astype(np.int64)).to(first.data.device)
     for tables_attr, state_attr in stacks:
-        evict_rows(getattr(model, tables_attr).data, rows)
-        reset_rows_state(getattr(model, state_attr), rows)
+        tables = getattr(model, tables_attr)
+        if hasattr(tables, "exchange"):
+            evict_rows_sharded(tables, getattr(model, state_attr), rows)
+        else:
+            evict_rows(tables.data, rows)
+            reset_rows_state(getattr(model, state_attr), rows)
     return int(cold.size)
 
 
@@ -339,7 +373,8 @@ def _evict_hooks(cfg, evict_every: int, evict_threshold: float,
     and every `evict_every` steps the rows that appeared and went stale
     are evicted (`_maybe_evict`) from the stacks `evict_stacks(model)`
     names, by default the model's one stack, and marked in
-    `delta_tracker`."""
+    `delta_tracker`. On a mesh every rank's trackers follow the same global
+    batches, so every rank evicts the same rows."""
     if not evict_every:
         return None, None
     trackers = [FrequencyTracker(v, decay=freq_decay)
@@ -368,13 +403,14 @@ def _evict_hooks(cfg, evict_every: int, evict_threshold: float,
 
 def _delta_setup(delta_ckpt, delta_every, tables):
     """The loop's delta-checkpoint plumbing: validate, point the manager at
-    the flat layout of one device, and build the touched-row tracker over
-    the stacked vocab. None when delta checkpoints are off."""
+    the layout of `tables` (flat on one device, `ModRowLayout` on a mesh),
+    and build the touched-row tracker over the stacked vocab. None when
+    delta checkpoints are off."""
     if delta_ckpt is None:
         return None
     if not delta_every:
         raise ValueError("delta_ckpt requires delta_every > 0")
-    delta_ckpt.layout = None
+    delta_ckpt.layout = _layout(tables)
     return TouchedRowTracker(tables.offsets[-1])
 
 
@@ -388,7 +424,6 @@ def _delta_state(model):
     if fm_w is None:
         return model.emb_state
     return (model.emb_state, fm_w.data, model.fm_state)
-
 
 
 def _ctr_delta_fn(delta_ckpt, delta_every, tracker, pad_idx, tel):
@@ -409,29 +444,111 @@ def _ctr_delta_fn(delta_ckpt, delta_every, tracker, pad_idx, tel):
     return delta_fn
 
 
+def _rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _mesh_agree(guard, ex, device):
+    """The loss a mesh loop's guard reads: NaN on every rank when any
+    rank's guard counts its loss as bad (one all-reduce of the verdict over
+    the placement), so every rank rolls back together; else the loss."""
+    import torch.distributed as dist
+
+    def agree(lv):
+        bad = torch.tensor([float(guard.is_bad(lv))], device=device)
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=ex.group)
+        return float("nan") if float(bad) else lv
+    return agree
+
+
+def _mesh_model(fam: _Family, cfg, model, mesh, axis, sparse_opt, dense_tx,
+                seed, tel):
+    """The sharded model to train in place: `model` itself when sharded,
+    else the single-device one (given, built from numpy arrays, or the
+    family's init from `seed` on this rank's device) placed by the family's
+    shard function."""
+    from ..parallel.mesh import mesh_device
+    cls, shard, _, _ = fam.sharded()
+    if isinstance(model, cls):
+        return model
+    model = _model_for(fam.init, fam.from_arrays, cfg, model, seed,
+                       mesh_device(mesh), sparse_opt, tel, dense_tx=dense_tx)
+    return shard(model, mesh, axis, sparse_opt=sparse_opt, dense_tx=dense_tx)
+
+
 def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
                dense_lr, dense_tx, microbatch, device_prefetch, model, seed,
                eval_batches, eval_every, eval_metrics, log_every, lr_schedule,
                verbose, device, evict_every, evict_threshold, freq_decay,
                ckpt_manager, ckpt_every, guard, delta_ckpt, delta_every,
-               evict_stacks=None) -> TrainResult:
-    """The CTR (dense/cat/label) training run of any family. A given
-    `model` trained with `dense_tx` must hold its tower state
-    (`init_*(dense_tx=)`): `ValueError` before the first step otherwise,
-    where JAX's loop fails inside optax."""
+               evict_stacks=None, mesh=None, axis="data", step_kw=None,
+               tuner=None) -> TrainResult:
+    """The CTR (dense/cat/label) training run of any family, on one device
+    or on a `mesh` (every rank calls it with the same arguments and the
+    same global batches; each steps on its data-axis block, scores every
+    eval batch (each rank its block, then an all-gather) and draws its
+    stochastic rounding from `rank_generator`). `step_kw`: the sharded
+    DLRM step's exchange options; with a `tuner` (`CapacityAutoTuner`) the
+    step reports its overflow and is rebuilt at the factor the tuner
+    returns. A given `model` trained with `dense_tx` must hold its tower
+    state: `ValueError` before the first step otherwise, where JAX's loop
+    fails inside optax."""
     _check_schedule(sparse_opt, lr_schedule)
     tel = _telemetry.get_telemetry()
-    model = _model_for(fam.init, fam.from_arrays, cfg, model, seed, device,
-                       sparse_opt, tel, dense_tx=dense_tx)
-    require_dense_state(model, dense_tx, f"init_{fam.name}")
-    device = model.tables.data.device
-    step = fam.train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr,
-                          dense_tx=dense_tx, microbatch=microbatch)
-    eval_step = fam.eval_step(cfg)
+    agree = None
+    if mesh is None:
+        model = _model_for(fam.init, fam.from_arrays, cfg, model, seed,
+                           device, sparse_opt, tel, dense_tx=dense_tx)
+        require_dense_state(model, dense_tx, f"init_{fam.name}")
+        device = model.tables.data.device
 
-    def put(b):
-        return tuple(torch.as_tensor(b[k]).to(device, non_blocking=True)
-                     for k in ("dense", "cat", "label"))
+        def build_step(cf):
+            return fam.train_step(cfg, sparse_opt=sparse_opt,
+                                  dense_lr=dense_lr, dense_tx=dense_tx,
+                                  microbatch=microbatch)
+
+        eval_step = fam.eval_step(cfg)
+
+        def put(b):
+            return tuple(torch.as_tensor(b[k]).to(device, non_blocking=True)
+                         for k in ("dense", "cat", "label"))
+
+        generator = _sr_generator_for(sparse_opt, seed, device)
+    else:
+        from ..parallel.dlrm import _local_block, rank_generator, \
+            sharded_logits
+        _, _, make_step, make_eval = fam.sharded()
+        sparse_opt = sparse_opt or SparseSGD()
+        model = _mesh_model(fam, cfg, model, mesh, axis, sparse_opt,
+                            dense_tx, seed, tel)
+        require_dense_state(model, dense_tx, f"shard_{fam.name}")
+        ex = model.tables.exchange
+        device = model.tables.data.device
+
+        def build_step(cf):
+            kw = {} if step_kw is None else dict(step_kw, capacity_factor=cf)
+            return make_step(cfg, mesh, axis, sparse_opt=sparse_opt,
+                             dense_lr=dense_lr, dense_tx=dense_tx,
+                             microbatch=microbatch, **kw)
+
+        sharded_eval = make_eval(cfg, mesh, axis)
+
+        def eval_step(m, dense, cat):
+            return sharded_logits(m, dense, cat, sharded_eval)
+
+        def put(b):
+            block = _local_block(ex, b["dense"], b["cat"], b["label"])
+            return tuple(torch.as_tensor(x).to(device, non_blocking=True)
+                         for x in block)
+
+        generator = None
+        if getattr(sparse_opt, "stochastic_rounding", False):
+            generator = rank_generator(seed + 1_000_003, ex.me, device)
+        if guard is not None:
+            agree = _mesh_agree(guard, ex, device)
+        verbose = verbose and _rank() == 0
 
     eval_fn = _ctr_eval_fn(eval_step, eval_batches, eval_metrics)
     delta_tracker = _delta_setup(delta_ckpt, delta_every, model.tables)
@@ -444,116 +561,29 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
             # no longer names the rows that differ from the last save.
             delta_ckpt.force_base()
 
+    tuner_occ_fn = None
+    if tuner is not None:
+        # Routed occurrences of a step: the forward's and the update's.
+        tuner_occ_fn = lambda b: (2 * b["label"].shape[0]  # noqa: E731
+                                  * len(cfg.vocab_sizes) * (cfg.bag or 1))
     model, losses, aucs, eps, evicted = _run_loop(
-        model=model, device=device, step=step, put=put, train_iter=train_iter,
-        num_steps=num_steps, tel=tel,
+        model=model, device=device, step=build_step(
+            None if step_kw is None else step_kw["capacity_factor"]),
+        put=put, train_iter=train_iter, num_steps=num_steps, tel=tel,
         batch_count=lambda b: b["label"].shape[0], lr_schedule=lr_schedule,
-        generator=_sr_generator_for(sparse_opt, seed, device),
-        track_fn=track_fn, evict_every=evict_every, evict_fn=evict_fn,
+        generator=generator, track_fn=track_fn, evict_every=evict_every,
+        evict_fn=evict_fn,
+        split_out=(lambda out: out[0]) if tuner is not None else None,
         log_every=log_every, verbose=verbose, guard=guard,
         on_rollback=on_rollback, eval_every=eval_every,
         eval_batches=eval_batches, eval_fn=eval_fn,
         delta_fn=_ctr_delta_fn(delta_ckpt, delta_every, delta_tracker,
                                getattr(cfg, "pad_idx", None), tel),
         ckpt_manager=ckpt_manager, ckpt_every=ckpt_every,
-        device_prefetch=device_prefetch)
+        device_prefetch=device_prefetch, tuner=tuner,
+        tuner_occ_fn=tuner_occ_fn, rebuild_step=build_step, agree=agree)
     return TrainResult(model=model, losses=losses, aucs=aucs,
                        examples_per_sec=eps, evicted_rows=evicted)
-
-
-def _sharded_dlrm_for(cfg, model, mesh, axis, sparse_opt, dense_tx, seed,
-                      tel):
-    """The sharded model to train in place: `model` itself when sharded,
-    else the single-device one (given, built from numpy arrays, or
-    `init_dlrm` from `seed` on this rank's device) placed by `shard_dlrm`."""
-    from ..parallel.dlrm import ShardedDLRM, shard_dlrm
-    from ..parallel.mesh import mesh_device
-    from . import dlrm
-    if isinstance(model, ShardedDLRM):
-        return model
-    device = mesh_device(mesh)
-    if isinstance(model, dict):
-        from ..interop import dlrm_from_arrays
-        model = dlrm_from_arrays(cfg, device=device, **model)
-    elif model is None:
-        with tel.phase("init"):
-            model = dlrm.init_dlrm(
-                cfg, torch.Generator(device=device).manual_seed(seed),
-                device=device, sparse_opt=sparse_opt, dense_tx=dense_tx)
-    return shard_dlrm(model, mesh, axis, sparse_opt=sparse_opt,
-                      dense_tx=dense_tx)
-
-
-def _train_dlrm_mesh(cfg, train_iter, num_steps: int, *, mesh, axis,
-                     exchange, capacity_factor, auto_capacity, wire_dtype,
-                     sparse_opt, dense_lr, dense_tx, microbatch,
-                     device_prefetch, model, seed, eval_batches, eval_every,
-                     eval_metrics, log_every, lr_schedule,
-                     verbose) -> TrainResult:
-    """`train_dlrm` on a mesh: every rank runs this loop on the same global
-    batches and steps on its data-axis block (`parallel.dlrm`). The eval
-    scores every global eval batch on every rank (each rank its block, then
-    an all-gather). With `exchange="a2a"` and `auto_capacity` the step
-    reports its overflow and `CapacityAutoTuner` rebuilds it at a larger
-    capacity factor when occurrences are dropped. Stochastic rounding draws
-    from a generator of each rank's own (`rank_generator`)."""
-    from ..parallel import dlrm as pdlrm
-    from ..parallel.alltoall import CapacityAutoTuner
-    sparse_opt = sparse_opt or SparseSGD()
-    _check_schedule(sparse_opt, lr_schedule)
-    tel = _telemetry.get_telemetry()
-    model = _sharded_dlrm_for(cfg, model, mesh, axis, sparse_opt, dense_tx,
-                              seed, tel)
-    require_dense_state(model, dense_tx, "init_sharded_dlrm")
-    ex = model.tables.exchange
-    device = model.tables.data.device
-    with_overflow = exchange == "a2a" and auto_capacity
-
-    def build_step(cf):
-        return pdlrm.make_sharded_train_step(
-            cfg, mesh, axis, sparse_opt=sparse_opt, dense_lr=dense_lr,
-            exchange=exchange, capacity_factor=cf,
-            with_overflow=with_overflow, dense_tx=dense_tx,
-            wire_dtype=wire_dtype, microbatch=microbatch)
-
-    tuner = tuner_occ_fn = None
-    if with_overflow:
-        tuner = CapacityAutoTuner(capacity_factor, 1)   # occ: first batch
-        # Routed occurrences of a step: the forward's and the update's.
-        tuner_occ_fn = lambda b: (2 * b["label"].shape[0]  # noqa: E731
-                                  * len(cfg.vocab_sizes) * (cfg.bag or 1))
-    eval_step = pdlrm.make_sharded_eval_step(cfg, mesh, axis)
-
-    def global_eval(m, dense, cat):
-        return pdlrm.sharded_logits(m, dense, cat, eval_step)
-
-    def put(b):
-        block = pdlrm._local_block(ex, b["dense"], b["cat"], b["label"])
-        return tuple(torch.as_tensor(x).to(device, non_blocking=True)
-                     for x in block)
-
-    generator = None
-    if getattr(sparse_opt, "stochastic_rounding", False):
-        generator = pdlrm.rank_generator(seed + 1_000_003, ex.me, device)
-    model, losses, aucs, eps, _ = _run_loop(
-        model=model, device=device, step=build_step(capacity_factor),
-        put=put, train_iter=train_iter, num_steps=num_steps, tel=tel,
-        batch_count=lambda b: b["label"].shape[0], lr_schedule=lr_schedule,
-        generator=generator,
-        split_out=(lambda out: out[0]) if with_overflow else None,
-        log_every=log_every, verbose=verbose and _rank() == 0,
-        eval_every=eval_every, eval_batches=eval_batches,
-        eval_fn=_ctr_eval_fn(global_eval, eval_batches, eval_metrics),
-        device_prefetch=device_prefetch, tuner=tuner,
-        tuner_occ_fn=tuner_occ_fn, rebuild_step=build_step)
-    return TrainResult(model=model, losses=losses, aucs=aucs,
-                       examples_per_sec=eps)
-
-
-def _rank() -> int:
-    """This process's rank in the default group (0 without one)."""
-    import torch.distributed as dist
-    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
@@ -611,35 +641,36 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     (`"data"`, or `("data", "model")`), `exchange` the lookup and update
     exchange ("gather", or the "a2a" butterfly with `capacity_factor`,
     `auto_capacity` and `wire_dtype`). The result's model is the
-    `parallel.dlrm.ShardedDLRM`; `device` is the mesh's.
+    `parallel.dlrm.ShardedDLRM`; `device` is the mesh's. The checkpoints,
+    the guard, delta checkpoints and eviction hold on the mesh too (the
+    module docstring).
 
     JAX's other options follow `unported.py`: set, an unported one raises,
     as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
     state), before the first step, as the JAX loop's first step does."""
     _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
             delta_ckpt=delta_ckpt, delta_every=delta_every, mesh=mesh,
-            plan=plan, ckpt_manager=ckpt_manager, guard=guard,
-            evict_every=evict_every)
+            plan=plan)
+    step_kw = tuner = None
     if mesh is not None:
-        return _train_dlrm_mesh(
-            cfg, train_iter, num_steps, mesh=mesh, axis=axis,
-            exchange=exchange, capacity_factor=capacity_factor,
-            auto_capacity=auto_capacity, wire_dtype=wire_dtype,
-            sparse_opt=sparse_opt, dense_lr=dense_lr, dense_tx=dense_tx,
-            microbatch=microbatch, device_prefetch=device_prefetch,
-            model=model, seed=seed, eval_batches=eval_batches,
-            eval_every=eval_every, eval_metrics=eval_metrics,
-            log_every=log_every, lr_schedule=lr_schedule, verbose=verbose)
+        from ..parallel.alltoall import CapacityAutoTuner
+        with_overflow = exchange == "a2a" and auto_capacity
+        step_kw = dict(exchange=exchange, capacity_factor=capacity_factor,
+                       with_overflow=with_overflow, wire_dtype=wire_dtype)
+        if with_overflow:
+            tuner = CapacityAutoTuner(capacity_factor, 1)  # occ: 1st batch
     return _train_ctr(
         _dlrm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
-        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
-        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        device_prefetch=device_prefetch, model=model, seed=seed,
+        eval_batches=eval_batches, eval_every=eval_every,
+        eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
-        delta_every=delta_every)
+        delta_every=delta_every, mesh=mesh, axis=axis, step_kw=step_kw,
+        tuner=tuner)
 
 
 def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -654,19 +685,21 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
               verbose: bool = True, device=None) -> TrainResult:
     """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches, cadence
     and options: row eviction, checkpoints, the guard and delta checkpoints
-    included."""
+    included; with `mesh` the sharded DCN (`parallel.dcn`) on the gather
+    exchange, `train_dlrm`'s contract."""
     _refuse("train_dcn", delta_ckpt=delta_ckpt, delta_every=delta_every,
             mesh=mesh, plan=plan)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
-        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
-        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        device_prefetch=device_prefetch, model=model, seed=seed,
+        eval_batches=eval_batches, eval_every=eval_every,
+        eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
-        delta_every=delta_every)
+        delta_every=delta_every, mesh=mesh, axis=axis)
 
 
 def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -686,7 +719,9 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
     row loses its FM vector, its first-order weight and their optimizer
     state, in the fused row of the folded layout or in both stacks of the
     unfolded one. A delta checkpoint of the unfolded layout carries the
-    first-order stack and its state beside the FM stack's."""
+    first-order stack and its state beside the FM stack's. With `mesh` the
+    sharded DeepFM (`parallel.deepfm`, either layout), `train_dlrm`'s
+    contract."""
 
     def evict_stacks(m):
         fm = () if m.fm_w is None else (("fm_w", "fm_state"),)
@@ -697,13 +732,15 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
-        device_prefetch=device_prefetch, model=model, seed=seed, eval_batches=eval_batches,
-        eval_every=eval_every, eval_metrics=eval_metrics, log_every=log_every,
+        device_prefetch=device_prefetch, model=model, seed=seed,
+        eval_batches=eval_batches, eval_every=eval_every,
+        eval_metrics=eval_metrics, log_every=log_every,
         lr_schedule=lr_schedule, verbose=verbose, device=device,
         evict_every=evict_every, evict_threshold=evict_threshold,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
-        delta_every=delta_every, evict_stacks=evict_stacks)
+        delta_every=delta_every, evict_stacks=evict_stacks, mesh=mesh,
+        axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -727,28 +764,72 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     `(query_mgr, item_mgr)` pair of `utils.DeltaCheckpointManager`s, one per
     row space (the query stack and the item table, each with its own
     tracker), saved every `delta_every` steps; resume with
-    `restore_delta`. JAX's other options follow `unported.py`."""
+    `restore_delta`. With `mesh` (every rank calls it with the same
+    arguments and batches) the sharded step (`parallel.two_tower`) trains
+    on each rank's data-axis block, the recall comes from the sharded
+    retriever over the block-row index of the unsharded model, and the
+    result's model is unsharded, as JAX's. JAX's other options follow
+    `unported.py`."""
     from . import two_tower as tt
     from ..interop import two_tower_from_arrays
     _refuse("train_two_tower", delta_ckpt=delta_ckpt, delta_every=delta_every,
             mesh=mesh, plan=plan)
     tel = _telemetry.get_telemetry()
     sparse_opt = sparse_opt or SparseSGD(0.05)
-    model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg, model,
-                       seed, device, sparse_opt, tel)
-    device = model.item_data.device
-    step = tt.make_train_step(cfg, sparse_opt=sparse_opt, dense_lr=dense_lr)
+    if mesh is None:
+        model = _model_for(tt.init_two_tower, two_tower_from_arrays, cfg,
+                           model, seed, device, sparse_opt, tel)
+        device = model.item_data.device
+        step = tt.make_train_step(cfg, sparse_opt=sparse_opt,
+                                  dense_lr=dense_lr)
 
-    def put(b):
-        return tuple(torch.as_tensor(b[key]).to(device, non_blocking=True)
-                     for key in ("dense", "q_cat", "item_ids"))
+        def put(b):
+            return tuple(torch.as_tensor(b[key]).to(device, non_blocking=True)
+                         for key in ("dense", "q_cat", "item_ids"))
+
+        def retriever(m):
+            return tt.build_item_index(m), tt.make_retriever(m, k=k)
+
+        generator = _sr_generator_for(sparse_opt, seed, device)
+        to_dense = None
+    else:
+        from ..parallel import two_tower as ptt
+        from ..parallel.dlrm import rank_generator
+        from ..parallel.mesh import mesh_device
+        if not isinstance(model, ptt.ShardedTwoTower):
+            model = ptt.shard_two_tower(
+                _model_for(tt.init_two_tower, two_tower_from_arrays, cfg,
+                           model, seed, mesh_device(mesh), sparse_opt, tel),
+                mesh, axis, sparse_opt=sparse_opt)
+        ex = model.query_tables.exchange
+        device = model.query_tables.data.device
+        step = ptt.make_sharded_tt_train_step(cfg, mesh, axis,
+                                              sparse_opt=sparse_opt,
+                                              dense_lr=dense_lr)
+        shardings = ptt.tt_batch_shardings(mesh, axis)
+
+        def put(b):
+            return tuple(torch.as_tensor(f(b[key])).to(device,
+                                                        non_blocking=True)
+                         for f, key in zip(shardings,
+                                           ("dense", "q_cat", "item_ids")))
+
+        def retriever(m):
+            single = ptt.unshard_two_tower(m)
+            return (ptt.build_sharded_item_index(single, mesh, axis),
+                    ptt.make_sharded_retriever(single, mesh, k=k, axis=axis))
+
+        generator = None
+        if getattr(sparse_opt, "stochastic_rounding", False):
+            generator = rank_generator(seed + 1_000_003, ex.me, device)
+        to_dense = ptt.unshard_two_tower
+        verbose = verbose and _rank() == 0
 
     def eval_fn(m):
-        index = tt.build_item_index(m)
-        retriever = tt.make_retriever(m, k=k)
+        index, run = retriever(m)
         hits, total = 0.0, 0
         for b in eval_batches:
-            _, ids = retriever(index, b["dense"], b["q_cat"])
+            _, ids = run(index, b["dense"], b["q_cat"])
             n = b["item_ids"].shape[0]
             hits += recall_at_k(b["item_ids"], ids.cpu().numpy()) * n
             total += n
@@ -760,7 +841,8 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
         # Two managers: the query stack and the item corpus are two row
         # spaces, each with its own touched set.
         q_mgr, i_mgr = delta_ckpt
-        q_mgr.layout = i_mgr.layout = None
+        q_mgr.layout = _layout(model.query_tables)
+        i_mgr.layout = _layout(model.item_table)
         q_tracker = TouchedRowTracker(model.query_tables.offsets[-1])
         i_tracker = TouchedRowTracker(cfg.item_vocab)
 
@@ -771,7 +853,8 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
                 with tel.phase("delta_ckpt"):
                     q_mgr.save(i + 1, m.query_tables.data, m.q_state,
                                q_tracker)
-                    i_mgr.save(i + 1, m.item_data, m.i_state, i_tracker)
+                    i_mgr.save(i + 1, m.item_table.data, m.i_state,
+                               i_tracker)
 
     # The step returns (loss, in-batch accuracy); the loop logs the loss,
     # on_log records and prints the accuracy.
@@ -796,8 +879,9 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
         on_log=on_log, eval_every=eval_every, eval_batches=eval_batches,
         eval_fn=eval_fn, delta_fn=delta_fn, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, device_prefetch=device_prefetch)
-    return RetrievalTrainResult(model=model, losses=losses, accs=accs,
-                                recalls=recalls, examples_per_sec=eps)
+    return RetrievalTrainResult(
+        model=model if to_dense is None else to_dense(model), losses=losses,
+        accs=accs, recalls=recalls, examples_per_sec=eps)
 
 
 # ---------------------------------------------------------------------------
@@ -813,16 +897,19 @@ def restore_delta(delta_ckpt, model):
     aliases): DLRM and DCN, DeepFM in both layouts (the unfolded
     first-order stack restores beside the FM stack), and the two-tower
     retriever (pass the `(query_mgr, item_mgr)` pair `train_two_tower`
-    took). The dense towers are not in the chain: pair with a
-    `ckpt_manager` when they must resume too. A directory without a
-    committed base leaves its tables as they are."""
+    took). A sharded model restores through its tables' `ModRowLayout`
+    (every rank calls it), whatever layout the chain was written in. The
+    dense towers are not in the chain: pair with a `ckpt_manager` when they
+    must resume too. A directory without a committed base leaves its tables
+    as they are."""
     if hasattr(model, "query_tables"):
         q_mgr, i_mgr = delta_ckpt
-        q_mgr.layout = i_mgr.layout = None
+        q_mgr.layout = _layout(model.query_tables)
+        i_mgr.layout = _layout(model.item_table)
         q_mgr.restore_latest(model.query_tables.data, model.q_state)
-        i_mgr.restore_latest(model.item_data, model.i_state)
+        i_mgr.restore_latest(model.item_table.data, model.i_state)
         return model
-    delta_ckpt.layout = None
+    delta_ckpt.layout = _layout(model.tables)
     delta_ckpt.restore_latest(model.tables.data, _delta_state(model))
     return model
 

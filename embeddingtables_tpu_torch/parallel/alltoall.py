@@ -262,3 +262,65 @@ def sharded_update_a2a(mesh, st: ShardedStackedTables, state,
                                        indices=lrow.index_select(0, keep)),
         state, lr=lr, **kw)
     return state, overflow
+
+
+def sharded_sgd_update_a2a(mesh, st: ShardedStackedTables,
+                           upd: SparseEmbeddingUpdate, lr, *,
+                           capacity_factor: float = 2.0,
+                           weight_decay: float = 0.0, clipnorm=None,
+                           pad_idx: int | None = None, wire_dtype=None,
+                           generator=None, grad_dtype=None):
+    """SGD through the butterfly (`sharded_update_a2a`), in place:
+    `(st, overflow)`."""
+    from ..optim import SparseSGD
+    opt = SparseSGD(lr, weight_decay=weight_decay, clipnorm=clipnorm,
+                    stochastic_rounding=generator is not None,
+                    dense_grad_dtype=grad_dtype)
+    _, overflow = sharded_update_a2a(
+        mesh, st, opt.init(st.data), upd, opt,
+        capacity_factor=capacity_factor, pad_idx=pad_idx,
+        wire_dtype=wire_dtype, generator=generator)
+    return st, overflow
+
+
+def sharded_adagrad_update_a2a(mesh, st: ShardedStackedTables, accum,
+                               upd: SparseEmbeddingUpdate, opt, *,
+                               capacity_factor: float = 2.0,
+                               pad_idx: int | None = None, wire_dtype=None,
+                               lr=None, generator=None):
+    """Row-wise AdaGrad through the butterfly, in place:
+    `(st, accum, overflow)`."""
+    from ..optim import SparseOptState
+    state, overflow = sharded_update_a2a(
+        mesh, st, SparseOptState(accum=accum), upd, opt,
+        capacity_factor=capacity_factor, pad_idx=pad_idx,
+        wire_dtype=wire_dtype, lr=lr, generator=generator)
+    return st, state.accum, overflow
+
+
+def sharded_adam_update_a2a(mesh, st: ShardedStackedTables, m, v, count,
+                            upd: SparseEmbeddingUpdate, opt, *,
+                            capacity_factor: float = 2.0,
+                            pad_idx: int | None = None, wire_dtype=None,
+                            lr=None, generator=None):
+    """Lazy Adam through the butterfly, in place:
+    `(st, m, v, count, overflow)`."""
+    from ..optim import SparseAdamState
+    state, overflow = sharded_update_a2a(
+        mesh, st, SparseAdamState(m=m, v=v, count=count), upd, opt,
+        capacity_factor=capacity_factor, pad_idx=pad_idx,
+        wire_dtype=wire_dtype, lr=lr, generator=generator)
+    return st, state.m, state.v, state.count, overflow
+
+
+def sharded_ftrl_update_a2a(mesh, st: ShardedStackedTables, z, n_state,
+                            upd: SparseEmbeddingUpdate, opt, *,
+                            capacity_factor: float = 2.0,
+                            pad_idx: int | None = None, wire_dtype=None):
+    """FTRL through the butterfly, in place: `(st, z, n, overflow)`."""
+    from ..optim import SparseFTRLState
+    state, overflow = sharded_update_a2a(
+        mesh, st, SparseFTRLState(z=z, n=n_state), upd, opt,
+        capacity_factor=capacity_factor, pad_idx=pad_idx,
+        wire_dtype=wire_dtype)
+    return st, state.z, state.n, overflow

@@ -17,6 +17,11 @@
     held by the model as buffers (`RowState`), so the shard's `apply` is
     the single-device one.
 
+`gather_train_step` is the gather exchange's step body; the sharded DCN
+and DeepFM steps (`parallel/dcn.py`, `parallel/deepfm.py`) run it with
+their own lookups, forward and stacks, as JAX's families share
+`_sharded_sparse_apply`.
+
 The steps update the model in place and return the loss (the port's
 counterpart of JAX's donated model). Every rank must call every step, eval
 and `unshard_dlrm` in the same order: they are collectives.
@@ -166,9 +171,30 @@ def _local_block(ex: Exchange, dense, cat, label=None):
 
 def local_batch(mesh, axis, dense, cat, label=None):
     """This rank's data-axis block of a global batch (numpy arrays or
-    tensors): dense `(B, F)`, cat `(T, B[, bag])`, label `(B,)`. The
-    counterpart of JAX's `batch_shardings`."""
+    tensors): dense `(B, F)`, cat `(T, B[, bag])`, label `(B,)`."""
     return _local_block(Exchange(mesh, axis), dense, cat, label)
+
+
+class BlockSharding:
+    """The port's reading of a JAX batch `NamedSharding`: called on a
+    global array, it returns this rank's data-axis block of dimension
+    `dim` (what `jax.device_put(x, sharding)` leaves on this device)."""
+
+    def __init__(self, ex: Exchange, dim: int):
+        self.exchange, self.dim = ex, dim
+
+    def __call__(self, x):
+        sl = _block(self.exchange, x.shape[self.dim])
+        return x[sl] if self.dim == 0 else x[:, sl]
+
+
+def batch_shardings(mesh, axis="data"):
+    """`(dense, cat, label)` block shardings of a global batch, dims 0, 1
+    and 0 (JAX's `P(data)`, `P(None, data)`, `P(data)`): `local_batch` one
+    array at a time. The two-tower batch `(dense, q_cat, item_ids)` takes
+    the same."""
+    ex = Exchange(mesh, axis)
+    return BlockSharding(ex, 0), BlockSharding(ex, 1), BlockSharding(ex, 0)
 
 
 def _padded_stack_inputs(st: ShardedStackedTables, cat: torch.Tensor,
@@ -206,16 +232,17 @@ def _check_sharded_opt(sparse_opt, exchange: str = "gather") -> None:
             f"got {type(sparse_opt).__name__}")
 
 
-def _local_grads(model, cfg, params, dense, label, emb_t):
-    """Local-mean loss, tower gradients and the `(T, b, D)` activation
-    cotangent of one block."""
+def _local_grads(params, acts, loss_fn):
+    """Local-mean loss, tower gradients (zeros for a parameter the forward
+    does not use) and the cotangents of the activation sets `acts` of one
+    block; `loss_fn(acts)` is the block's loss."""
     with torch.enable_grad():
-        emb_t = emb_t.detach().requires_grad_(True)
-        logits = forward_from_embeddings(model.bottom, model.top, cfg, dense,
-                                         emb_t)
-        loss = bce_loss(logits, label)
-        *grads, delta = torch.autograd.grad(loss, params + [emb_t])
-    return loss.detach(), grads, delta
+        acts = [a.detach().requires_grad_(True) for a in acts]
+        loss = loss_fn(acts)
+        out = torch.autograd.grad(loss, params + acts, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, out[:len(params)])]
+    return loss.detach(), grads, tuple(out[len(params):])
 
 
 def _global_mean(ex: Exchange, loss, grads):
@@ -246,6 +273,65 @@ def _lookup_gather(mesh, st, cfg, cat):
         return e
 
 
+def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
+                      *, lookups, forward, stacks, entry: str,
+                      init_name: str):
+    """The gather exchange's train step of any sharded CTR family,
+    `step(model, dense, cat, label, lr=None, generator=None) -> loss`, in
+    place:
+
+      lookups(model, cat) -> [acts]    the `(T, b, D_i)` activation sets,
+                                       looked up without gradients
+      forward(model, dense, acts)      the block's logits `(b,)`
+      stacks(model, deltas)            `[(tables attr, state attr, delta)]`:
+                                       the lazy update of each stack
+
+    The local-mean gradients (over `microbatch=k` slices of the block when
+    k > 1) become the global mean's (`_global_mean`); the deltas are
+    divided by the data-axis size (and by the bag for an unpadded mean) and
+    each stack takes one `owned_apply`, in order, drawing its stochastic
+    rounding from the one `generator`; the towers then step."""
+    k = microbatch_slices(microbatch)
+
+    def step(model, dense, cat, label, lr=None, generator=None):
+        kw = step_generator(sparse_opt, generator, entry)
+        require_dense_state(model, dense_tx, init_name)
+        device = model.tables.data.device
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        params = [p for _, p in model.tower_params()]
+        ex = model.tables.exchange
+
+        def slice_grads(d, c, l):
+            return _local_grads(params, lookups(model, c), lambda acts:
+                                bce_loss(forward(model, d, acts), l))
+
+        if k > 1:
+            loss, grads, deltas = microbatch_grads(params, dense, cat, label,
+                                                   k, slice_grads)
+        else:
+            loss, grads, deltas = slice_grads(dense, cat, label)
+        loss, grads = _global_mean(ex, loss, grads)
+        deltas = [d.float() / ex.n_data for d in deltas]
+        if cfg.pad_idx is None and cfg.combiner == "mean" and cat.dim() == 3:
+            deltas = [d / cat.shape[2] for d in deltas]
+        shifted, scale = _padded_stack_inputs(model.tables, cat, cfg.combiner,
+                                              cfg.pad_idx)
+        idx = shifted.transpose(0, 1).contiguous()
+        scale = None if scale is None else scale.transpose(0, 1).contiguous()
+        for tables_attr, state_attr, delta in stacks(model, deltas):
+            setattr(model, state_attr, owned_apply(
+                getattr(model, tables_attr), idx,
+                delta.transpose(0, 1).contiguous(), scale, sparse_opt,
+                getattr(model, state_attr), lr=lr, **kw))
+        apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
+                       dense_lr)
+        return loss
+
+    return step
+
+
 def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
                             sparse_opt=None, dense_lr: float = 0.01,
                             exchange: str = "gather",
@@ -256,15 +342,16 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
     `step(model, dense, cat, label, lr=None, generator=None) -> loss`, on
     this rank's block of the batch (`local_batch`), in place.
 
-    exchange: "gather" (exact: `sharded.py`) or "a2a" (the butterfly:
-    occurrences past `capacity_factor`'s headroom per owner are dropped);
-    with `with_overflow` the a2a step returns `(loss, overflow)`, the
-    forward's and the update's dropped occurrences summed over the ranks.
-    `wire_dtype` casts the butterfly's row payloads. `dense_tx` steps the
-    replicated towers with a `torch.optim` factory (the model holds its
-    state). `microbatch=k` (gather only) takes the gradients over k slices
-    of the block before ONE update. `generator`: this rank's stochastic
-    rounding noise, required with `stochastic_rounding`."""
+    exchange: "gather" (exact: `sharded.py`, `gather_train_step`) or "a2a"
+    (the butterfly: occurrences past `capacity_factor`'s headroom per owner
+    are dropped); with `with_overflow` the a2a step returns `(loss,
+    overflow)`, the forward's and the update's dropped occurrences summed
+    over the ranks. `wire_dtype` casts the butterfly's row payloads.
+    `dense_tx` steps the replicated towers with a `torch.optim` factory
+    (the model holds its state). `microbatch=k` (gather only) takes the
+    gradients over k slices of the block before ONE update. `generator`:
+    this rank's stochastic rounding noise, required with
+    `stochastic_rounding`."""
     sparse_opt = sparse_opt or SparseSGD()
     check_dense_tx(dense_tx)
     if exchange not in ("gather", "a2a"):
@@ -280,51 +367,23 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
             "(the gather exchange reduces on the wire); pass "
             "exchange='a2a' or drop wire_dtype")
     _check_sharded_opt(sparse_opt, exchange=exchange)
-    k = microbatch_slices(microbatch)
+    if exchange == "gather":
+        return gather_train_step(
+            cfg, sparse_opt, dense_lr, dense_tx, microbatch,
+            lookups=lambda m, c: [_lookup_gather(mesh, m.tables, cfg, c)],
+            forward=lambda m, d, acts: forward_from_embeddings(
+                m.bottom, m.top, cfg, d, acts[0]),
+            stacks=lambda m, deltas: [("tables", "emb_state", deltas[0])],
+            entry="train_dlrm", init_name="init_sharded_dlrm")
 
-    def inputs(model, dense, cat, label, generator):
+    def step_a2a(model, dense, cat, label, lr=None, generator=None):
         kw = step_generator(sparse_opt, generator, "train_dlrm")
         require_dense_state(model, dense_tx, "init_sharded_dlrm")
         device = model.tables.data.device
-        return (kw, torch.as_tensor(dense).to(device),
-                torch.as_tensor(cat).to(device),
-                torch.as_tensor(label).to(device),
-                [p for _, p in model.tower_params()])
-
-    def step_gather(model, dense, cat, label, lr=None, generator=None):
-        kw, dense, cat, label, params = inputs(model, dense, cat, label,
-                                               generator)
-        st = model.tables
-        ex = st.exchange
-
-        def slice_grads(d, c, l):
-            loss, grads, delta = _local_grads(model, cfg, params, d, l,
-                                              _lookup_gather(mesh, st, cfg, c))
-            return loss, grads, (delta,)
-
-        if k > 1:
-            loss, grads, (delta_t,) = microbatch_grads(params, dense, cat,
-                                                       label, k, slice_grads)
-        else:
-            loss, grads, (delta_t,) = slice_grads(dense, cat, label)
-        loss, grads = _global_mean(ex, loss, grads)
-        delta_t = delta_t.float() / ex.n_data
-        if cfg.pad_idx is None and cfg.combiner == "mean" and cat.dim() == 3:
-            delta_t = delta_t / cat.shape[2]
-        shifted, scale = _padded_stack_inputs(st, cat, cfg.combiner,
-                                              cfg.pad_idx)
-        model.emb_state = owned_apply(
-            st, shifted.transpose(0, 1).contiguous(),
-            delta_t.transpose(0, 1).contiguous(),
-            None if scale is None else scale.transpose(0, 1).contiguous(),
-            sparse_opt, model.emb_state, lr=lr, **kw)
-        apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
-                       dense_lr)
-        return loss
-
-    def step_a2a(model, dense, cat, label, lr=None, generator=None):
-        kw, dense, cat, label, params = inputs(model, dense, cat, label,
-                                               generator)
+        dense = torch.as_tensor(dense).to(device)
+        cat = torch.as_tensor(cat).to(device)
+        label = torch.as_tensor(label).to(device)
+        params = [p for _, p in model.tower_params()]
         if lr is not None and isinstance(sparse_opt, SparseFTRL):
             raise ValueError(
                 "SparseFTRL cannot change lr per step: alpha is baked into "
@@ -357,9 +416,10 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
                         emb_bt = emb_bt / denom[..., None].to(emb_bt.dtype)
                     else:
                         emb_bt = emb_bt / bag
-        loss, grads, delta_t = _local_grads(
-            model, cfg, params, dense, label,
-            emb_bt.transpose(0, 1).contiguous())
+        loss, grads, (delta_t,) = _local_grads(
+            params, [emb_bt.transpose(0, 1).contiguous()],
+            lambda acts: bce_loss(forward_from_embeddings(
+                model.bottom, model.top, cfg, dense, acts[0]), label))
         loss, grads = _global_mean(ex, loss, grads)
         delta_bt = (delta_t.float() / ex.n_data).transpose(0, 1).reshape(
             -1, dim)
@@ -383,7 +443,7 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
             return loss, ovf_fwd + ovf_bwd
         return loss
 
-    return step_a2a if exchange == "a2a" else step_gather
+    return step_a2a
 
 
 def make_sharded_eval_step(cfg: DLRMConfig, mesh, axis="data"):

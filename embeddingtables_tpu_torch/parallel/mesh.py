@@ -14,8 +14,11 @@ axes is JAX's `_flat_axis_index`: row-major over the rank's coordinates,
 `data_idx * model_size + model_idx` (`parallel.sharded.flat_index`), so rank
 r of `local_mesh(n)` holds the rows of JAX's device r.
 
-`local_mesh(n)` needs n to equal the world size: every rank of the group is
-on the mesh (a sub-mesh would leave ranks outside every collective).
+`local_mesh(n)` and `default_mesh(devices=)` need n to equal the world
+size: every rank of the group is on the mesh. JAX takes the first n devices
+of its one process; here a sub-mesh would leave the other ranks outside
+every collective of the step they run too (ROADMAP.md queue 3, "A mesh
+covers the group").
 """
 from __future__ import annotations
 
@@ -92,15 +95,33 @@ def _require_group(device_type: str) -> int:
     return dist.get_world_size()
 
 
+def _mesh_ranks(devices, n: int) -> torch.Tensor:
+    """The ranks `devices` lays on the mesh, in order: ranks as ints, or
+    one device per rank (a rank's position in the list). They must be the
+    whole group."""
+    devices = list(devices)
+    ranks = [d if isinstance(d, int) else i for i, d in enumerate(devices)]
+    if sorted(ranks) != list(range(n)):
+        raise ValueError(
+            f"a mesh of {len(ranks)} devices on a group of {n} ranks: a mesh "
+            "covers every rank of the group (ROADMAP.md queue 3)")
+    return torch.tensor(ranks)
+
+
 def default_mesh(axes: Sequence[str] = ("data",),
                  shape: Optional[Tuple[int, ...]] = None,
-                 device=None) -> DeviceMesh:
-    """Mesh over every rank of the default group. With one axis, all ranks
-    land on it; with several, `shape` must multiply out to the world size
-    (default: all on the first axis). Rank `d * model + m` sits at
-    `(d, m)`."""
+                 devices=None, device=None) -> DeviceMesh:
+    """Mesh over every rank of the default group (`devices`: the ranks, or
+    one device per rank, in mesh order; default rank order). With one axis,
+    all ranks land on it; with several, `shape` must multiply out to the
+    world size (default: all on the first axis). The k-th rank of the order
+    sits at the k-th position of the row-major grid."""
+    if device is None and devices is not None:
+        first = next((d for d in devices if not isinstance(d, int)), None)
+        device = None if first is None else torch.device(first).type
     device_type = resolve_device(device).type
     n = _require_group(device_type)
+    ranks = torch.arange(n) if devices is None else _mesh_ranks(devices, n)
     axes = tuple(axes)
     if shape is None:
         shape = (n,) + (1,) * (len(axes) - 1)
@@ -111,19 +132,19 @@ def default_mesh(axes: Sequence[str] = ("data",),
         total *= s
     if total != n:
         raise ValueError(f"mesh shape {shape} != world size {n}")
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
-                      mesh_dim_names=axes)
+    return DeviceMesh(device_type, ranks.reshape(shape), mesh_dim_names=axes)
 
 
 def local_mesh(n: int, axes: Sequence[str] = ("data",),
                device=None) -> DeviceMesh:
     """The mesh of the n ranks of the group (tests, one host). n must equal
-    the world size."""
+    the world size (JAX takes its first n devices: ROADMAP.md queue 3)."""
     device_type = resolve_device(device).type
     world = _require_group(device_type)
     if n != world:
         raise ValueError(f"local_mesh({n}) on a group of {world} ranks: a "
-                         "mesh covers every rank of the group")
+                         "mesh covers every rank of the group (ROADMAP.md "
+                         "queue 3)")
     return default_mesh(axes, device=device)
 
 

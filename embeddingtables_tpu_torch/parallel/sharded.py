@@ -295,6 +295,11 @@ class ShardedStackedTables(nn.Module):
         return _global_rows(self.data, self.exchange, self.vocab)
 
 
+def shard_table(mesh, axis, table) -> ShardedStackedTables:
+    """One table mod-row-sharded (`ShardedStackedTables.shard`)."""
+    return ShardedStackedTables.shard(mesh, axis, table)
+
+
 # ---------------------------------------------------------------------------
 # Row state
 # ---------------------------------------------------------------------------
@@ -333,6 +338,74 @@ def unshard_row_state(st: ShardedStackedTables, state):
     if not state.accum.numel():
         return SparseOptState(accum=state.accum.clone())
     return SparseOptState(accum=_global_rows(state.accum, ex, vocab))
+
+
+def init_sharded_row_state(mesh, st: ShardedStackedTables, sparse_opt):
+    """`sparse_opt`'s fresh state of this rank's shard (SGD's empty one by
+    default): the state of a table made directly on the mesh."""
+    return (sparse_opt or SparseSGD()).init(st.data)
+
+
+def init_sharded_adam_state(mesh, st: ShardedStackedTables):
+    """Lazy Adam's zero `(m, v, count)` of this rank's shard."""
+    from ..optim import SparseLazyAdam
+    return SparseLazyAdam().init(st.data)
+
+
+def shard_adam_state(mesh, st: ShardedStackedTables, state):
+    """This rank's rows of a single-device `SparseAdamState`."""
+    return shard_row_accum(mesh, st.axis, st, state, None)
+
+
+def unshard_adam_state(st: ShardedStackedTables, m, v, count):
+    """The single-device `SparseAdamState` back (a collective)."""
+    return unshard_row_state(st, SparseAdamState(m=m, v=v, count=count))
+
+
+def init_sharded_ftrl_state(mesh, st: ShardedStackedTables, opt):
+    """FTRL's `(z, n)` of this rank's shard, z solved for its rows."""
+    return opt.init(st.data)
+
+
+def shard_ftrl_state(mesh, st: ShardedStackedTables, state):
+    """This rank's rows of a single-device `SparseFTRLState`."""
+    return shard_row_accum(mesh, st.axis, st, state, None)
+
+
+def _apply_table_major(st, state, shifted_idx, delta_t, opt, batch_sharded,
+                       scale_t, lr=None, generator=None):
+    """`owned_apply` of JAX's table-major `(T, B[, bag])` ids, `(T, B, D)`
+    deltas and per-occurrence scale."""
+    def bt(x):
+        return None if x is None else torch.as_tensor(x).to(
+            st.data.device).transpose(0, 1).contiguous()
+    return owned_apply(st, bt(shifted_idx).to(torch.int32), bt(delta_t),
+                       bt(scale_t), opt, state, batch_sharded=batch_sharded,
+                       lr=lr, generator=generator)
+
+
+def sharded_adam_apply(mesh, st: ShardedStackedTables, m, v, count,
+                       shifted_idx, delta_t, opt, *,
+                       batch_sharded: bool = True, scale_t=None, lr=None,
+                       generator=None):
+    """Lazy Adam on the shard through the gather exchange, in place:
+    `shifted_idx (T, B[, bag])` stacked global rows, `delta_t (T, B, D)`.
+    Returns `(st, m, v, count)`."""
+    state = _apply_table_major(st, SparseAdamState(m=m, v=v, count=count),
+                               shifted_idx, delta_t, opt, batch_sharded,
+                               scale_t, lr, generator)
+    return st, state.m, state.v, state.count
+
+
+def sharded_ftrl_apply(mesh, st: ShardedStackedTables, z, n_state,
+                       shifted_idx, delta_t, opt, *,
+                       batch_sharded: bool = True, scale_t=None):
+    """FTRL on the shard through the gather exchange, in place (the
+    arguments of `sharded_adam_apply`). Returns `(st, z, n)`."""
+    state = _apply_table_major(st, SparseFTRLState(z=z, n=n_state),
+                               shifted_idx, delta_t, opt, batch_sharded,
+                               scale_t)
+    return st, state.z, state.n
 
 
 # ---------------------------------------------------------------------------

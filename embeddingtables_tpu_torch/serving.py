@@ -10,9 +10,10 @@ of `embeddingtables_tpu/serving.py`).
   - `make_dlrm_service`, `make_dcn_service`, `make_deepfm_service`: glue
     from a CTR model, or its int8 / int4 quantized tables (`quant.py`), to a
     `MicroBatcher`; `make_retrieval_service` serves a two-tower model's
-    top-k retrieval the same way. `make_dlrm_service(mesh=)` serves a
-    sharded DLRM from every rank of its mesh: rank 0 batches and
-    broadcasts, the other ranks follow (`MeshFollower`).
+    top-k retrieval the same way. With `mesh=` each serves a sharded model
+    (the CTR families) or a sharded index (retrieval) from every rank of
+    the mesh: rank 0 batches and broadcasts, the other ranks follow
+    (`MeshFollower`).
   - `make_refreshable_service` (any CTR family) and
     `make_refreshable_dlrm_service`: a service whose tables (or whole model)
     can be swapped while it serves, for a replica that follows a trainer's
@@ -42,7 +43,6 @@ import torch
 from . import quant
 from .models import dcn, deepfm, dlrm, two_tower
 from .ops.ensemble import StackedTables
-from .unported import refuse_unported
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -226,20 +226,35 @@ class MicroBatcher:
             off += p.size
 
 
-def _scoring_service(model, make_eval_step, quantize, *, quantized: bool,
-                     quantize_bits: int, mesh, entry: str, max_batch: int,
+def _scoring_service(model, make_eval_step, quantize, sharded, *,
+                     quantized: bool, quantize_bits: int, mesh, axis,
+                     entry: str, max_batch: int,
                      max_latency_ms: float) -> MicroBatcher:
     """A CTR model behind a `MicroBatcher`: each flushed batch is copied to
     the model's device, scored (`make_eval_step`'s step under
     `torch.inference_mode()`, or with `quantized=True` the eval function of
     `quantize(model, bits=quantize_bits)`) and copied back as numpy float32.
     Nothing synchronises explicitly: the copy back is where the worker waits
-    for the batch. JAX's own error on a quantized mesh service comes before
-    the unported `mesh`."""
-    if mesh is not None and quantized:
-        raise NotImplementedError(
-            "quantized serving is single-chip; unshard the model first")
-    refuse_unported(entry, mesh=mesh)
+    for the batch. With a `mesh`, the family's sharded model (`sharded()`:
+    its class and sharded eval-step factory) behind `_mesh_service`; JAX's
+    own error on a quantized mesh service comes first."""
+    if mesh is not None:
+        if quantized:
+            raise NotImplementedError(
+                "quantized serving is single-chip; unshard the model first")
+        from .parallel.dlrm import sharded_logits
+        cls, make_sharded_eval = sharded()
+        if not isinstance(model, cls):
+            raise NotImplementedError(
+                f"{entry}(mesh=...) serves a {cls.__name__} (parallel."
+                f"shard_*), got a {type(model).__name__}; a model placed by "
+                "the planner waits for the planner (ROADMAP.md queue 1, "
+                "item I-3)")
+        step = make_sharded_eval(model.config, mesh, axis)
+        return _mesh_service(
+            model.tables.data.device, model.tables.exchange.n,
+            lambda dense, cat: sharded_logits(model, dense, cat, step),
+            max_batch=max_batch, max_latency_ms=max_latency_ms)
     device = model.tables.data.device
     if quantized:
         _, score = quantize(model, bits=quantize_bits)
@@ -260,8 +275,9 @@ def _scoring_service(model, make_eval_step, quantize, *, quantized: bool,
 
 @dataclass
 class MeshFollower:
-    """What `make_dlrm_service(mesh=...)` returns on the ranks other than
-    0, once rank 0's service has stopped: the batches it helped score."""
+    """What a mesh service (`make_*_service(mesh=...)`) returns on the ranks
+    other than 0, once rank 0's service has stopped: the batches it helped
+    score."""
 
     batches: int
 
@@ -270,7 +286,7 @@ _STOP, _SCORE = 0, 1
 
 
 class _MeshBatcher(MicroBatcher):
-    """Rank 0's batcher of a sharded service: `stop()` also ends the other
+    """Rank 0's batcher of a mesh service: `stop()` also ends the other
     ranks' follower loops."""
 
     def __init__(self, predict_fn, header, **kw):
@@ -285,19 +301,17 @@ class _MeshBatcher(MicroBatcher):
             self._header(_STOP, 0, 0, 0, 0)
 
 
-def _mesh_dlrm_service(model, mesh, axis, max_batch: int,
-                       max_latency_ms: float):
-    """The sharded DLRM behind rank 0's `MicroBatcher`. Every eval is a
-    collective, so rank 0's worker broadcasts each flushed batch (a header
-    with its shape, then the dense and cat tensors) to every rank, padded
-    to a multiple of the placement's rank count with its tail row (JAX's
-    rule); every rank scores its data block and the logits are gathered.
-    The other ranks run that loop until rank 0's `stop()`."""
+def _mesh_service(device, pad_to: int, score, *, max_batch: int,
+                  max_latency_ms: float):
+    """A collective `score(dense, cat)` behind rank 0's `MicroBatcher`.
+    Every score is a collective, so rank 0's worker broadcasts each flushed
+    batch (a header with its shape, then the dense and cat tensors) to
+    every rank, padded to a multiple of `pad_to` with its tail row (JAX's
+    rule for a batch-sharded model; 1 for replicated queries); every rank
+    scores it and rank 0 returns the result (a tensor, or a tuple of them)
+    without the padding. The other ranks run that loop until rank 0's
+    `stop()` and then return a `MeshFollower`."""
     import torch.distributed as dist
-    from .parallel.dlrm import make_sharded_eval_step, sharded_logits
-    device = model.tables.data.device
-    n = model.tables.exchange.n
-    step = make_sharded_eval_step(model.config, mesh, axis)
 
     def on_device():
         return (torch.cuda.device(device) if device.type == "cuda"
@@ -310,11 +324,11 @@ def _mesh_dlrm_service(model, mesh, axis, max_batch: int,
             dist.broadcast(h, src=0)
         return [int(x) for x in h.tolist()]
 
-    def score(dense, cat):
+    def run(dense, cat):
         with on_device():
             dist.broadcast(dense, src=0)
             dist.broadcast(cat, src=0)
-            return sharded_logits(model, dense, cat, step)
+            return score(dense, cat)
 
     if dist.get_rank() != 0:
         batches = 0
@@ -325,23 +339,35 @@ def _mesh_dlrm_service(model, mesh, axis, max_batch: int,
             dense = torch.empty((b, f), dtype=torch.float32, device=device)
             cat = torch.empty((t, b) + ((bag,) if bag else ()),
                               dtype=torch.int32, device=device)
-            score(dense, cat)
+            run(dense, cat)
             batches += 1
 
     def predict(dense, cat):
         b = dense.shape[0]
-        pad = (-b) % n
+        pad = (-b) % pad_to
         if pad:
             dense = np.concatenate([dense] + [dense[-1:]] * pad, axis=0)
             cat = np.concatenate([cat] + [cat[:, -1:]] * pad, axis=1)
         header(_SCORE, dense.shape[0], dense.shape[1], cat.shape[0],
                cat.shape[2] if cat.ndim == 3 else 0)
-        out = score(torch.from_numpy(np.ascontiguousarray(dense)).to(device),
-                    torch.from_numpy(np.ascontiguousarray(cat)).to(device))
+        out = run(torch.from_numpy(np.ascontiguousarray(dense)).to(device),
+                  torch.from_numpy(np.ascontiguousarray(cat)).to(device))
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy()[:b] for o in out)
         return out.cpu().numpy()[:b]
 
     return _MeshBatcher(predict, header, max_batch=max_batch,
                         max_latency_ms=max_latency_ms)
+
+
+def _sharded(module: str, cls: str, eval_step: str):
+    """`() -> (sharded model class, sharded eval-step factory)` of
+    `parallel.<module>`, imported when a mesh asks for them."""
+    def get():
+        import importlib
+        m = importlib.import_module(f"{__package__}.parallel.{module}")
+        return getattr(m, cls), getattr(m, eval_step)
+    return get
 
 
 def make_dlrm_service(model, *, quantized: bool = False,
@@ -360,23 +386,11 @@ def make_dlrm_service(model, *, quantized: bool = False,
     return a `MeshFollower`. `quantized` serving is single-device, as in
     JAX, and a planned model waits for the planner; `axis` is ignored
     without a mesh."""
-    if mesh is not None:
-        if quantized:
-            raise NotImplementedError(
-                "quantized serving is single-chip; unshard the model first")
-        from .parallel.dlrm import ShardedDLRM
-        if not isinstance(model, ShardedDLRM):
-            raise NotImplementedError(
-                f"make_dlrm_service(mesh=...) serves a ShardedDLRM "
-                f"(parallel.shard_dlrm), got a {type(model).__name__}; a "
-                "model placed by the planner waits for the planner "
-                "(ROADMAP.md queue 1, item I-3)")
-        return _mesh_dlrm_service(model, mesh, axis, max_batch,
-                                  max_latency_ms)
     return _scoring_service(model, dlrm.make_eval_step, quant.quantize_dlrm,
-                            quantized=quantized, quantize_bits=quantize_bits,
-                            mesh=mesh, entry="make_dlrm_service",
-                            max_batch=max_batch,
+                            _sharded("dlrm", "ShardedDLRM",
+                                     "make_sharded_eval_step"), quantized=quantized,
+                            quantize_bits=quantize_bits, mesh=mesh, axis=axis,
+                            entry="make_dlrm_service", max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
@@ -385,11 +399,13 @@ def make_dcn_service(model, *, quantized: bool = False,
                      max_batch: int = 1024,
                      max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DCN-v2 scoring service, `make_dlrm_service`'s contract for a
-    `models.dcn.DCN` (`quant.quantize_dcn`)."""
+    `models.dcn.DCN` (`quant.quantize_dcn`), or with `mesh` a
+    `parallel.dcn.ShardedDCN`."""
     return _scoring_service(model, dcn.make_eval_step, quant.quantize_dcn,
-                            quantized=quantized, quantize_bits=quantize_bits,
-                            mesh=mesh, entry="make_dcn_service",
-                            max_batch=max_batch,
+                            _sharded("dcn", "ShardedDCN",
+                                     "make_sharded_dcn_eval_step"), quantized=quantized,
+                            quantize_bits=quantize_bits, mesh=mesh, axis=axis,
+                            entry="make_dcn_service", max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
@@ -401,11 +417,14 @@ def make_deepfm_service(model, *, quantized: bool = False,
     `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`
     (`quant.quantize_deepfm`: the folded stack quantizes its fused rows,
     so `quantize_bits=4` raises there; the unfolded first-order stack stays
-    in its storage dtype)."""
+    in its storage dtype), or with `mesh` a `parallel.deepfm.ShardedDeepFM`."""
     return _scoring_service(model, deepfm.make_eval_step,
-                            quant.quantize_deepfm, quantized=quantized,
-                            quantize_bits=quantize_bits, mesh=mesh,
-                            entry="make_deepfm_service", max_batch=max_batch,
+                            quant.quantize_deepfm,
+                            _sharded("deepfm", "ShardedDeepFM",
+                                     "make_sharded_deepfm_eval_step"),
+                            quantized=quantized, quantize_bits=quantize_bits,
+                            mesh=mesh, axis=axis, entry="make_deepfm_service",
+                            max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
 
 
@@ -418,9 +437,23 @@ def make_retrieval_service(model, *, k: int = 10, mesh=None, axis="data",
     (`make_retriever`); requests coalesce through the MicroBatcher, the
     `cat` argument of `submit`/`predict` being the `(T, b)` query features.
     Each request resolves to `(scores (b, k) float32, item_ids (b, k)
-    int32)`. A `mesh` is not ported yet (`unported.py`); `axis` is ignored
-    without one, as in JAX."""
-    refuse_unported("make_retrieval_service", mesh=mesh)
+    int32)`. With `mesh` every rank calls it with the same `TwoTower` (a
+    `parallel.two_tower.ShardedTwoTower` is unsharded first): the index is
+    block-row sharded over `axis` (`build_sharded_item_index`, each rank
+    embedding its own rows) and rank 0's batches are broadcast to every
+    rank for the sharded retriever; the other ranks follow until rank 0's
+    `stop()` (`make_dlrm_service`'s contract); `axis` is ignored without
+    a mesh, as in JAX."""
+    if mesh is not None:
+        from .parallel import two_tower as ptt
+        if isinstance(model, ptt.ShardedTwoTower):
+            model = ptt.unshard_two_tower(model)
+        index = ptt.build_sharded_item_index(model, mesh, axis)
+        sharded = ptt.make_sharded_retriever(model, mesh, k=k, axis=axis)
+        return _mesh_service(model.item_data.device, 1,
+                             lambda dense, cat: sharded(index, dense, cat),
+                             max_batch=max_batch,
+                             max_latency_ms=max_latency_ms)
     index = two_tower.build_item_index(model)
     run = two_tower.make_retriever(model, k=k)
 

@@ -25,6 +25,16 @@ pickled code runs.
 
 These files are not orbax's: the JAX package and the port cannot read each
 other's checkpoints (delta files, `utils.deltackpt`, are shared).
+
+A sharded model (one holding a `parallel.ShardedStackedTables`: one
+process per card, each holding its own shard) is saved by every rank of
+its placement together: each rank writes its tree as `part_<i>/`, i its
+flattened mesh index, into one temporary directory, which the rank of
+index 0 renames into place between two barriers; `parts.json` records the
+number of parts. It restores into the same placement, each rank reading
+its own part (JAX's orbax restores a sharded array into another placement;
+the port's full checkpoints do not: ROADMAP.md queue 3, "Checkpoint
+bases").
 """
 from __future__ import annotations
 
@@ -89,14 +99,72 @@ def _replace_dir(tmp: str, path: str) -> None:
         os.replace(tmp, path)
 
 
+PARTS = "parts.json"
+
+
+def placement_of(tree):
+    """The `parallel.sharded.Exchange` of a sharded model (a module that
+    holds a `ShardedStackedTables`), else None."""
+    if isinstance(tree, nn.Module):
+        for m in tree.modules():
+            ex = getattr(m, "exchange", None)
+            if ex is not None:
+                return ex
+    return None
+
+
+def barrier(ex) -> None:
+    """Wait for every rank of the placement `ex`."""
+    import torch.distributed as dist
+    dist.barrier(group=ex.group)
+
+
+def part_path(path: str, ex) -> str:
+    """This rank's part of the sharded checkpoint at `path`."""
+    with open(os.path.join(path, PARTS)) as f:
+        n = json.load(f)["parts"]
+    if n != ex.n:
+        raise ValueError(f"{path} holds {n} parts; the placement has "
+                         f"{ex.n} ranks (a sharded checkpoint restores into "
+                         "its own placement)")
+    return os.path.join(path, f"part_{ex.me}")
+
+
+def _save_parts(path: str, tree, ex, force: bool) -> str:
+    """Every rank of `ex` writes its part; index 0 commits the directory."""
+    parent = os.path.dirname(path)
+    tmp = os.path.join(parent, f".tmp-{os.path.basename(path)}-parts")
+    if ex.me == 0:
+        if os.path.exists(path) and not force:
+            raise FileExistsError(path)
+        os.makedirs(parent, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, PARTS), "w") as f:
+            json.dump({"parts": ex.n}, f)
+    barrier(ex)
+    save_checkpoint(os.path.join(tmp, f"part_{ex.me}"), tree, parts=False)
+    barrier(ex)
+    if ex.me == 0:
+        _replace_dir(tmp, path)
+    barrier(ex)
+    return path
+
+
 def save_checkpoint(path: str, tree, *, step: Optional[int] = None,
-                    force: bool = True) -> str:
+                    force: bool = True, parts=None) -> str:
     """Save `tree` (a model, or a tuple of state) to the directory `path`
     (`path/<step>` with `step`); returns the directory. An existing
-    checkpoint there is replaced, or with `force=False` refused."""
+    checkpoint there is replaced, or with `force=False` refused. `parts`:
+    the placement (`Exchange`) whose ranks save their parts together (a
+    collective); by default a sharded model's own (`placement_of`), False
+    for none."""
     path = os.path.abspath(path)
     if step is not None:
         path = os.path.join(path, str(step))
+    ex = placement_of(tree) if parts is None else parts
+    if ex:
+        return _save_parts(path, tree, ex, force)
     if os.path.exists(path) and not force:
         raise FileExistsError(path)
     parent = os.path.dirname(path)
@@ -134,11 +202,16 @@ def load_leaf(path: str, i: int) -> torch.Tensor:
                       map_location="cpu", mmap=True)
 
 
-def restore_checkpoint(path: str, restore_like) -> Any:
+def restore_checkpoint(path: str, restore_like, *, parts=None) -> Any:
     """Copy the checkpoint at `path` into `restore_like`'s tensors, in place
     (on their devices, in their dtypes), and return `restore_like`. It must
-    have the saved structure: the same leaves by path, shape and dtype."""
+    have the saved structure: the same leaves by path, shape and dtype. A
+    sharded checkpoint (`parts`, by default `placement_of(restore_like)`)
+    gives each rank its own part."""
     path = os.path.abspath(path)
+    ex = placement_of(restore_like) if parts is None else parts
+    if ex:
+        path = part_path(path, ex)
     index = read_index(path)
     leaves = named_leaves(restore_like)
     saved = {e["leaf"]: e for e in index["leaves"]}
@@ -180,11 +253,18 @@ class CheckpointManager:
                       if name.isdigit())
 
     def save(self, step: int, tree) -> str:
+        """Save `tree` at `step` (with a sharded model, every rank of its
+        placement together) and prune the oldest beyond `max_to_keep`."""
         p = save_checkpoint(self.directory, tree, step=step)
-        steps = self._steps()
-        while len(steps) > self.max_to_keep:
-            shutil.rmtree(os.path.join(self.directory, str(steps.pop(0))),
-                          ignore_errors=True)
+        ex = placement_of(tree)
+        if ex is None or ex.me == 0:
+            steps = self._steps()
+            while len(steps) > self.max_to_keep:
+                shutil.rmtree(os.path.join(self.directory,
+                                           str(steps.pop(0))),
+                              ignore_errors=True)
+        if ex is not None:
+            barrier(ex)
         return p
 
     def latest_step(self) -> Optional[int]:

@@ -34,9 +34,28 @@ moments, FTRL's `(V, D)` z and n) is row-sliced (`srow_<i>`); any other
 (Adam's step count, SGD's zero-size placeholder) is saved whole in every
 delta (`sfull_<i>`), `i` counting the state's leaves in JAX's order.
 
-The port has one device: the flat `(V, ...)` layout. JAX's mod-sharded
-`ModRowLayout` and its cross-layout base restore wait for multi-device
-placement (ROADMAP.md queue 1, item I); a base saved in it is refused.
+Layouts: `FlatRowLayout`, the `(V, ...)` tensors of one device, and
+`ModRowLayout`, a mod-row-sharded table (`parallel.ShardedStackedTables`):
+global row r on the rank of flattened index `r % n`, at slot `r // n` of
+its `(rows_per_shard, ...)` shard. JAX's mod layout is one global
+`(n, rows_per_shard, ...)` array whose collectives XLA inserts; here each
+rank holds its shard, so under a `ModRowLayout` every rank of the
+placement joins each save and restore:
+
+  - a delta's rows are gathered by their owners and all-gathered (one
+    `gather_rows` a leaf on each rank), and the rank of index 0 writes the
+    one `delta_<step>.npz`, keyed by global row as JAX's: a delta written
+    by either package, from either layout, applies in the other;
+  - a base is written as one part per rank (`utils.checkpoint`'s sharded
+    checkpoints) with `rowlayout_<step>.json` naming `{"kind": "mod", "n",
+    "rps"}`;
+  - a restore reads the base in its own layout, or re-lays it by global
+    row (`_restore_base_converted`: a flat base into a sharded model, a
+    sharded base into a flat one or onto another rank count), then sets
+    each delta's rows on their owners.
+
+Every rank must hold the same touched rows (the loops feed each rank's
+tracker the same global batches).
 """
 from __future__ import annotations
 
@@ -50,11 +69,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda.gather import gather_rows
-from .checkpoint import (load_leaf, named_leaves, read_index,
+from .checkpoint import (barrier, load_leaf, named_leaves, read_index,
                          restore_checkpoint, save_checkpoint)
-
-_ITEM_I = ("mesh-sharded row layouts wait for multi-device placement "
-           "(ROADMAP.md queue 1, item I)")
 
 
 def _host(x) -> np.ndarray:
@@ -129,10 +145,64 @@ class FlatRowLayout:
                                     vals.to(leaf.device, leaf.dtype))
 
 
-def _check_layout(layout):
-    if layout is not None and not isinstance(layout, FlatRowLayout):
-        raise NotImplementedError(_ITEM_I)
-    return layout
+class ModRowLayout:
+    """The mod-row-sharded layout of a `parallel.ShardedStackedTables`:
+    global row r at slot `r // n` of the `(rows_per_shard, ...)` shard of
+    the rank of flattened index `r % n` (`exchange`, the placement's
+    `parallel.sharded.Exchange`). `take` is a collective; `set` writes this
+    rank's rows only."""
+
+    def __init__(self, n_shards: int, rows_per_shard: int, exchange=None):
+        self.n = int(n_shards)
+        self.rps = int(rows_per_shard)
+        self.exchange = exchange
+
+    @classmethod
+    def for_tables(cls, sharded_tables) -> "ModRowLayout":
+        ex = sharded_tables.exchange
+        return cls(ex.n, sharded_tables.rows_local, ex)
+
+    def is_rowwise(self, leaf) -> bool:
+        shape = tuple(getattr(leaf, "shape", ()))
+        return len(shape) >= 1 and shape[0] == self.rps and self.rps > 0
+
+    def take(self, leaf: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """The global `rows` of the sharded `leaf` on every rank (a
+        collective): each rank gathers the rows it owns (`gather_rows`),
+        then the owners' rows are all-gathered and put in `rows`' order."""
+        ex = self.exchange
+        rest = tuple(leaf.shape[1:])
+        flat = leaf.detach().reshape(leaf.shape[0], -1)
+        rows = rows.to(leaf.device)
+        if not rows.numel():
+            return flat[:0].reshape((0,) + rest)
+        owner = torch.remainder(rows, self.n).long()
+        mine = (owner == ex.me).nonzero().squeeze(1)
+        vals = gather_rows(flat, torch.div(rows[mine], self.n,
+                                           rounding_mode="floor")
+                           .to(torch.int32).contiguous())
+        counts = torch.bincount(owner, minlength=self.n)
+        cmax = int(counts.max())
+        padded = flat.new_zeros((cmax, flat.shape[1]))
+        padded[:vals.shape[0]] = vals
+        got = ex.gather_flat(padded)                  # (n, cmax, width)
+        valid = torch.arange(cmax, device=leaf.device)[None, :] < \
+            counts[:, None]
+        out = flat.new_empty((rows.numel(), flat.shape[1]))
+        out[torch.argsort(owner, stable=True)] = got[valid]
+        return out.reshape((rows.numel(),) + rest)
+
+    def set(self, leaf: torch.Tensor, rows: torch.Tensor,
+            vals: torch.Tensor) -> torch.Tensor:
+        """Set this rank's rows of the global `rows` in place; returns
+        `leaf`."""
+        rows = rows.to(leaf.device).long()
+        mine = (torch.remainder(rows, self.n) == self.exchange.me) & \
+            (rows >= 0)
+        with torch.no_grad():
+            return leaf.index_copy_(
+                0, torch.div(rows[mine], self.n, rounding_mode="floor"),
+                vals.to(leaf.device, leaf.dtype)[mine])
 
 
 def snapshot_delta(data: torch.Tensor, state, rows, layout=None) -> dict:
@@ -140,7 +210,7 @@ def snapshot_delta(data: torch.Tensor, state, rows, layout=None) -> dict:
     on the host: one gather per leaf on the leaf's device, O(rows), never
     O(vocab). Keys: `rows`, `vals`, `srow_<i>` / `sfull_<i>` by the
     state's leaf position; values are CPU tensors."""
-    layout = _check_layout(layout) or FlatRowLayout(data.shape[0])
+    layout = layout or FlatRowLayout(data.shape[0])
     rows = np.ascontiguousarray(_host(rows), dtype=np.int32)
     idx = torch.from_numpy(rows).to(data.device)
     out = {"rows": torch.from_numpy(rows),
@@ -157,7 +227,7 @@ def apply_delta(data: torch.Tensor, state, delta: dict, layout=None):
     """Set a `snapshot_delta` dict's rows into `(data, state)`, in place,
     whole rows (not added: the delta holds the rows' values after the
     update); returns `(data, state)`."""
-    layout = _check_layout(layout) or FlatRowLayout(data.shape[0])
+    layout = layout or FlatRowLayout(data.shape[0])
     rows = torch.as_tensor(delta["rows"])
     layout.set(data, rows, torch.as_tensor(delta["vals"]))
     for i, (_, leaf) in enumerate(named_leaves(state)):
@@ -172,8 +242,43 @@ def apply_delta(data: torch.Tensor, state, delta: dict, layout=None):
 
 def _layout_meta(layout, data) -> dict:
     """Serializable description of the row layout a base was saved in."""
-    _check_layout(layout)
+    if isinstance(layout, ModRowLayout):
+        return {"kind": "mod", "n": layout.n, "rps": layout.rps}
     return {"kind": "flat", "vocab": int(data.shape[0])}
+
+
+def _rows_to_flat(arr: torch.Tensor, meta: dict) -> torch.Tensor:
+    """A row-wise leaf from its saved layout (mod: the `(n, rps, ...)`
+    stack of the parts) into flat global-row order (mod capacity
+    `n * rps >= vocab`)."""
+    if meta["kind"] == "mod":
+        n, rps = meta["n"], meta["rps"]
+        return arr.transpose(0, 1).reshape((n * rps,) + tuple(arr.shape[2:]))
+    return arr
+
+
+def _rows_from_flat(flat: torch.Tensor, target_layout,
+                    target_shape) -> torch.Tensor:
+    """Flat global rows into the target: for a `ModRowLayout` this rank's
+    `(rps, ...)` shard (rows past the saved capacity are padding, zero),
+    else the first `target_shape[0]` rows."""
+    if isinstance(target_layout, ModRowLayout):
+        n, rps = target_layout.n, target_layout.rps
+        mine = flat[target_layout.exchange.me::n][:rps]
+        if mine.shape[0] < rps:
+            mine = torch.cat([mine, mine.new_zeros(
+                (rps - mine.shape[0],) + tuple(flat.shape[1:]))])
+        return mine
+    return flat[:target_shape[0]]
+
+
+def _saved_leaf(path: str, meta: dict, i: int) -> torch.Tensor:
+    """Leaf `i` of the base at `path` in its saved layout: a flat base's
+    tensor, or the `(n, rps, ...)` stack of a mod base's parts."""
+    if meta["kind"] == "mod":
+        return torch.stack([load_leaf(os.path.join(path, f"part_{r}"), i)
+                            for r in range(meta["n"])])
+    return load_leaf(path, i)
 
 
 def _atomic_savez(path: str, payload: dict) -> None:
@@ -247,9 +352,19 @@ class DeltaCheckpointManager:
             raise ValueError("base_every must be >= 1")
         self.directory = os.path.abspath(directory)
         self.base_every = base_every
-        self.layout = _check_layout(layout)
+        self.layout = layout   # None: flat (V, ...); ModRowLayout: sharded
         os.makedirs(self.directory, exist_ok=True)
         self._since_base = self._count_since_latest_base()
+
+    @property
+    def _exchange(self):
+        """The placement whose ranks save together (None: one process)."""
+        return getattr(self.layout, "exchange", None)
+
+    def _writes(self) -> bool:
+        """Whether this process writes the shared files."""
+        ex = self._exchange
+        return ex is None or ex.me == 0
 
     def force_base(self) -> None:
         """Make the next save a full base: after any event that breaks the
@@ -281,41 +396,51 @@ class DeltaCheckpointManager:
     # -- save / restore ----------------------------------------------------
     def save(self, step: int, data: torch.Tensor, state,
              tracker: TouchedRowTracker) -> str:
-        """Save a checkpoint at `step`; consumes (clears) the tracker."""
+        """Save a checkpoint at `step`; consumes (clears) the tracker.
+        Under a `ModRowLayout` every rank calls it (a collective)."""
+        ex = self._exchange
         bases = self._bases()
         if not bases or self._since_base >= self.base_every - 1:
             path = save_checkpoint(
-                os.path.join(self.directory, f"base_{step}"), (data, state))
-            meta = os.path.join(self.directory, f"rowlayout_{step}.json")
-            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
-            with os.fdopen(fd, "w") as f:
-                json.dump(_layout_meta(self.layout, data), f)
-            os.replace(tmp, meta)
-            # A committed base supersedes the old chain: delete every other
-            # base and ALL deltas, those past `step` too (a directory reused
-            # by a run whose step count restarted would otherwise replay a
-            # stale delta onto the new base).
-            for b in bases:
-                if b == step:
-                    continue
-                shutil.rmtree(os.path.join(self.directory, f"base_{b}"),
-                              ignore_errors=True)
-                try:
-                    os.unlink(os.path.join(self.directory,
-                                           f"rowlayout_{b}.json"))
-                except FileNotFoundError:
-                    pass
-            for d in self._deltas():
-                os.unlink(os.path.join(self.directory, f"delta_{d}.npz"))
+                os.path.join(self.directory, f"base_{step}"), (data, state),
+                parts=ex or False)
+            if self._writes():
+                self._commit_base(step, bases, _layout_meta(self.layout,
+                                                            data))
             self._since_base = 0
         else:
             payload = snapshot_delta(data, state, tracker.rows(),
                                      layout=self.layout)
             path = os.path.join(self.directory, f"delta_{step}.npz")
-            _atomic_savez(path, payload)
+            if self._writes():
+                _atomic_savez(path, payload)
             self._since_base += 1
+        if ex is not None:
+            barrier(ex)
         tracker.clear()
         return path
+
+    def _commit_base(self, step: int, bases, meta: dict) -> None:
+        """Name the layout of the committed `base_<step>`, then delete every
+        other base and ALL deltas, those past `step` too (a directory reused
+        by a run whose step count restarted would otherwise replay a stale
+        delta onto the new base)."""
+        path = os.path.join(self.directory, f"rowlayout_{step}.json")
+        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, path)
+        for b in bases:
+            if b == step:
+                continue
+            shutil.rmtree(os.path.join(self.directory, f"base_{b}"),
+                          ignore_errors=True)
+            try:
+                os.unlink(os.path.join(self.directory, f"rowlayout_{b}.json"))
+            except FileNotFoundError:
+                pass
+        for d in self._deltas():
+            os.unlink(os.path.join(self.directory, f"delta_{d}.npz"))
 
     def _saved_meta(self, base: int) -> Optional[dict]:
         p = os.path.join(self.directory, f"rowlayout_{base}.json")
@@ -326,25 +451,52 @@ class DeltaCheckpointManager:
 
     def restore_latest(self, data_like: torch.Tensor, state_like):
         """Restore the newest `(data, state)` into the templates, in place:
-        the base, then every later delta in step order. Returns
+        the base (re-laid by global row when it was saved in another
+        layout), then every later delta in step order. Returns
         `(data_like, state_like)`, or None when the directory holds no
-        committed base."""
+        committed base. Under a `ModRowLayout` every rank calls it."""
         bases = self._bases()
         if not bases:
             return None
         base = bases[-1]
         saved = self._saved_meta(base)
-        if saved is not None and saved["kind"] != "flat":
-            raise NotImplementedError(f"base_{base} was saved in the "
-                                      f"'{saved['kind']}' layout: {_ITEM_I}")
-        restore_checkpoint(os.path.join(self.directory, f"base_{base}"),
-                           (data_like, state_like))
+        target = _layout_meta(self.layout, data_like)
+        keys = ("kind", "n", "rps")
+        if saved is None or {k: saved[k] for k in keys if k in saved} == \
+                {k: target[k] for k in keys if k in target}:
+            restore_checkpoint(os.path.join(self.directory, f"base_{base}"),
+                               (data_like, state_like),
+                               parts=self._exchange or False)
+        else:
+            self._restore_base_converted(base, saved, data_like, state_like)
         for d in self._deltas():
             if d > base:
                 delta = _load_npz(os.path.join(self.directory,
                                                f"delta_{d}.npz"))
                 apply_delta(data_like, state_like, delta, layout=self.layout)
         return data_like, state_like
+
+    def _restore_base_converted(self, base: int, saved: dict, data_like,
+                                state_like) -> None:
+        """A base saved in another layout, in place: each row-wise leaf is
+        read in the saved layout (every part of a sharded base), put in
+        flat global-row order and re-laid into the target's; the other
+        leaves are read whole."""
+        path = os.path.join(self.directory, f"base_{base}")
+        target = self.layout or FlatRowLayout(data_like.shape[0])
+        first = os.path.join(path, "part_0") if saved["kind"] == "mod" \
+            else path
+        index = {e["leaf"]: e for e in read_index(first)["leaves"]}
+        with torch.no_grad():
+            for i, (_, like) in enumerate(named_leaves((data_like,
+                                                        state_like))):
+                if i not in index:
+                    continue                  # zero-size: the template's own
+                if target.is_rowwise(like):
+                    flat = _rows_to_flat(_saved_leaf(path, saved, i), saved)
+                    like.copy_(_rows_from_flat(flat, target, like.shape))
+                else:
+                    like.copy_(load_leaf(first, i).reshape(like.shape))
 
 
 def load_base_data(directory: str, base: int,
@@ -354,18 +506,17 @@ def load_base_data(directory: str, base: int,
     in `like`'s dtype; the optimizer state is not read. The serving side's
     primitive."""
     meta_p = os.path.join(directory, f"rowlayout_{base}.json")
+    meta = {"kind": "flat"}
     if os.path.exists(meta_p):
         with open(meta_p) as f:
-            kind = json.load(f)["kind"]
-        if kind != "flat":
-            raise NotImplementedError(f"base_{base} was saved in the "
-                                      f"'{kind}' layout: {_ITEM_I}")
+            meta = json.load(f)
     path = os.path.join(directory, f"base_{base}")
-    entry = next(e for e in read_index(path)["leaves"] if e["leaf"] == 0)
+    first = os.path.join(path, "part_0") if meta["kind"] == "mod" else path
+    entry = next(e for e in read_index(first)["leaves"] if e["leaf"] == 0)
     if tuple(entry["shape"][1:]) != tuple(like.shape[1:]):
         raise ValueError(f"{path} holds rows of shape {entry['shape'][1:]}, "
                          f"the template {list(like.shape[1:])}")
-    raw = load_leaf(path, 0)
+    raw = _rows_to_flat(_saved_leaf(path, meta, 0), meta)
     return raw[:like.shape[0]].to(device=like.device, dtype=like.dtype,
                                   copy=True)
 

@@ -6,7 +6,8 @@ frequency-ordered relayout (counterpart of
     from the host batches the input pipeline already holds (numpy, the JAX
     package's code).
   - Eviction: `evict_rows` reinitializes rows that went cold and
-    `reset_rows_state` zeroes their optimizer state.
+    `reset_rows_state` zeroes their optimizer state; `evict_rows_sharded`
+    zeroes both on the rank that owns them in a mod-row-sharded table.
   - Frequency ordering: `relayout` puts hot rows first; the loader maps
     incoming ids through `inverse_permutation` (`remap_batch`).
 
@@ -14,8 +15,6 @@ The tensor operations update in place and return what they updated (the
 port's counterpart of JAX's functional updates). Ids follow JAX's
 `.at[].set(mode="drop")`: an id in `[-V, 0)` wraps, any other out-of-range
 id is dropped, and of duplicate ids the first occurrence's value is written.
-The mod-row-sharded `evict_rows_sharded` waits for multi-device placement
-(ROADMAP.md queue 1, item I).
 """
 from __future__ import annotations
 
@@ -146,6 +145,36 @@ def reset_rows_state(state, rows):
             uniq, _ = _kept_rows(rows, leaf.shape[0], leaf.device)
             leaf.index_fill_(0, uniq, 0)
     return state
+
+
+def evict_rows_sharded(tables, accum, global_rows):
+    """Evict global rows of a mod-row-sharded table
+    (`parallel.ShardedStackedTables`: global row r on the rank of index
+    `r % n`, slot `r // n`), in place on the owning rank: the rows and
+    their optimizer state cells are zeroed. Every rank calls it with the
+    same rows; each zeroes the ones it owns (no collective). `accum` is any
+    state `parallel.shard_row_accum` gives (AdaGrad's accumulator, Adam's
+    moments, FTRL's z and n are zeroed at the evicted slots, to 0, not to
+    `initial_accum`, as in JAX; Adam's count and SGD's empty placeholder
+    pass through), or None. Ids whose slot is past the shard are dropped.
+    Returns `(tables, accum)`."""
+    ex, rps = tables.exchange, tables.rows_local
+    rows = torch.as_tensor(np.asarray(global_rows) if not torch.is_tensor(
+        global_rows) else global_rows).to(tables.data.device).long()
+    rows = rows.reshape(-1)
+    if not rows.numel():
+        return tables, accum
+    slots = torch.div(rows, ex.n, rounding_mode="floor")
+    keep = (rows >= 0) & (torch.remainder(rows, ex.n) == ex.me) & \
+        (slots < rps)
+    slots = torch.unique(slots[keep])
+    with torch.no_grad():
+        tables.data.index_fill_(0, slots, 0)
+        for leaf in (accum if accum is not None else ()):
+            if torch.is_tensor(leaf) and leaf.dim() >= 1 and \
+                    leaf.shape[0] == rps and leaf.numel():
+                leaf.index_fill_(0, slots, 0)
+    return tables, accum
 
 
 def relayout(data: torch.Tensor, perm: np.ndarray) -> torch.Tensor:

@@ -35,11 +35,12 @@ class Ctx:
         from embeddingtables_tpu_torch.parallel import mesh as pmesh
         self.rank, self.n = rank, n
         self.mesh1 = pmesh.local_mesh(n, ("data",), device="cpu")
-        self.grid = pmesh.default_mesh(("data", "model"), shape=(2, n // 2),
-                                       device="cpu")
-        self.hosts = pmesh.multihost_mesh(("data", "model"), device="cpu",
-                                          local_size=2)
-        self.mesh2 = self.grid
+        if n % 2 == 0:
+            self.grid = pmesh.default_mesh(("data", "model"),
+                                           shape=(2, n // 2), device="cpu")
+            self.hosts = pmesh.multihost_mesh(("data", "model"),
+                                              device="cpu", local_size=2)
+            self.mesh2 = self.grid
 
     def mesh(self, axis):
         return self.mesh1 if isinstance(axis, str) else self.mesh2
@@ -407,3 +408,386 @@ def init_sharded(ctx, axis, cfg, batches):
                                     _t(label)))
     return {"rows": model.tables.data.shape[0], "first_row": first,
             "loss": float(loss)}
+
+
+# ---------------------------------------------------------------------------
+# Every family on the mesh (DCN, DeepFM, the two-tower model; the DLRM too)
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("dlrm", "dcn", "deepfm", "two_tower")
+
+
+def _family_model(family, cfg, arrays):
+    """The single-device model from `*_from_arrays`'s keyword arguments."""
+    import embeddingtables_tpu_torch as ett
+    return getattr(ett, f"{family}_from_arrays")(cfg, device="cpu", **arrays)
+
+
+def _sharded_api(family):
+    """(shard, train-step factory, eval-step factory or None, unshard)."""
+    from embeddingtables_tpu_torch import parallel as P
+    return {"dlrm": (P.shard_dlrm, P.make_sharded_train_step,
+                     P.make_sharded_eval_step, P.unshard_dlrm),
+            "dcn": (P.shard_dcn, P.make_sharded_dcn_train_step,
+                    P.make_sharded_dcn_eval_step, P.unshard_dcn),
+            "deepfm": (P.shard_deepfm, P.make_sharded_deepfm_train_step,
+                       P.make_sharded_deepfm_eval_step, P.unshard_deepfm),
+            "two_tower": (P.shard_two_tower, P.make_sharded_tt_train_step,
+                          None, P.unshard_two_tower)}[family]
+
+
+def _shard(ctx, axis, family, model, opt, dense_tx=None):
+    shard = _sharded_api(family)[0]
+    kw = {} if family == "two_tower" else {"dense_tx": dense_tx}
+    return shard(model, ctx.mesh(axis), axis, sparse_opt=opt, **kw)
+
+
+def model_out(m):
+    """A single-device model's tables, row states and towers as numpy."""
+    if hasattr(m, "query_tables"):
+        return {"tables": _np(m.query_tables.data),
+                "items": _np(m.item_data),
+                "state": [_np(s) for s in m.q_state]
+                + [_np(s) for s in m.i_state],
+                "towers": [_np(p) for p in m.parameters()]}
+    out = {"tables": _np(m.tables.data),
+           "state": [_np(s) for s in m.emb_state],
+           "towers": [_np(p) for _, p in m.tower_params()]}
+    if getattr(m, "fm_w", None) is not None:
+        out["fm"] = _np(m.fm_w.data)
+        out["state"] += [_np(s) for s in m.fm_state]
+    return out
+
+
+def _step(family, cfg, mesh, axis, opt, step_kw):
+    make = _sharded_api(family)[1]
+    if family == "two_tower":
+        return make(cfg, mesh, axis, sparse_opt=opt, dense_lr=0.1)
+    return make(cfg, mesh, axis, sparse_opt=opt, dense_lr=0.1, **step_kw)
+
+
+def family_steps(ctx, axis, family, cfg, arrays, opt, batches, step_kw=None):
+    """The family's sharded step on each global batch, each rank on its
+    block (`batch_shardings`): the losses (and the two-tower model's
+    accuracies), then the unsharded model."""
+    from embeddingtables_tpu_torch.parallel import batch_shardings
+    mesh = ctx.mesh(axis)
+    step_kw = dict(step_kw or {})
+    sm = _shard(ctx, axis, family, _family_model(family, cfg, arrays), opt,
+                step_kw.get("dense_tx"))
+    step = _step(family, cfg, mesh, axis, opt, step_kw)
+    shardings = batch_shardings(mesh, axis)
+    losses, accs = [], []
+    for batch in batches:
+        out = step(sm, *(f(_t(x)) for f, x in zip(shardings, batch)))
+        if isinstance(out, tuple):
+            accs.append(float(out[1]))
+            out = out[0]
+        losses.append(float(out))
+    return {"losses": losses, "accs": accs,
+            **model_out(_sharded_api(family)[3](sm))}
+
+
+def family_bitwise(ctx, family, cfg, arrays, opt, batches):
+    """On a one-rank group: the sharded step and the single-device step
+    from the same weights on the same batches. Returns the names of what
+    is not bitwise equal (empty when everything is)."""
+    import torch
+    import embeddingtables_tpu_torch as ett
+    single = _family_model(family, cfg, arrays)
+    sm = _shard(ctx, "data", family, _family_model(family, cfg, arrays), opt)
+    step = _step(family, cfg, ctx.mesh1, "data", opt, {})
+    if family == "two_tower":
+        step1 = ett.models.two_tower.make_train_step(cfg, sparse_opt=opt,
+                                                     dense_lr=0.1)
+    else:
+        step1 = getattr(ett.models, {"dlrm": "make_train_step",
+                                     "dcn": "make_dcn_train_step",
+                                     "deepfm": "make_deepfm_train_step"}[
+            family])(cfg, sparse_opt=opt, dense_lr=0.1)
+    bad = []
+    for i, batch in enumerate(batches):
+        args = [_t(x) for x in batch]
+        a, b = step(sm, *args), step1(single, *args)
+        a, b = (a if isinstance(a, tuple) else (a,)), \
+            (b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            bad.append(f"loss {i}")
+    got, want = model_out(_sharded_api(family)[3](sm)), model_out(single)
+    for k in want:
+        for j, (x, y) in enumerate(zip(*(
+                (v if isinstance(v, list) else [v]) for v in (got[k],
+                                                              want[k])))):
+            if not np.array_equal(x, y):
+                bad.append(f"{k} {j}")
+    return bad
+
+
+def family_eval(ctx, axis, family, cfg, arrays, dense, cat):
+    """The family's sharded eval of a global batch, gathered on every
+    rank."""
+    from embeddingtables_tpu_torch.parallel.dlrm import sharded_logits
+    sm = _shard(ctx, axis, family, _family_model(family, cfg, arrays), None)
+    step = _sharded_api(family)[2](cfg, ctx.mesh(axis), axis)
+    return _np(sharded_logits(sm, _t(dense), _t(cat), step))
+
+
+def family_loop(ctx, axis, family, cfg, arrays, opt, batches, kw):
+    """`train_<family>(mesh=...)` over the global batches, from the weights
+    in `arrays`: losses, evals and the unsharded model. Path keywords
+    become managers: `ckpt_dir` a `CheckpointManager` (with `guard` the
+    `DivergenceGuard` over it), `delta_dir` a `DeltaCheckpointManager` (a
+    pair of directories for the two-tower model)."""
+    from embeddingtables_tpu_torch.models import train as T
+    from embeddingtables_tpu_torch.utils import (CheckpointManager,
+                                                 DeltaCheckpointManager,
+                                                 DivergenceGuard)
+    kw = dict(kw)
+    ckpt = kw.pop("ckpt_dir", None)
+    if ckpt is not None:
+        kw["ckpt_manager"] = CheckpointManager(ckpt)
+        if kw.pop("guard", False):
+            guard = kw["guard"] = DivergenceGuard(kw["ckpt_manager"])
+    delta = kw.pop("delta_dir", None)
+    if delta is not None:
+        base_every = kw.pop("base_every", 8)
+        kw["delta_ckpt"] = (
+            tuple(DeltaCheckpointManager(d, base_every=base_every)
+                  for d in delta) if isinstance(delta, (list, tuple))
+            else DeltaCheckpointManager(delta, base_every=base_every))
+    keys = (("dense", "q_cat", "item_ids") if family == "two_tower"
+            else ("dense", "cat", "label"))
+    res = getattr(T, f"train_{family}")(
+        cfg, iter([dict(zip(keys, b)) for b in batches]), len(batches),
+        model=None if arrays is None else dict(arrays), mesh=ctx.mesh(axis),
+        axis=axis, sparse_opt=opt, device="cpu", verbose=False, **kw)
+    m = res.model
+    if family != "two_tower":
+        m = _sharded_api(family)[3](m)
+    out = {"losses": res.losses, **model_out(m)}
+    out["evals"] = res.recalls if family == "two_tower" else res.aucs
+    if family == "two_tower":
+        out["accs"] = res.accs
+    else:
+        out["evicted"] = res.evicted_rows
+    if "guard" in kw:
+        out["rollbacks"] = guard.rollbacks
+    return out
+
+
+def family_serve(ctx, axis, family, cfg, arrays, requests, k=5):
+    """`make_<family>_service(mesh=...)` (`make_retrieval_service` for the
+    two-tower model, from its single-device model): rank 0 answers
+    `requests` and stops; the other ranks follow until then. Rank 0
+    returns the answers, the others the batches they followed."""
+    import torch.distributed as dist
+    import embeddingtables_tpu_torch as ett
+    model = _family_model(family, cfg, arrays)
+    kw = dict(mesh=ctx.mesh(axis), axis=axis, max_batch=16,
+              max_latency_ms=2.0)
+    if family == "two_tower":
+        svc = ett.make_retrieval_service(model, k=k, **kw)
+    else:
+        svc = getattr(ett, f"make_{family}_service")(
+            _shard(ctx, axis, family, model, None), **kw)
+    if dist.get_rank() != 0:
+        return svc.batches
+    try:
+        return [svc.predict(d, c, timeout=60) for d, c in requests]
+    finally:
+        svc.stop()
+
+
+def tt_retrieve(ctx, axis, cfg, arrays, dense, q_cat, k):
+    """The sharded retriever over the block-row index: every rank's
+    `(scores, ids)` and its index block."""
+    from embeddingtables_tpu_torch import parallel as P
+    model = _family_model("two_tower", cfg, arrays)
+    index = P.build_sharded_item_index(model, ctx.mesh(axis), axis)
+    scores, ids = P.sharded_retrieve(model, index, ctx.mesh(axis),
+                                     _t(dense), _t(q_cat), k=k, axis=axis)
+    return _np(scores), ids.numpy(), _np(index)
+
+
+# ---------------------------------------------------------------------------
+# Sharded persistence and eviction
+# ---------------------------------------------------------------------------
+
+def family_evict(ctx, axis, family, cfg, arrays, opt, rows):
+    """`evict_rows_sharded` of global `rows` from every stack of the
+    sharded model: the unsharded model after."""
+    from embeddingtables_tpu_torch.utils import evict_rows_sharded
+    sm = _shard(ctx, axis, family, _family_model(family, cfg, arrays), opt)
+    evict_rows_sharded(sm.tables, sm.emb_state, rows)
+    if getattr(sm, "fm_w", None) is not None:
+        evict_rows_sharded(sm.fm_w, sm.fm_state, rows)
+    return model_out(_sharded_api(family)[3](sm))
+
+
+def family_restore(ctx, axis, family, cfg, arrays, opt, delta_dir):
+    """`restore_delta` of the chain(s) in `delta_dir` into the sharded
+    model built from `arrays`: the unsharded model after."""
+    from embeddingtables_tpu_torch.models.train import restore_delta
+    from embeddingtables_tpu_torch.utils import DeltaCheckpointManager
+    sm = _shard(ctx, axis, family, _family_model(family, cfg, arrays), opt)
+    mgrs = (tuple(DeltaCheckpointManager(d) for d in delta_dir)
+            if isinstance(delta_dir, (list, tuple))
+            else DeltaCheckpointManager(delta_dir))
+    restore_delta(mgrs, sm)
+    return model_out(_sharded_api(family)[3](sm))
+
+
+def family_ckpt(ctx, axis, family, cfg, arrays, other, opt, path):
+    """A full checkpoint of the sharded model from `arrays`, restored into
+    the one from `other` (the same placement): both unsharded."""
+    from embeddingtables_tpu_torch.utils import CheckpointManager
+    sm = _shard(ctx, axis, family, _family_model(family, cfg, arrays), opt)
+    sm2 = _shard(ctx, axis, family, _family_model(family, cfg, other), opt)
+    mgr = CheckpointManager(path)
+    mgr.save(3, sm)
+    mgr.restore_latest(sm2)
+    unshard = _sharded_api(family)[3]
+    return model_out(unshard(sm)), model_out(unshard(sm2)), \
+        sorted(os.listdir(os.path.join(path, "3")))
+
+
+def guard_agree(ctx, losses):
+    """Each rank's `DivergenceGuard` reads `losses[rank]` through the mesh
+    loop's agreement: what each guard read and whether it rolled back."""
+    import torch
+    from embeddingtables_tpu_torch.models.train import _mesh_agree
+    from embeddingtables_tpu_torch.parallel.sharded import Exchange
+    from embeddingtables_tpu_torch.utils import DivergenceGuard
+    guard = DivergenceGuard(None)
+    agree = _mesh_agree(guard, Exchange(ctx.mesh1, "data"),
+                        torch.device("cpu"))
+    seen = agree(losses[ctx.rank])
+    _, rolled = guard.observe(seen, None)
+    return seen, rolled
+
+
+# ---------------------------------------------------------------------------
+# JAX's public names over the port's functions (fault F3)
+# ---------------------------------------------------------------------------
+
+def f3_gather_apply(ctx, table, shifted, delta, opt, name):
+    """`sharded_adam_apply` / `sharded_ftrl_apply` (JAX's table-major
+    arguments, this rank's batch block) from the optimizer's fresh state:
+    the unsharded table and state."""
+    from embeddingtables_tpu_torch import parallel as P
+    from embeddingtables_tpu_torch.parallel import sharded as S
+    mesh = ctx.mesh1
+    st = _st(ctx, "data", table)
+    idx = _t(_block(ctx, "data", shifted, 1))
+    dlt = _t(_block(ctx, "data", delta, 1))
+    if name == "adam":
+        m, v, count = S.init_sharded_adam_state(mesh, st)
+        _, m, v, count = S.sharded_adam_apply(mesh, st, m, v, count, idx,
+                                              dlt, opt)
+        state = S.unshard_adam_state(st, m, v, count)
+    else:
+        z, n = S.init_sharded_ftrl_state(mesh, st, opt)
+        _, z, n = S.sharded_ftrl_apply(mesh, st, z, n, idx, dlt, opt)
+        state = P.unshard_row_state(st, type(S.init_sharded_ftrl_state(
+            mesh, st, opt))(z=z, n=n))
+    return _np(st.unshard()), [_np(s) for s in state]
+
+
+def f3_a2a(ctx, table, upd, opt, name):
+    """`sharded_<name>_update_a2a` of this rank's block at a capacity of n
+    (nothing dropped): the unsharded table and state, and the overflow."""
+    from embeddingtables_tpu_torch.ops.sparse_update import \
+        SparseEmbeddingUpdate
+    from embeddingtables_tpu_torch.parallel import alltoall as A
+    from embeddingtables_tpu_torch.parallel import sharded as S
+    mesh = ctx.mesh1
+    st = _st(ctx, "data", table)
+    u = SparseEmbeddingUpdate(delta=_t(_block(ctx, "data", upd["delta"])),
+                              indices=_t(_block(ctx, "data",
+                                                upd["indices"])))
+    cf = float(ctx.n)
+    if name == "sgd":
+        _, ovf = A.sharded_sgd_update_a2a(mesh, st, u, opt.lr,
+                                          capacity_factor=cf)
+        state = []
+    elif name == "adagrad":
+        acc = S.init_sharded_row_state(mesh, st, opt).accum
+        _, acc, ovf = A.sharded_adagrad_update_a2a(mesh, st, acc, u, opt,
+                                                   capacity_factor=cf)
+        state = [S.unshard_row_state(st, type(opt.init(st.data))(
+            accum=acc)).accum]
+    elif name == "adam":
+        m, v, count = S.init_sharded_adam_state(mesh, st)
+        _, m, v, count, ovf = A.sharded_adam_update_a2a(
+            mesh, st, m, v, count, u, opt, capacity_factor=cf)
+        state = list(S.unshard_adam_state(st, m, v, count))
+    else:
+        z, n = S.init_sharded_ftrl_state(mesh, st, opt)
+        _, z, n, ovf = A.sharded_ftrl_update_a2a(mesh, st, z, n, u, opt,
+                                                 capacity_factor=cf)
+        state = list(S.unshard_row_state(st, type(
+            S.init_sharded_ftrl_state(mesh, st, opt))(z=z, n=n)))
+    return _np(st.unshard()), [_np(s) for s in state], int(ovf)
+
+
+def f3_meshes(ctx, dense, cat):
+    """`default_mesh(devices=...)` over every rank, `batch_shardings`
+    against `local_batch`, and `shard_table`'s shard."""
+    from embeddingtables_tpu_torch import parallel as P
+    mesh = P.default_mesh(("data",), devices=list(range(ctx.n)),
+                          device="cpu")
+    sd, sc, sl = P.batch_shardings(mesh, "data")
+    d, c = P.local_batch(mesh, "data", dense, cat)
+    st = P.shard_table(mesh, "data", _t(dense))
+    return (mesh.mesh.tolist(), np.array_equal(sd(dense), d),
+            np.array_equal(sc(cat), c), _np(st.data))
+
+
+def families_where_they_lie(ctx):
+    """With no card visible: every family's sharded model made from a
+    model on the CPU, one step, its eval and its mesh service (the
+    retrieval service for the two-tower model), each on the CPU. Returns
+    the device types of every result."""
+    import torch
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import parallel as P
+    torch.cuda.is_available = lambda: False
+    mesh = ctx.mesh1
+    cfgs = {"dlrm": ett.DLRMConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                                   bottom_mlp=(4,), top_mlp=(3, 1)),
+            "dcn": ett.DCNConfig(vocab_sizes=(5, 6), num_dense=2, dim=4,
+                                 deep_mlp=(3,), cross_rank=2),
+            "deepfm": ett.DeepFMConfig(vocab_sizes=(5, 6), num_dense=2,
+                                       dim=4, deep_mlp=(3,), fold_fm_w=False)}
+    dense, cat = torch.zeros(4, 2), torch.zeros(2, 4, dtype=torch.int32)
+    label = torch.ones(4)
+    seen = []
+    for family, cfg in cfgs.items():
+        model = getattr(ett, f"init_{family}")(cfg, device="cpu")
+        shard, make_step, make_eval, _ = _sharded_api(family)
+        sm = shard(model, mesh, "data")
+        seen.append(make_step(cfg, mesh, "data")(sm, dense, cat,
+                                                 label).device.type)
+        seen.append(make_eval(cfg, mesh, "data")(sm, dense, cat).device.type)
+        svc = getattr(ett, f"make_{family}_service")(sm, mesh=mesh)
+        try:
+            seen.append(type(svc.predict(dense.numpy(), cat.numpy(),
+                                         timeout=30)).__module__)
+        finally:
+            svc.stop()
+    tt = ett.TwoTowerConfig(query_vocab_sizes=(5, 6), item_vocab=7,
+                            num_dense=2, dim=4, embed_dim=4,
+                            query_mlp=(8, 4), item_mlp=(8, 4))
+    model = ett.init_two_tower(tt, device="cpu")
+    sm = P.shard_two_tower(model, mesh, "data")
+    loss, acc = P.make_sharded_tt_train_step(tt, mesh)(
+        sm, dense, cat, torch.arange(4))
+    seen += [loss.device.type, acc.device.type,
+             P.build_sharded_item_index(model, mesh).device.type]
+    svc = ett.make_retrieval_service(model, k=2, mesh=mesh)
+    try:
+        seen.append(type(svc.predict(dense.numpy(), cat.numpy(),
+                                     timeout=30)[1]).__module__)
+    finally:
+        svc.stop()
+    return seen

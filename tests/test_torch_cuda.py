@@ -620,6 +620,59 @@ def test_cuda_family_train_step_is_bitwise_the_plain_step(cuda_device,
         assert torch.equal(a, b), name
 
 
+@pytest.fixture(scope="module")
+def one_rank_nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL group over a file store, and its mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import torch.distributed as dist
+    from embeddingtables_tpu_torch.parallel import mesh as pmesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    pmesh.init_process(f"file://{store}", 1, 0, device="cuda")
+    yield pmesh.local_mesh(1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dcn", "deepfm_folded",
+                                    "deepfm_unfolded", "two_tower"])
+def test_cuda_sharded_family_step_on_one_rank_is_bitwise_the_single_step(
+        one_rank_nccl_mesh, family):
+    # One SGD step of the family's sharded step on a one-rank NCCL group
+    # (the gather exchange, the run-scatter on the shard) against the
+    # single-device step from the same weights: bit for bit.
+    import copy
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import parallel as P
+    mesh = one_rank_nccl_mesh
+    model, step1, batch, stacks = _family_case(ett, family,
+                                               torch.device("cuda"))
+    shard, make, unshard = {
+        "dcn": (P.shard_dcn, P.make_sharded_dcn_train_step, P.unshard_dcn),
+        "deepfm": (P.shard_deepfm, P.make_sharded_deepfm_train_step,
+                   P.unshard_deepfm),
+        "two_tower": (P.shard_two_tower, P.make_sharded_tt_train_step,
+                      P.unshard_two_tower)}[
+        "two_tower" if family == "two_tower" else family.split("_")[0]]
+    sm = shard(copy.deepcopy(model), mesh, "data")
+    batch = tuple(x.cuda() for x in batch)
+    before = S.scatter_add_rows_sorted.launches
+    out = make(model.config, mesh, "data")(sm, *batch)
+    assert S.scatter_add_rows_sorted.launches == before + stacks
+    out1 = step1(model, *batch)
+    torch.cuda.synchronize()
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    out1 if isinstance(out1, tuple) else (out1,)):
+        assert torch.equal(a, b)
+    back = unshard(sm)
+    for (name, a), (_, b) in zip(back.named_buffers(),
+                                 model.named_buffers()):
+        assert torch.equal(a, b), name
+    for (name, a), (_, b) in zip(back.named_parameters(),
+                                 model.named_parameters()):
+        assert torch.equal(a, b), name
+
+
 # ---------------------------------------------------------------------------
 # The table variants: quantized, compositional, offloaded and tiered tables
 # ---------------------------------------------------------------------------

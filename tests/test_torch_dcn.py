@@ -278,7 +278,8 @@ def test_dcn_service_gives_the_eval_steps_results():
                                        rtol=1e-6, atol=1e-6)
     finally:
         svc.stop()
-    # A mesh is unported; quantized on a mesh raises JAX's own error.
+    # A single-device model on a mesh waits for the planner; quantized on
+    # a mesh raises JAX's own error.
     for kw in (dict(mesh=True), dict(quantized=True, mesh=True)):
         with pytest.raises(NotImplementedError):
             ett.make_dcn_service(pm, **kw)
@@ -289,23 +290,22 @@ def test_dcn_service_gives_the_eval_steps_results():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_dcn_options_not_ported_raise(name):
-    # evict_every, delta_ckpt, ckpt_manager, guard, device_prefetch,
-    # microbatch and dense_tx are ported: each comes with a mesh, which
-    # alone is refused.
+    # Every option is ported, beside a mesh too, but the planner (item
+    # I-3): each comes with a (here fake) mesh and a plan, and only the
+    # plan is refused, by name, before anything touches the mesh.
     value = {"evict_every": 10, "device_prefetch": 2, "microbatch": 2,
              "dense_tx": ADAM}.get(name, object())
-    extra = {"plan": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2}}.get(name, {})
-    ported = ("evict_every", "delta_ckpt", "ckpt_manager", "guard",
-              "device_prefetch", "microbatch", "dense_tx")
-    if name in ported:
-        extra["mesh"] = object()
-    refused = "mesh" if name in ported else name
+    kw = {"mesh": object(), "plan": object(), name: value}
+    if name == "delta_ckpt":
+        kw["delta_every"] = 2
     cfg = ett.DCNConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match=refused) as err:
-        ett.train_dcn(cfg, iter(()), 1, device="cpu", **{name: value},
-                        **extra)
-    assert not any(f"{p}=" in str(err.value) for p in ported)
+    with pytest.raises(NotImplementedError, match="plan=") as err:
+        ett.train_dcn(cfg, iter(()), 1, device="cpu", **kw)
+    assert "I-3" in str(err.value)
+    assert not any(f"{p}=" in str(err.value) for p in kw if p != "plan")
+    kw.pop("plan")
+    with pytest.raises(AttributeError):          # reaches the fake mesh
+        ett.train_dcn(cfg, iter(()), 1, device="cpu", **kw)
 
 
 def test_init_dcn_shapes_and_state():

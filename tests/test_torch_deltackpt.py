@@ -196,16 +196,29 @@ def test_managers_name_and_restore_as_jax(scenario, tmp_path):
 
 
 def test_a_base_saved_in_a_sharded_layout_waits_for_item_i(tmp_path):
+    """A base saved in the mod-row layout (item I-2b, ported): one part per
+    rank, global row r at slot r // 2 of part r % 2. A flat model restores
+    it by global row (`_restore_base_converted`) and a follower reads its
+    table (`load_base_data`), bitwise."""
+    from embeddingtables_tpu_torch.utils.checkpoint import save_checkpoint
     rng = np.random.default_rng(4)
-    data = torch.from_numpy(rng.standard_normal((8, 2)).astype(np.float32))
+    data = torch.from_numpy(rng.standard_normal((7, 2)).astype(np.float32))
+    accum = torch.from_numpy(rng.random(7).astype(np.float32))
+    base = tmp_path / "base_1"
+    base.mkdir()
+    for r in range(2):
+        mine = torch.cat([data[r::2], torch.zeros(4 - len(data[r::2]), 2)])
+        acc = torch.cat([accum[r::2], torch.zeros(4 - len(accum[r::2]))])
+        save_checkpoint(str(base / f"part_{r}"),
+                        (mine, ett.SparseOptState(accum=acc)), parts=False)
+    (base / "parts.json").write_text('{"parts": 2}')
+    (tmp_path / "rowlayout_1.json").write_text(
+        '{"kind": "mod", "n": 2, "rps": 4}')
     mgr = PDC.DeltaCheckpointManager(str(tmp_path))
-    mgr.save(1, data, (), PDC.TouchedRowTracker(8))
-    with open(tmp_path / "rowlayout_1.json", "w") as f:
-        f.write('{"kind": "mod", "n": 2, "rps": 4}')
-    with pytest.raises(NotImplementedError, match="item I"):
-        mgr.restore_latest(data.clone(), ())
-    with pytest.raises(NotImplementedError, match="item I"):
-        PDC.load_base_data(str(tmp_path), 1, data)
+    got = mgr.restore_latest(torch.zeros(7, 2),
+                             ett.SparseOptState(accum=torch.zeros(7)))
+    assert torch.equal(got[0], data) and torch.equal(got[1].accum, accum)
+    assert torch.equal(PDC.load_base_data(str(tmp_path), 1, data), data)
 
 
 def _state_leaves(family, m):

@@ -21,7 +21,8 @@ NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
                "utils.resilience", "utils.telemetry", "rpc", "io.loader",
                "io.synth", "io.criteo_file", "models.microbatch",
                "parallel", "parallel.mesh", "parallel.sharded",
-               "parallel.alltoall", "parallel.dlrm", "compat", "nn")
+               "parallel.alltoall", "parallel.dlrm", "parallel.dcn",
+               "parallel.deepfm", "parallel.two_tower", "compat", "nn")
 ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 
 
@@ -145,6 +146,12 @@ def _no_device_calls():
         "nn.SparseEmbed": lambda: ett.nn.SparseEmbed(5, 4),
         "from_torch(array)": lambda: ett.from_torch(table),
         "local_mesh": lambda: ett.parallel.local_mesh(1),
+        "default_mesh(devices=)": lambda: ett.parallel.default_mesh(
+            ("data",), devices=[0]),
+        "train_dcn_persistent": lambda: ett.train_dcn(
+            dcn, iter(()), 0, ckpt_manager=object(), ckpt_every=1,
+            guard=object(), delta_ckpt=object(), delta_every=1,
+            evict_every=2),
     }
 
 
@@ -166,7 +173,8 @@ def _no_device_calls():
                                    "init_dlrm_dense_tx",
                                    "train_dlrm_input_options", "nn.Embed",
                                    "nn.SparseEmbed", "from_torch(array)",
-                                   "local_mesh"])
+                                   "local_mesh", "default_mesh(devices=)",
+                                   "train_dcn_persistent"])
 def test_entry_points_without_a_device_raise_when_there_is_no_card(
         entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -240,3 +248,15 @@ def test_a_mesh_forms_no_group_of_its_own():
     assert not dist.is_initialized()
     assert ett.parallel.mesh.backend_for(torch.device("cuda")) == "nccl"
     assert ett.parallel.mesh.backend_for(torch.device("cpu")) == "gloo"
+
+
+def test_every_family_on_a_mesh_runs_where_its_model_lies(tmp_path):
+    # A one-rank gloo group with no card visible: the sharded steps, evals
+    # and mesh services of every family run on the CPU and ask for no card.
+    from _torch_mesh import MeshPool
+    pool = MeshPool(1, str(tmp_path))
+    try:
+        seen, = pool.run("families_where_they_lie")
+    finally:
+        pool.close()
+    assert seen == ["cpu", "cpu", "numpy"] * 3 + ["cpu"] * 3 + ["numpy"]

@@ -167,16 +167,22 @@ def test_planner_with_another_exchange_raises_as_jax_does():
 
 
 @pytest.mark.parametrize("entry,kw", [
-    ("train_dlrm", dict(mesh=object(), ckpt_manager=object())),
-    ("train_dcn", dict(mesh=object())),
+    ("train_dlrm", dict(mesh=object(), ckpt_manager=object(), plan=object())),
+    ("train_dcn", dict(mesh=object(), plan=object())),
     ("train_deepfm", dict(mesh=object(), plan=object())),
-    ("train_two_tower", dict(mesh=object())),
+    ("train_two_tower", dict(mesh=object(), plan=object())),
     ("make_deepfm_service", dict(mesh=object())),
     ("make_retrieval_service", dict(mesh=object())),
 ])
 def test_an_unported_value_raises_not_implemented(entry, kw):
-    name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=f"{entry}\\({name}="):
+    """The planner is the one unported option: a `plan` is refused by name
+    before anything touches the (here fake) mesh, and a mesh service of a
+    model no sharded placement made waits for the planner too. A mesh
+    alone is ported: the retrieval service takes the single-device model
+    and reaches the fake mesh."""
+    name = "plan" if "plan" in kw else "mesh"
+
+    def call():
         if entry == "train_two_tower":
             port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
                                        device="cpu", **kw)
@@ -185,6 +191,14 @@ def test_an_unported_value_raises_not_implemented(entry, kw):
         else:
             family = entry[len("make_"):-len("_service")]
             getattr(ett, entry)(_service_model(family), **kw)
+
+    if entry == "make_retrieval_service":
+        with pytest.raises(AttributeError):
+            call()
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"{entry}\\({name}=.*I-3"):
+        call()
 
 
 def test_an_unknown_name_raises_type_error():
@@ -200,10 +214,13 @@ def test_an_unknown_name_raises_type_error():
     dict(delta_ckpt=object(), delta_every=1), dict(evict_every=2),
 ], ids=["ckpt_manager", "guard", "delta_ckpt", "evict_every"])
 def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
-    # Sharded persistence and eviction are ROADMAP item I-2; the refusal
-    # comes before anything touches the (here fake) mesh.
-    with pytest.raises(NotImplementedError, match=r"item I-2"):
+    # Sharded persistence and eviction (item I-2b) are ported: beside a
+    # (here fake) mesh the option is accepted and the loop reaches the mesh;
+    # only the planner (item I-3) is refused, before it touches the mesh.
+    with pytest.raises(AttributeError):
         _run_ctr("dlrm", mesh=object(), **kw)
+    with pytest.raises(NotImplementedError, match=r"plan=.*item I-3"):
+        _run_ctr("dlrm", mesh=object(), plan=object(), **kw)
 
 
 @pytest.mark.parametrize("entry", ["train_dcn", "train_deepfm",
@@ -211,27 +228,37 @@ def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
                                    "make_deepfm_service",
                                    "make_retrieval_service"])
 def test_the_other_families_mesh_waits_for_item_i2(entry):
-    with pytest.raises(NotImplementedError, match=r"mesh=.*item I-2"):
-        if entry == "train_two_tower":
-            port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
-                                       device="cpu", mesh=object())
-        elif entry.startswith("train_"):
-            _run_ctr(entry[len("train_"):], mesh=object())
+    # Every family's mesh is ported (item I-2a): the loops and the
+    # retrieval service reach the (here fake) mesh; a CTR mesh service
+    # takes the family's sharded model and names the planner (item I-3)
+    # for any other; a loop's plan is refused by name.
+    if entry.startswith("make_"):
+        family = entry[len("make_"):-len("_service")]
+        if family == "retrieval":
+            with pytest.raises(AttributeError):
+                ett.make_retrieval_service(_service_model(family),
+                                           mesh=object())
         else:
-            family = entry[len("make_"):-len("_service")]
-            getattr(ett, entry)(_service_model(family), mesh=object())
+            with pytest.raises(NotImplementedError, match=r"mesh=.*I-3"):
+                getattr(ett, entry)(_service_model(family), mesh=object())
+        return
+    for kw, err in ((dict(mesh=object()), AttributeError),
+                    (dict(mesh=object(), plan=object()),
+                     NotImplementedError)):
+        with pytest.raises(err):
+            if entry == "train_two_tower":
+                port_train.train_two_tower(_two_tower_cfg(), _tt_batches(),
+                                           1, device="cpu", **kw)
+            else:
+                _run_ctr(entry[len("train_"):], **kw)
 
 
 def test_the_unported_table_names_each_option_and_its_item():
     from embeddingtables_tpu_torch.unported import UNPORTED
     items = {name: what.split("item ")[-1].rstrip(")")
              for name, (_, what) in UNPORTED.items()}
-    assert items == {"mesh": "I-2", "plan": "I-3", "mesh+ckpt_manager": "I-2",
-                     "mesh+guard": "I-2", "mesh+delta_ckpt": "I-2",
-                     "mesh+evict_every": "I-2"}
+    assert items == {"plan": "I-3"}
     assert {name: off for name, (off, _) in UNPORTED.items()} == {
-        "mesh": (None,), "plan": (None,), "mesh+ckpt_manager": (None,),
-        "mesh+guard": (None,), "mesh+delta_ckpt": (None,),
-        "mesh+evict_every": (0,)}
+        "plan": (None,)}
     with pytest.raises(NotImplementedError, match="I-3"):
         _run_ctr("dlrm", mesh=object(), plan=object())

@@ -337,28 +337,30 @@ def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_dlrm_options_not_ported_raise(name):
-    # train_dlrm's mesh is ported; beside it the planner (item I-3) and
-    # sharded persistence and eviction (item I-2: ckpt_manager, guard,
-    # delta_ckpt, evict_every) are refused by name. mesh, exchange,
-    # device_prefetch, microbatch and dense_tx are ported: each comes with
-    # a mesh and a ckpt_manager, and only ckpt_manager is refused, before
-    # anything touches the (here fake) mesh.
+    # Every option is ported beside a mesh now but the planner (item I-3):
+    # each comes with a mesh and a plan, and only the plan is refused, by
+    # name, before anything touches the (here fake) mesh.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2, "dense_tx": ADAM}.get(name, object())
-    refused_by_name = ("plan", "evict_every", "delta_ckpt", "ckpt_manager",
-                       "guard")
-    kw = {"mesh": object()}
+    kw = {"mesh": object(), "plan": object()}
     if name == "delta_ckpt":
         kw["delta_every"] = 2
-    if name not in refused_by_name:
-        kw["ckpt_manager"] = object()
+    if name == "exchange":
+        kw["plan"] = None          # JAX's own error: a plan needs "gather"
+        with pytest.raises(NotImplementedError, match="gather exchange"):
+            train_dlrm(ett.DLRMConfig(**SMALL), iter(()), 1, device="cpu",
+                       **{**kw, "plan": object()}, exchange=value)
     kw[name] = value
-    refused = name if name in refused_by_name else "ckpt_manager"
     cfg = ett.DLRMConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match=f"{refused}=") as err:
-        train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
-    ported = ("exchange", "device_prefetch", "microbatch", "dense_tx")
-    assert not any(f"{p}=" in str(err.value) for p in ported)
+    if kw["plan"] is None:
+        with pytest.raises(AttributeError):      # reaches the fake mesh
+            train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="plan=") as err:
+            train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
+        assert "I-3" in str(err.value)
+        assert not any(f"{p}=" in str(err.value) for p in kw
+                       if p != "plan")
     # JAX's axis= at its default is taken and does nothing.
     res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")
     assert res.losses == []

@@ -286,27 +286,29 @@ def test_retrieval_service_gives_the_retrievers_results():
                                        atol=1e-6)
     finally:
         svc.stop()
-    with pytest.raises(NotImplementedError):
+    # A mesh is ported: the service reaches the (here fake) mesh.
+    with pytest.raises(AttributeError):
         ett.make_retrieval_service(pm, mesh=object())
 
 
 @pytest.mark.parametrize("name", ["mesh", "plan", "delta_ckpt",
                                   "ckpt_manager", "device_prefetch"])
 def test_train_two_tower_options_not_ported_raise(name):
-    # delta_ckpt, ckpt_manager and device_prefetch are ported: each comes
-    # with a mesh, which alone is refused.
+    # Every option is ported, beside a mesh too, but the planner (item
+    # I-3): each comes with a (here fake) mesh and a plan, and only the
+    # plan is refused, by name, before anything touches the mesh.
     cfg = ett.TwoTowerConfig(**SMALL)
     value = 2 if name == "device_prefetch" else object()
-    extra = {"plan": {"mesh": object()},
-             "delta_ckpt": {"delta_every": 2}}.get(name, {})
-    ported = ("delta_ckpt", "ckpt_manager", "device_prefetch")
-    if name in ported:
-        extra["mesh"] = object()
-    refused = "mesh" if name in ported else name
-    with pytest.raises(NotImplementedError, match=refused) as err:
-        ett.train_two_tower(cfg, iter(()), 1, device="cpu", **{name: value},
-                            **extra)
-    assert not any(f"{p}=" in str(err.value) for p in ported)
+    kw = {"mesh": object(), "plan": object(), name: value}
+    if name == "delta_ckpt":
+        kw["delta_every"] = 2
+    with pytest.raises(NotImplementedError, match="plan=") as err:
+        ett.train_two_tower(cfg, iter(()), 1, device="cpu", **kw)
+    assert "I-3" in str(err.value)
+    assert not any(f"{p}=" in str(err.value) for p in kw if p != "plan")
+    kw.pop("plan")
+    with pytest.raises(AttributeError):          # reaches the fake mesh
+        ett.train_two_tower(cfg, iter(()), 1, device="cpu", **kw)
     with pytest.raises(TypeError, match="guard"):
         ett.train_two_tower(cfg, iter(()), 1, device="cpu", guard=object())
 

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --rpc                # only the binary RPC transport
     python3 chip_smoke.py --input-pipeline     # only the input pipeline
     python3 chip_smoke.py --mesh               # only the mesh phase, every card
+    python3 chip_smoke.py --planner            # only the mesh phase's planner
     python3 chip_smoke.py --compat             # only compat, nn and the bridge
 
 Phases, each of which ends the script with a non-zero exit if it fails:
@@ -164,7 +165,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     persistence on the DLRM: a delta chain written on the mesh restored
     into one device and one written on one device restored into the mesh
     (bitwise), a guard rollback on a NaN batch on every rank, and
-    `evict_every=2` against a replayed tracker.
+    `evict_every=2` against a replayed tracker. Then the planner
+    (`mesh_planner`): before the spawn, `gather_rows` at the column widths
+    (500,000 rows of the two column-sharded tables, 131,072 Zipf ids, D =
+    32 and 33) bitwise its plain version and timed; on the ranks, the 26
+    per-feature tables (Criteo Kaggle cardinalities capped at 250,000,
+    B = 65,536 global) under a three-way plan (16 replicated, 8 row-sharded,
+    2 column-sharded: `plan_sharding(col_shard=...)` on more ranks, by hand
+    on one, where `plan_sharding` replicates everything; the plan
+    `skew_from_trackers` would choose printed beside it); the planned DLRM
+    (SGD, indexer AdaGrad, lazy Adam, FTRL), DCN and folded DeepFM (SGD,
+    indexer AdaGrad), each beside the uniform row-sharded step on the same
+    tables (step ms, collective ms of every group's exchange, peak memory,
+    launches a rank required exactly, the replicated group's bits equal
+    over the ranks); two planned steps against the single-device step
+    (losses rtol 1e-5, tables and towers rtol 2e-4 / atol 1e-6, the
+    replicated group bitwise over the ranks after each step); the planned
+    DLRM and DCN services (every score the single-device eval's, rtol
+    1e-5); `train_dlrm(mesh=, plan=)` through a guard rollback on a NaN
+    batch (bitwise the run without it) and `evict_every=2`.
 17. compat, nn and the torch bridge: a stock loop at B = 65,536 with
     `torch.optim.SGD` on the DLRM's towers and 26 `nn.SparseEmbed` tables
     (the Criteo Kaggle cardinalities capped at 250,000) through
@@ -196,7 +215,8 @@ phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
 phase 12; with `--persistence` phases 1-2 and phase 13; with `--microbatch`,
 `--rpc`, `--mesh`, `--compat` and `--input-pipeline` phases 1-2 and phase
-14, 15, 16, 17 or 18.
+14, 15, 16, 17 or 18; with `--planner` phases 1-2 and phase 16's planner
+part alone.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -4078,10 +4098,12 @@ def family_launches(family, cfg) -> dict:
     return {"gather_rows": 2 * stacks, "scatter_add_rows_sorted": stacks}
 
 
-def timed_sharded_steps(S, G, step, model, blocks, steps: int) -> dict:
+def timed_sharded_steps(S, G, step, model, blocks, steps: int,
+                        exchanges=None) -> dict:
     """A warm-up step, then `steps` steps timed with CUDA events and their
-    launches counted, then one more step with its collectives timed; the
-    peak memory since the caller's reset."""
+    launches counted, then one more step with its collectives timed (those
+    of the model's tables' exchange, or of every exchange of `exchanges`);
+    the peak memory since the caller's reset."""
     outs = [step(model, *blocks[0])]
     torch.cuda.synchronize()
     G.gather_rows.launches = 0
@@ -4095,12 +4117,16 @@ def timed_sharded_steps(S, G, step, model, blocks, steps: int) -> dict:
     torch.cuda.synchronize()
     launches = {"gather_rows": G.gather_rows.launches,
                 "scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches}
-    tables = getattr(model, "tables", None) or model.query_tables
+    if exchanges is None:
+        tables = getattr(model, "tables", None) or model.query_tables
+        exchanges = [tables.exchange]
     timer = CollectiveTimer()
-    tables.exchange.timer = timer
+    for ex in exchanges:
+        ex.timer = timer
     step(model, *blocks[0])
     collectives = timer.totals()
-    tables.exchange.timer = None
+    for ex in exchanges:
+        ex.timer = None
     return {"losses": [float(o[0] if isinstance(o, tuple) else o)
                        for o in outs],
             "step_ms": start.elapsed_time(end) / steps,
@@ -4460,11 +4486,460 @@ def mesh_persistence(ett, P, S, G, mesh, rank, host, root):
     return out, launches
 
 
-def mesh_rank(rank: int, n: int, port: int, root: str, results):
+# ---------------------------------------------------------------------------
+# Phase 16, planner part: replicated, row- and column-sharded tables in one
+# model (`parallel/planner.py`)
+# ---------------------------------------------------------------------------
+
+# The 26 per-feature tables: Criteo Kaggle cardinalities capped at 250,000
+# (about 1.78M rows). At D = 128 and the 4 MiB default, the 16 tables of
+# 8,192 rows or fewer replicate; two of the 250,000-row tables column-shard.
+PLANNER_VOCABS = tuple(min(c, VOCAB) for c in CRITEO_KAGGLE_CARDINALITIES)
+PLANNER_COL = (2, 3)
+PLANNER_STEPS = 3                   # timed steps per recipe, after a warm-up
+
+
+def planner_recipes(ett):
+    """(family, label, cfg, optimizer name, optimizer) of the planner part:
+    the DLRM, DCN and folded DeepFM with SGD and indexer AdaGrad, and the
+    DLRM with lazy Adam and FTRL, on the per-feature tables."""
+    cfgs = (("dlrm", "dlrm", ett.dlrm_small_config(
+                vocab_sizes=PLANNER_VOCABS)),
+            ("dcn", "dcn", ett.dcn_small_config(vocab_sizes=PLANNER_VOCABS)),
+            ("deepfm", "deepfm_folded", ett.deepfm_small_config(
+                vocab_sizes=PLANNER_VOCABS)))
+    out = []
+    for family, label, cfg in cfgs:
+        opts = (mesh_recipes(ett) if family == "dlrm"
+                else mesh_family_opts(ett))
+        out += [(family, label, cfg, name, opt) for name, opt in opts]
+    return out
+
+
+def planner_plan(P, mesh, n: int, dim: int):
+    """The plan of the per-feature tables and how it was made: on more than
+    one rank `plan_sharding(col_shard=PLANNER_COL)`; on one rank, where
+    `plan_sharding` replicates every table, the same three placements by
+    hand (small tables replicate, `PLANNER_COL` column-shard, the rest
+    row-shard)."""
+    if n > 1:
+        return (P.plan_sharding(PLANNER_VOCABS, dim, mesh,
+                                col_shard=list(PLANNER_COL)),
+                "plan_sharding(col_shard=PLANNER_COL)")
+    plan = P.plan_sharding(PLANNER_VOCABS, dim, mesh)
+    places = [P.COL_SHARD if i in PLANNER_COL
+              else P.REPLICATE if v * dim * 4 <= 4 << 20 else P.ROW_SHARD
+              for i, v in enumerate(PLANNER_VOCABS)]
+    return (dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, placement=p)
+        for d, p in zip(plan.decisions, places))),
+        "by hand: one rank's plan_sharding replicates every table")
+
+
+def planned_api(P, family):
+    """(planned train step, planned eval step) of a family."""
+    return {"dlrm": (P.make_planned_train_step, P.make_planned_eval_step),
+            "dcn": (P.make_planned_dcn_train_step,
+                    P.make_planned_dcn_eval_step),
+            "deepfm": (P.make_planned_deepfm_train_step,
+                       P.make_planned_deepfm_eval_step)}[family]
+
+
+def planned_launches(name: str) -> dict:
+    """A planned step's launches on each rank: one `gather_rows` a group for
+    the lookups (replicated, row, column), and for the replicated group's
+    gradient (`run_scatter_dense_grad`) one value permute and one
+    run-scatter; SGD and indexer AdaGrad add the row group's permute and
+    run-scatter (`owned_apply`); lazy Adam's and FTRL's row group and every
+    column group sum with `index_add_` (more than 512 rows)."""
+    dense = name in ("lazy_adam", "ftrl_l1")
+    return {"gather_rows": 4 if dense else 5,
+            "scatter_add_rows_sorted": 1 if dense else 2}
+
+
+def repl_hash(pt) -> torch.Tensor:
+    """An int64 hash of the replicated group's table and state bits: each
+    32-bit word times its position (mod a prime) plus one, summed."""
+    h = torch.zeros((), dtype=torch.int64, device="cuda")
+    for x in [pt.repl] + [s for s in pt.repl_state if s.numel()]:
+        w = x.contiguous().view(-1)
+        w = (w.view(torch.int32) if w.element_size() == 4
+             else w.view(torch.int16)).to(torch.int64)
+        pos = torch.arange(w.numel(), device="cuda", dtype=torch.int64)
+        h += (w * (pos % 1_000_003 + 1)).sum()
+    return h
+
+
+def repl_agree(pt) -> bool:
+    """The replicated group's hash all-gathered: the same on every rank."""
+    import torch.distributed as dist
+    h = repl_hash(pt).reshape(1)
+    out = [torch.zeros_like(h) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, h)
+    return all(int(o) == int(out[0]) for o in out)
+
+
+def planned_dense_tables(pt) -> torch.Tensor:
+    """The planned tables as one stacked `(sum V, D)` table in plan order
+    (a collective)."""
+    return torch.cat(pt.tables())
+
+
+def mesh_planner_steps(ett, P, S, G, mesh, rank, n, blocks, results):
+    """Every planner recipe: the planned step (step ms, collective ms of
+    every group's exchange, peak memory, launches a rank) and the uniform
+    row-sharded step on the same tables beside it; the replicated group's
+    bits compared over the ranks after the timed steps."""
+    for family, label, cfg, name, opt in planner_recipes(ett):
+        r0 = time.perf_counter()
+        dim = cfg.stack_dim if family == "deepfm" else cfg.dim
+        plan, how = planner_plan(P, mesh, n, dim)
+        single = getattr(ett, f"init_{family}")(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda", sparse_opt=opt)
+        model = P.plan_model(single, plan, mesh, opt)
+        del single
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = planned_api(P, family)[0](cfg, mesh, sparse_opt=opt,
+                                         dense_lr=0.1)
+        pt = model.tables
+        got = timed_sharded_steps(S, G, step, model, blocks, PLANNER_STEPS,
+                                  exchanges=[pt.exchange] + [
+                                      g.exchange for g in (pt.shard, pt.col)
+                                      if g is not None])
+        agree = repl_agree(pt)
+        planned = {"losses": got["losses"], "step_ms": got["step_ms"],
+                   "launches": got["launches"],
+                   "collective_ms": got["collective_ms"],
+                   "peak_memory_gb": got["peak_memory_gb"],
+                   "replicated_bitwise_across_ranks": agree,
+                   "per_step": planned_launches(name)}
+        del model, step, pt
+        torch.cuda.empty_cache()
+        shard = sharded_api(P, family)[0]
+        single = getattr(ett, f"init_{family}")(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda", sparse_opt=opt)
+        uniform = shard(single, mesh, "data", sparse_opt=opt)
+        del single
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ustep = sharded_api(P, family)[1](cfg, mesh, "data", sparse_opt=opt,
+                                          dense_lr=0.1)
+        ugot = timed_sharded_steps(S, G, ustep, uniform, blocks,
+                                   PLANNER_STEPS)
+        dense = name in ("lazy_adam", "ftrl_l1")
+        results.put({
+            "kind": "planner", "rank": rank, "family": label,
+            "recipe": name, "plan": how,
+            "placements": {"replicated": len(plan.replicated),
+                           "row_sharded": len(plan.sharded),
+                           "col_sharded": len(plan.col_sharded)},
+            "replicated_rows": sum(PLANNER_VOCABS[i]
+                                   for i in plan.replicated),
+            "cols_local": -(-dim // n), "planned": planned,
+            "uniform": {"losses": ugot["losses"], "step_ms": ugot["step_ms"],
+                        "launches": ugot["launches"],
+                        "collective_ms": ugot["collective_ms"],
+                        "peak_memory_gb": ugot["peak_memory_gb"],
+                        "per_step": {"gather_rows": 1 if dense else 2,
+                                     "scatter_add_rows_sorted":
+                                         0 if dense else 1}},
+            "seconds": time.perf_counter() - r0})
+        del uniform, ustep
+        torch.cuda.empty_cache()
+
+
+def mesh_planner_parity(ett, P, mesh, rank, n, blocks, global_batches):
+    """Two planned steps of every family (f32 towers) against two
+    single-device steps from the same weights, SGD and indexer AdaGrad:
+    rank 0 replays the global batches on one card; losses rtol 1e-5,
+    tables and towers rtol 2e-4 / atol 1e-6 (JAX's planner tolerances: the
+    replicated and column groups take the dense bodies, the single-device
+    step the run-scatter); the replicated group bitwise equal over the
+    ranks after every step. Lazy Adam and FTRL are held on the CPU
+    (tests/test_torch_planner.py): a near-zero gradient whose sign another
+    order of additions flips moves an Adam entry by about lr."""
+    out = []
+    for family, label, cfg, name, opt in planner_recipes(ett):
+        if name in ("lazy_adam", "ftrl_l1"):
+            continue
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        dim = cfg.stack_dim if family == "deepfm" else cfg.dim
+
+        def fresh(cfg=cfg, family=family, opt=opt):
+            return getattr(ett, f"init_{family}")(
+                cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                device="cuda", sparse_opt=opt)
+        plan, _ = planner_plan(P, mesh, n, dim)
+        pm = P.plan_model(fresh(), plan, mesh, opt)
+        step = planned_api(P, family)[0](cfg, mesh, sparse_opt=opt,
+                                         dense_lr=0.1)
+        losses, agree = [], []
+        for b in blocks[:2]:
+            losses.append(float(step(pm, *b)))
+            agree.append(repl_agree(pm.tables))
+        require(all(agree), f"planner parity {label} {name}: the replicated "
+                "group differs between ranks")
+        tables = planned_dense_tables(pm.tables)
+        towers = [p.detach().clone() for _, p in pm.tower_params()]
+        del pm
+        torch.cuda.empty_cache()
+        row = {"family": label, "recipe": name, "replicated_bitwise": agree}
+        if rank == 0:
+            single = fresh()
+            step1 = getattr(ett.models, {
+                "dlrm": "make_train_step", "dcn": "make_dcn_train_step",
+                "deepfm": "make_deepfm_train_step"}[family])(
+                    cfg, sparse_opt=opt, dense_lr=0.1)
+            want = [float(step1(single, b["dense"], b["cat"], b["label"]))
+                    for b in global_batches[:2]]
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(losses, want, rtol=1e-5)
+            pairs = [(tables, single.tables.data)] + list(zip(
+                towers, [p.detach() for _, p in single.tower_params()]))
+            for a, b in pairs:
+                require(torch.allclose(a, b, rtol=2e-4, atol=1e-6),
+                        f"planner parity {label} {name}: off by "
+                        f"{max_abs_err(a, b)}")
+            row.update(tolerance="losses rtol 1e-5, tables and towers rtol "
+                       "2e-4 atol 1e-6", losses=losses, want=want,
+                       max_abs_err=max(max_abs_err(a, b) for a, b in pairs))
+            del single
+        del tables, towers
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def mesh_planner_services(ett, P, G, mesh, rank, n):
+    """The planned DLRM and DCN behind `make_dlrm_service(mesh=)` and
+    `make_dcn_service(mesh=)` (f32 towers, 4 closed-loop clients x 8
+    requests of 1-256 examples): every score the single-device eval's of
+    the same weights on rank 0, rtol 1e-5. Rank 0 returns each service's
+    summary, the others what they followed; with the `gather_rows`
+    launches (three groups: three a batch)."""
+    out = []
+    for family in ("dlrm", "dcn"):
+        cfg = dataclasses.replace(getattr(ett, f"{family}_small_config")(
+            vocab_sizes=PLANNER_VOCABS), compute_dtype=torch.float32)
+        plan, _ = planner_plan(P, mesh, n, cfg.dim)
+        single = getattr(ett, f"init_{family}")(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        pm = P.plan_model(single, plan, mesh)
+        torch.cuda.synchronize()
+        G.gather_rows.launches = 0
+        svc = getattr(ett, f"make_{family}_service")(
+            pm, mesh=mesh, max_batch=1024, max_latency_ms=2.0)
+        if rank != 0:
+            torch.cuda.synchronize()
+            out.append({"service": family, "followed_batches": svc.batches,
+                        "launches": G.gather_rows.launches})
+            del pm, single
+            torch.cuda.empty_cache()
+            continue
+        t0 = time.perf_counter()
+        try:
+            served = closed_loop(svc, lambda rng, b: make_request(rng, cfg,
+                                                                  b),
+                                 clients=4, per_client=8)
+        finally:
+            svc.stop()
+        torch.cuda.synchronize()
+        launches, seconds = G.gather_rows.launches, time.perf_counter() - t0
+        ev = getattr(ett.models, {"dlrm": "make_eval_step",
+                                  "dcn": "make_dcn_eval_step"}[family])(cfg)
+        err = 0.0
+        for (dense, cat), got, _ in served:
+            want = ev(single, dense, cat).cpu().numpy()
+            require(np.all(np.isfinite(got)), f"planned {family} service: "
+                    "non-finite scores")
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+            err = max(err, float(np.abs(got - want).max()))
+        stats = svc.stats_snapshot()
+        out.append({"service": family, "requests": len(served),
+                    "batches": stats["batches"], "seconds": seconds,
+                    "launches": launches, "max_abs_err_vs_unsharded": err,
+                    **latency_ms([lat for _, _, lat in served])})
+        del pm, single
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_planner_loop(ett, P, S, G, mesh, rank, n, host, root):
+    """`train_dlrm(mesh=, plan=)` on every rank (SGD): a guard rollback on a
+    NaN batch after a checkpoint at step 2, ending bitwise where the run
+    without that batch ends (tables of every group, towers); then
+    `evict_every=2` over 4 steps (finite losses, rows evicted, evicted
+    rows zero). Returns this rank's summary and launches."""
+    from embeddingtables_tpu_torch.utils import (CheckpointManager,
+                                                 DivergenceGuard)
+    cfg = ett.dlrm_small_config(vocab_sizes=PLANNER_VOCABS)
+    opt = ett.SparseSGD(1e-4)
+    plan, _ = planner_plan(P, mesh, n, cfg.dim)
+    launches = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
+
+    def fresh():
+        return ett.init_dlrm(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), device="cuda", sparse_opt=opt)
+
+    def counted(fn):
+        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        launches["gather_rows"] += G.gather_rows.launches
+        launches["scatter_add_rows_sorted"] += \
+            S.scatter_add_rows_sorted.launches
+        return got
+
+    kw = dict(sparse_opt=opt, dense_lr=0.1, log_every=1, verbose=False,
+              mesh=mesh, plan=plan)
+    nan = dict(host[2], dense=np.full_like(host[2]["dense"], np.nan))
+    mgr = CheckpointManager(os.path.join(root, "planned_ckpt"))
+    guard = DivergenceGuard(mgr)
+    t0 = time.perf_counter()
+    res = counted(lambda: ett.train_dlrm(
+        cfg, iter([host[0], host[1], nan]), 3, model=fresh(),
+        ckpt_manager=mgr, ckpt_every=2, guard=guard, **kw))
+    out = {"guard_run_s": time.perf_counter() - t0,
+           "guard_rollbacks": guard.rollbacks, "guard_losses": res.losses}
+    require(guard.rollbacks == 1 and math.isnan(res.losses[2])
+            and type(res.model).__name__ == "PlannedDLRM",
+            f"planned guard: rollbacks {guard.rollbacks}, losses "
+            f"{res.losses}")
+    rolled = planned_dense_tables(res.model.tables)
+    rolled_towers = [p.detach().clone() for _, p in
+                     res.model.tower_params()]
+    del res
+    ref = counted(lambda: ett.train_dlrm(cfg, iter(host[:2]), 2,
+                                         model=fresh(), **kw))
+    require(torch.equal(rolled, planned_dense_tables(ref.model.tables))
+            and all(torch.equal(a, b.detach()) for a, (_, b) in zip(
+                rolled_towers, ref.model.tower_params())),
+            "planned guard rollback: not bitwise the run without the NaN "
+            "batch")
+    del ref, rolled, rolled_towers
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(os.path.join(root, "planned_ckpt"), ignore_errors=True)
+    t0 = time.perf_counter()
+    res = counted(lambda: ett.train_dlrm(
+        cfg, itertools.cycle(host), 4, model=fresh(), evict_every=2,
+        evict_threshold=0.3, freq_decay=0.5, **kw))
+    table = planned_dense_tables(res.model.tables)
+    zero = int((table == 0).all(dim=1).sum())
+    require(all(math.isfinite(x) for x in res.losses)
+            and res.evicted_rows > 0 and zero >= 1,
+            f"planned eviction: losses {res.losses}, evicted "
+            f"{res.evicted_rows}, zero rows {zero}")
+    out.update(evict_run_s=time.perf_counter() - t0,
+               evicted_rows=res.evicted_rows, zero_rows=zero,
+               evict_losses=res.losses)
+    del res, table
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_planner(ett, P, S, G, mesh, rank, n, root, results):
+    """The planner part of the mesh phase on the per-feature tables at B =
+    65,536 global (4 cycled Zipf(1.1) batches): the plans (and the one
+    `skew_from_trackers` would choose), every recipe against the uniform
+    row-sharded step, the parity runs, the DLRM and DCN planned services
+    and the planned loop; each result put on `results`."""
+    import types
+    from embeddingtables_tpu_torch.utils import FrequencyTracker
+    host = list(ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
+                                    batch_size=B_TRAIN,
+                                    seed=SEED + 30).batches(MESH_BATCHES))
+    blocks = [tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in P.local_batch(mesh, "data", b["dense"], b["cat"],
+                                           b["label"])) for b in host]
+    trackers = [FrequencyTracker(v) for v in PLANNER_VOCABS]
+    for b in host:
+        for t, tr in enumerate(trackers):
+            tr.observe(b["cat"][t])
+    skew = P.skew_from_trackers(trackers)
+    plan, how = planner_plan(P, mesh, n, 128)
+    four = types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,))
+    if rank == 0:
+        results.put({"kind": "planner_plan", "rank": rank, "how": how,
+                     "summary": plan.summary(),
+                     "skew": [round(s, 4) for s in skew],
+                     "skew_plan_here": P.plan_sharding(
+                         PLANNER_VOCABS, 128, mesh, skew=skew).summary(),
+                     "skew_plan_on_4_ranks": P.plan_sharding(
+                         PLANNER_VOCABS, 128, four, skew=skew).summary()})
+    mesh_planner_steps(ett, P, S, G, mesh, rank, n, blocks, results)
+    global_batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                      for b in host[:2]]
+    results.put({"kind": "planner_parity", "rank": rank,
+                 "rows": mesh_planner_parity(ett, P, mesh, rank, n, blocks,
+                                             global_batches)})
+    del global_batches
+    torch.cuda.empty_cache()
+    results.put({"kind": "planner_service", "rank": rank,
+                 "rows": mesh_planner_services(ett, P, G, mesh, rank, n)})
+    summary, launches = mesh_planner_loop(ett, P, S, G, mesh, rank, n, host,
+                                          root)
+    results.put({"kind": "planner_loop", "rank": rank, "launches": launches,
+                 **summary})
+
+
+def col_width_kernels(ett, G, gen):
+    """`gather_rows` at the planner's column widths: the column group of
+    the two 250,000-row tables (`PLANNER_COL`, 500,000 rows) gathered by
+    the whole batch's ids of those tables (2 x 65,536 Zipf(1.1) ids, the
+    (table, example) pairs batch-major) at `cols_local` = 32 (D = 128 on
+    four cards) and 33 (the folded DeepFM's 129 padded to 132): bitwise its
+    plain version (with wrapped and out-of-range ids), and timed beside the
+    plain version, `F.embedding` and the byte bound. Returns (largest
+    error, {"d32": times, "d33": times})."""
+    t0 = time.perf_counter()
+    offs = np.cumsum([0] + [PLANNER_VOCABS[i] for i in PLANNER_COL])
+    sets = []
+    for b in ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
+                                 batch_size=B_TRAIN,
+                                 seed=SEED + 31).batches(3):
+        ids = np.stack([b["cat"][i] + offs[j]
+                        for j, i in enumerate(PLANNER_COL)], axis=1)
+        sets.append(torch.from_numpy(ids.reshape(-1).astype(
+            np.int32)).cuda())
+    v = int(offs[-1])
+    err, times = 0.0, {}
+    for d in (32, 33):
+        tab = torch.randn((v, d), generator=gen, device="cuda")
+        ids = with_specials(sets[0].clone(), v, gen)
+        got, want = G.gather_rows(tab, ids), G.gather_rows_plain(tab, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(got), bits(want)),
+                f"gather_rows D={d} (column slice) not bitwise")
+        emit({"phase": "kernel_check", "kernel": "gather_rows",
+              "stream": "planner_col_zipf", "dtype": "float32", "V": v,
+              "D": d, "n": ids.numel(), "bitwise": True})
+        del tab, got, want
+        times[f"d{d}"] = time_gather(G, gen, sets, v, d,
+                                     f"planner_col_zipf_d{d}")
+        torch.cuda.empty_cache()
+    emit({"phase": "col_width_times", "n": sets[0].numel(), "V": v,
+          **{k: {"kernel_ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+                 "share_of_bound": t["bound_ms"] / t["kernel_ms"],
+                 "library_ms": t["library_ms"], "plain_ms": t["plain_ms"]}
+             for k, t in times.items()},
+          "seconds": time.perf_counter() - t0})
+    return err, times
+
+
+def mesh_rank(rank: int, n: int, port: int, root: str, results,
+              planner_only: bool = False):
     """One rank of the mesh phase, on card `rank`: every recipe, the parity
     runs and the service of the DLRM, then the other families, their
-    parity runs and services, and sharded persistence under `root`, each
-    result put on `results`."""
+    parity runs and services, sharded persistence under `root`, and the
+    planner part (`mesh_planner`; alone with `planner_only`), each result
+    put on `results`."""
     import datetime
     import embeddingtables_tpu_torch as ett
     from embeddingtables_tpu_torch import parallel as P
@@ -4476,6 +4951,12 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results):
     P.init_process(f"tcp://localhost:{port}", n, rank,
                    timeout=datetime.timedelta(seconds=600))
     mesh = P.local_mesh(n)
+    if planner_only:
+        mesh_planner(ett, P, S, G, mesh, rank, n, root, results)
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     ex = PS.Exchange(mesh, "data")
     cfg = ett.dlrm_small_config(vocab=VOCAB)
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
@@ -4578,6 +5059,9 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results):
                                          root)
     results.put({"kind": "persistence", "rank": rank, "launches": launches,
                  **summary})
+    del blocks
+    torch.cuda.empty_cache()
+    mesh_planner(ett, P, S, G, mesh, rank, n, root, results)
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()
@@ -4590,16 +5074,79 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_phase(ett, S, H, G):
+def check_planner(got, n: int, total: dict) -> None:
+    """The planner part's results: every recipe's losses finite and equal
+    on every rank, its launches a rank exactly the planned step's (and the
+    uniform step's), the replicated group bitwise equal over the ranks; the
+    parity rows; the services' scores and followers; the loop's rollback
+    and eviction. Adds the launches to `total`."""
+    plans = [g for g in got if g["kind"] == "planner_plan"]
+    require(len(plans) == 1, "planner: plan missing")
+    rows = [g for g in got if g["kind"] == "planner"]
+    require(len(rows) == n * 8, f"planner: {len(rows)} recipe results")
+    for g in rows:
+        lead = next(h for h in rows if h["rank"] == 0
+                    and h["family"] == g["family"]
+                    and h["recipe"] == g["recipe"])
+        for kind in ("planned", "uniform"):
+            r = g[kind]
+            want = {k: v * PLANNER_STEPS for k, v in r["per_step"].items()}
+            require(all(math.isfinite(x) for x in r["losses"]),
+                    f"planner {kind} {g['family']} {g['recipe']}: losses "
+                    f"{r['losses']}")
+            require(r["losses"] == lead[kind]["losses"],
+                    f"planner {kind} {g['family']} {g['recipe']}: ranks "
+                    "disagree on losses")
+            require(r["launches"] == want, f"planner {kind} {g['family']} "
+                    f"{g['recipe']} rank {g['rank']}: launches "
+                    f"{r['launches']}, want {want}")
+            for k in total:
+                total[k] += r["launches"][k]
+        require(g["planned"]["replicated_bitwise_across_ranks"],
+                f"planner {g['family']} {g['recipe']}: replicated group "
+                "differs between ranks")
+    parity = [g for g in got if g["kind"] == "planner_parity"
+              and g["rank"] == 0]
+    require(len(parity) == 1 and len(parity[0]["rows"]) == 6,
+            "planner: parity results missing")
+    services = sorted((g for g in got if g["kind"] == "planner_service"),
+                      key=lambda g: g["rank"])
+    require(len(services) == n, "planner: service results missing")
+    for i, lead in enumerate(services[0]["rows"]):
+        require(lead["requests"] == 32, f"planned {lead['service']} "
+                f"service: {lead['requests']} requests")
+        for s in services:
+            row = s["rows"][i]
+            require(row.get("followed_batches", lead["batches"])
+                    == lead["batches"], f"planned {lead['service']} "
+                    "service: followers missed batches")
+            require(row["launches"] == 3 * lead["batches"],
+                    f"planned {lead['service']} service rank {s['rank']}: "
+                    f"gather_rows {row['launches']}, want "
+                    f"{3 * lead['batches']}")
+            total["gather_rows"] += row["launches"]
+    loops = [g for g in got if g["kind"] == "planner_loop"]
+    require(len(loops) == n and all(g["guard_rollbacks"] == 1
+                                    and g["evicted_rows"] > 0
+                                    for g in loops),
+            "planner: loop results missing")
+    for g in loops:
+        for k in total:
+            total[k] += g["launches"][k]
+
+
+def mesh_phase(ett, S, H, G, planner_only: bool = False):
     """The sharded DLRM (`dlrm_small_config(vocab=250_000)`, 26 x 250,000 x
     128, B = 65,536 global, Zipf(1.1) `SyntheticCriteo` batches) over every
     card of the machine, one rank per card in one NCCL group spawned from
     here: SGD, indexer AdaGrad, lazy Adam and FTRL on the gather exchange
     and the butterfly (capacity factor 2.0), each timed with its
     collectives, overflow, peak memory, bytes and per-rank launches; the
-    parity runs (`mesh_parity`) and the service (`mesh_service`). The
-    kernels are built before spawning (every rank loads that build).
-    Returns the launches of the counted runs, summed over the ranks."""
+    parity runs (`mesh_parity`) and the service (`mesh_service`); then the
+    other families, sharded persistence and the planner part
+    (`mesh_planner`, alone with `planner_only`). The kernels are built
+    before spawning (every rank loads that build). Returns the launches of
+    the counted runs, summed over the ranks."""
     import tempfile
     import torch.multiprocessing as tmp
     t0 = time.perf_counter()
@@ -4618,7 +5165,8 @@ def mesh_phase(ett, S, H, G):
                                      timeout=60).stdout})
     torch.cuda.empty_cache()
     results = tmp.get_context("spawn").SimpleQueue()
-    ranks = tmp.spawn(mesh_rank, args=(n, free_port(), root, results),
+    ranks = tmp.spawn(mesh_rank, args=(n, free_port(), root, results,
+                                       planner_only),
                       nprocs=n, join=False)
     got = []
     done = False
@@ -4632,9 +5180,14 @@ def mesh_phase(ett, S, H, G):
                       **{k: v for k, v in got[-1].items() if k != "kind"}})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    total = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
+    check_planner(got, n, total)
+    if planner_only:
+        emit({"phase": "mesh_done", "ranks": n, "batch": B_TRAIN,
+              "launches": total, "seconds": time.perf_counter() - t0})
+        return {"gather_bags": 0, "hot_accumulate": 0, **total}
     recipes = [g for g in got if g["kind"] == "recipe"]
     require(len(recipes) == n * 8, f"mesh: {len(recipes)} recipe results")
-    total = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
     for name, _ in mesh_recipes(ett):
         for exchange in ("gather", "a2a"):
             rows = sorted((g for g in recipes if g["recipe"] == name
@@ -4921,6 +5474,11 @@ def main() -> int:
         mesh_phase(ett, S, H, G)
         print(card_line(), flush=True)
         return 0
+    if "--planner" in sys.argv[1:]:
+        col_width_kernels(ett, G, gen)
+        mesh_phase(ett, S, H, G, planner_only=True)
+        print(card_line(), flush=True)
+        return 0
     if "--compat" in sys.argv[1:]:
         compat_phase(ett, S, H, G)
         print(card_line(), flush=True)
@@ -4962,6 +5520,7 @@ def main() -> int:
     persist, _ = persistence_phase(ett, S, H, G, gen, train_batches)
     micro = microbatch_phase(ett, S, H, G, train_batches)
     served_rpc = rpc_phase(ett, S, H, G)
+    _, col_times = col_width_kernels(ett, G, gen)
     meshed = mesh_phase(ett, S, H, G)
     compat = compat_phase(ett, S, H, G)
     # Last: loading the native libraries (built with -ffast-math, as the JAX
@@ -4986,6 +5545,11 @@ def main() -> int:
         timings[key].update({f"d{d}_ms": t["kernel_ms"],
                              f"d{d}_bound_ms": t["bound_ms"],
                              f"d{d}_library_ms": t["library_ms"]})
+    for k, t in col_times.items():
+        timings["gather_rows"].update({
+            f"col_{k}_ms": t["kernel_ms"], f"col_{k}_plain_ms": t["plain_ms"],
+            f"col_{k}_bound_ms": t["bound_ms"],
+            f"col_{k}_library_ms": t["library_ms"]})
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"

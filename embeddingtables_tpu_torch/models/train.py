@@ -30,9 +30,13 @@ options hold there too: full checkpoints are saved by every rank together
 (one part each), the guard's verdict is reduced over the ranks so that all
 of them roll back together, delta checkpoints go through the table's
 `ModRowLayout`, and every rank evicts the same rows (`evict_rows_sharded`;
-the trackers follow the same global batches). The planner is not ported
-yet: `unported.py` holds its entry, and a `plan` raises
-`NotImplementedError`.
+the trackers follow the same global batches). With `mesh=...` and
+`plan=...` (a `parallel.planner.ShardingPlan`) the CTR loops train the
+family's planned model (`parallel/planner.py`): replicated, row- and
+column-sharded tables in one model, evicting through `evict_rows_planned`,
+with checkpoints and the guard as on the mesh; delta checkpoints under a
+plan raise JAX's `NotImplementedError`. `train_two_tower` refuses a plan
+(`unported.py`).
 """
 from __future__ import annotations
 
@@ -75,13 +79,14 @@ class RetrievalTrainResult:
 
 def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_ckpt=None,
             delta_every=0, mesh=None, plan=None) -> None:
-    """JAX's own errors on the combinations first, then the planner, which
-    is not ported yet (the rest of JAX's options are read or ignored, as
-    `unported.py` says)."""
+    """JAX's own errors on the combinations first, then the planner's
+    two-tower model, which is not ported yet (the rest of JAX's options are
+    read or ignored, as `unported.py` says)."""
     check_jax_combinations(
         mesh=mesh, plan=plan, delta_ckpt=delta_ckpt, delta_every=delta_every,
         wire_dtype=wire_dtype, exchange=exchange)
-    refuse_unported(loop, plan=plan)
+    if loop == "train_two_tower":
+        refuse_unported(loop, plan=plan)
 
 
 def _collect_scores(eval_step, model, batches):
@@ -261,9 +266,11 @@ def _run_loop(*, model, device, step, put, train_iter, num_steps, tel,
 class _Family:
     """One CTR family: its init, train-step and eval-step factories, its
     builder from numpy arrays (`model=` may be the builder's keyword
-    arguments, a model trained by the JAX package), and `sharded()`, its
-    mesh placement: `(sharded model class, shard function, sharded train-
-    and eval-step factories)`."""
+    arguments, a model trained by the JAX package), `sharded()`, its mesh
+    placement: `(sharded model class, shard function, sharded train- and
+    eval-step factories)`, and `planned()`, its planner placement:
+    `(planned model class, planned init, planned train- and eval-step
+    factories)`."""
 
     name: str
     init: Callable         # (cfg, generator, device=, sparse_opt=, dense_tx=)
@@ -272,6 +279,7 @@ class _Family:
     eval_step: Callable    # (cfg) -> step
     from_arrays: Callable  # (cfg, device=, **arrays) -> model
     sharded: Callable      # () -> (cls, shard, train step, eval step)
+    planned: Callable      # () -> (cls, init, train step, eval step)
 
 
 def _dlrm_family() -> _Family:
@@ -282,8 +290,13 @@ def _dlrm_family() -> _Family:
         from ..parallel import dlrm as p
         return (p.ShardedDLRM, p.shard_dlrm, p.make_sharded_train_step,
                 p.make_sharded_eval_step)
+
+    def planned():
+        from ..parallel import planner as p
+        return (p.PlannedDLRM, p.init_planned_dlrm, p.make_planned_train_step,
+                p.make_planned_eval_step)
     return _Family("dlrm", dlrm.init_dlrm, dlrm.make_train_step,
-                   dlrm.make_eval_step, dlrm_from_arrays, sharded)
+                   dlrm.make_eval_step, dlrm_from_arrays, sharded, planned)
 
 
 def _dcn_family() -> _Family:
@@ -294,8 +307,13 @@ def _dcn_family() -> _Family:
         from ..parallel import dcn as p
         return (p.ShardedDCN, p.shard_dcn, p.make_sharded_dcn_train_step,
                 p.make_sharded_dcn_eval_step)
+
+    def planned():
+        from ..parallel import planner as p
+        return (p.PlannedDCN, p.init_planned_dcn,
+                p.make_planned_dcn_train_step, p.make_planned_dcn_eval_step)
     return _Family("dcn", dcn.init_dcn, dcn.make_train_step,
-                   dcn.make_eval_step, dcn_from_arrays, sharded)
+                   dcn.make_eval_step, dcn_from_arrays, sharded, planned)
 
 
 def _deepfm_family() -> _Family:
@@ -307,8 +325,14 @@ def _deepfm_family() -> _Family:
         return (p.ShardedDeepFM, p.shard_deepfm,
                 p.make_sharded_deepfm_train_step,
                 p.make_sharded_deepfm_eval_step)
+
+    def planned():
+        from ..parallel import planner as p
+        return (p.PlannedDeepFM, p.init_planned_deepfm,
+                p.make_planned_deepfm_train_step,
+                p.make_planned_deepfm_eval_step)
     return _Family("deepfm", deepfm.init_deepfm, deepfm.make_train_step,
-                   deepfm.make_eval_step, deepfm_from_arrays, sharded)
+                   deepfm.make_eval_step, deepfm_from_arrays, sharded, planned)
 
 
 def _model_for(init, from_arrays, cfg, model, seed: int, device,
@@ -349,6 +373,14 @@ def _maybe_evict(model, trackers, evict_threshold: float, stacks,
     touch, so they are marked, or the next delta would leave them out and a
     restore would differ from the live model."""
     first = getattr(model, stacks[0][0])
+    if hasattr(first, "repl_tables"):
+        # A planned placement: per-table rows, each group evicts its own.
+        from ..parallel.planner import evict_rows_planned
+        cold_pt = [tr.pop_cold(evict_threshold) for tr in trackers]
+        ncold = int(sum(c.size for c in cold_pt))
+        if ncold:
+            evict_rows_planned(first, cold_pt)
+        return ncold
     cold = np.concatenate([tr.pop_cold(evict_threshold) + first.offsets[t]
                            for t, tr in enumerate(trackers)])
     if not cold.size:
@@ -463,6 +495,38 @@ def _mesh_agree(guard, ex, device):
     return agree
 
 
+def _planned_model(fam: _Family, cfg, model, mesh, plan, sparse_opt, dense_tx,
+                   seed, tel):
+    """The planned model to train in place (JAX's `_coerce_planned`): a
+    fresh one from `seed` on the plan, a single-device model (given, or
+    built from numpy arrays) carried onto it with its optimizer state
+    (`parallel.planner.plan_model`), or a planned model itself; anything
+    else is a `TypeError`. A planned model without tower state gets
+    `dense_tx`'s."""
+    from ..parallel.mesh import mesh_device
+    from ..parallel.planner import plan_model
+    from .dcn import DCN
+    from .deepfm import DeepFM
+    from .dlrm import DLRM, with_dense_tx
+    cls, init_planned, _, _ = fam.planned()
+    single = {"dlrm": DLRM, "dcn": DCN, "deepfm": DeepFM}[fam.name]
+    if model is None:
+        with tel.phase("init"):
+            return init_planned(cfg, plan, mesh, sparse_opt=sparse_opt,
+                                dense_tx=dense_tx, seed=seed)
+    if isinstance(model, dict):
+        model = fam.from_arrays(cfg, device=mesh_device(mesh), **model)
+    if isinstance(model, single):
+        return plan_model(model, plan, mesh, sparse_opt, dense_tx)
+    if not isinstance(model, cls):
+        raise TypeError(
+            f"plan= expects a {single.__name__} or {cls.__name__} model, got "
+            f"{type(model).__name__} (unshard a sharded model first)")
+    if dense_tx is not None and model.dense_opt_state is None:
+        with_dense_tx(model, dense_tx)
+    return model
+
+
 def _mesh_model(fam: _Family, cfg, model, mesh, axis, sparse_opt, dense_tx,
                 seed, tel):
     """The sharded model to train in place: `model` itself when sharded,
@@ -483,13 +547,15 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
                eval_batches, eval_every, eval_metrics, log_every, lr_schedule,
                verbose, device, evict_every, evict_threshold, freq_decay,
                ckpt_manager, ckpt_every, guard, delta_ckpt, delta_every,
-               evict_stacks=None, mesh=None, axis="data", step_kw=None,
-               tuner=None) -> TrainResult:
+               evict_stacks=None, mesh=None, axis="data", plan=None,
+               step_kw=None, tuner=None) -> TrainResult:
     """The CTR (dense/cat/label) training run of any family, on one device
     or on a `mesh` (every rank calls it with the same arguments and the
     same global batches; each steps on its data-axis block, scores every
     eval batch (each rank its block, then an all-gather) and draws its
-    stochastic rounding from `rank_generator`). `step_kw`: the sharded
+    stochastic rounding from `rank_generator`), or on a `mesh` under a
+    `plan` (the family's planned model, placed over `plan.axis`; `axis` is
+    not read there, as in JAX). `step_kw`: the sharded
     DLRM step's exchange options; with a `tuner` (`CapacityAutoTuner`) the
     step reports its overflow and is rebuilt at the factor the tuner
     returns. A given `model` trained with `dense_tx` must hold its tower
@@ -518,22 +584,36 @@ def _train_ctr(fam: _Family, cfg, train_iter, num_steps: int, *, sparse_opt,
         generator = _sr_generator_for(sparse_opt, seed, device)
     else:
         from ..parallel.dlrm import _local_block, rank_generator, \
-            sharded_logits
-        _, _, make_step, make_eval = fam.sharded()
+            sharded_logits, tables_device
         sparse_opt = sparse_opt or SparseSGD()
-        model = _mesh_model(fam, cfg, model, mesh, axis, sparse_opt,
-                            dense_tx, seed, tel)
-        require_dense_state(model, dense_tx, f"shard_{fam.name}")
+        if plan is not None:
+            _, _, make_step, make_eval = fam.planned()
+            model = _planned_model(fam, cfg, model, mesh, plan, sparse_opt,
+                                   dense_tx, seed, tel)
+            require_dense_state(model, dense_tx, f"init_planned_{fam.name}")
+
+            def build_step(cf):
+                return make_step(cfg, mesh, sparse_opt=sparse_opt,
+                                 dense_lr=dense_lr, dense_tx=dense_tx,
+                                 microbatch=microbatch)
+
+            sharded_eval = make_eval(cfg, mesh)
+        else:
+            _, _, make_step, make_eval = fam.sharded()
+            model = _mesh_model(fam, cfg, model, mesh, axis, sparse_opt,
+                                dense_tx, seed, tel)
+            require_dense_state(model, dense_tx, f"shard_{fam.name}")
+
+            def build_step(cf):
+                kw = ({} if step_kw is None
+                      else dict(step_kw, capacity_factor=cf))
+                return make_step(cfg, mesh, axis, sparse_opt=sparse_opt,
+                                 dense_lr=dense_lr, dense_tx=dense_tx,
+                                 microbatch=microbatch, **kw)
+
+            sharded_eval = make_eval(cfg, mesh, axis)
         ex = model.tables.exchange
-        device = model.tables.data.device
-
-        def build_step(cf):
-            kw = {} if step_kw is None else dict(step_kw, capacity_factor=cf)
-            return make_step(cfg, mesh, axis, sparse_opt=sparse_opt,
-                             dense_lr=dense_lr, dense_tx=dense_tx,
-                             microbatch=microbatch, **kw)
-
-        sharded_eval = make_eval(cfg, mesh, axis)
+        device = tables_device(model.tables)
 
         def eval_step(m, dense, cat):
             return sharded_logits(m, dense, cat, sharded_eval)
@@ -643,7 +723,12 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     `auto_capacity` and `wire_dtype`). The result's model is the
     `parallel.dlrm.ShardedDLRM`; `device` is the mesh's. The checkpoints,
     the guard, delta checkpoints and eviction hold on the mesh too (the
-    module docstring).
+    module docstring). With `plan` (a `parallel.planner.ShardingPlan`)
+    beside `mesh`, the model is a `parallel.planner.PlannedDLRM` on the
+    plan's placement (made fresh, carried from a single-device `model` with
+    its optimizer state, or given); it evicts, checkpoints and rolls back
+    as on the mesh, and `delta_ckpt` raises `NotImplementedError`, as in
+    JAX.
 
     JAX's other options follow `unported.py`: set, an unported one raises,
     as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
@@ -669,8 +754,8 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
         evict_every=evict_every, evict_threshold=evict_threshold,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
-        delta_every=delta_every, mesh=mesh, axis=axis, step_kw=step_kw,
-        tuner=tuner)
+        delta_every=delta_every, mesh=mesh, axis=axis, plan=plan,
+        step_kw=step_kw, tuner=tuner)
 
 
 def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -686,7 +771,8 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
     """Train a DCN-v2 (`models/dcn.py`) on `train_dlrm`'s batches, cadence
     and options: row eviction, checkpoints, the guard and delta checkpoints
     included; with `mesh` the sharded DCN (`parallel.dcn`) on the gather
-    exchange, `train_dlrm`'s contract."""
+    exchange, or with `plan` too the planned DCN, `train_dlrm`'s
+    contract."""
     _refuse("train_dcn", delta_ckpt=delta_ckpt, delta_every=delta_every,
             mesh=mesh, plan=plan)
     return _train_ctr(
@@ -699,7 +785,7 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
         evict_every=evict_every, evict_threshold=evict_threshold,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
-        delta_every=delta_every, mesh=mesh, axis=axis)
+        delta_every=delta_every, mesh=mesh, axis=axis, plan=plan)
 
 
 def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
@@ -720,11 +806,13 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
     state, in the fused row of the folded layout or in both stacks of the
     unfolded one. A delta checkpoint of the unfolded layout carries the
     first-order stack and its state beside the FM stack's. With `mesh` the
-    sharded DeepFM (`parallel.deepfm`, either layout), `train_dlrm`'s
-    contract."""
+    sharded DeepFM (`parallel.deepfm`, either layout), or with `plan` too
+    the planned folded DeepFM (the plan's dim is `cfg.stack_dim`),
+    `train_dlrm`'s contract."""
 
     def evict_stacks(m):
-        fm = () if m.fm_w is None else (("fm_w", "fm_state"),)
+        fm = () if getattr(m, "fm_w", None) is None else (("fm_w",
+                                                           "fm_state"),)
         return (("tables", "emb_state"),) + fm
 
     _refuse("train_deepfm", delta_ckpt=delta_ckpt, delta_every=delta_every,
@@ -740,7 +828,7 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
         freq_decay=freq_decay, ckpt_manager=ckpt_manager,
         ckpt_every=ckpt_every, guard=guard, delta_ckpt=delta_ckpt,
         delta_every=delta_every, evict_stacks=evict_stacks, mesh=mesh,
-        axis=axis)
+        axis=axis, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -111,6 +111,27 @@ def _dense_grad(data, rows, g, grad_dtype=None):
     return dense_scatter(rows, g.to(sdt), v).float()
 
 
+def run_scatter_dense_grad(data, rows, g, grad_dtype=None):
+    """`_dense_grad`'s contract through the run-scatter: the occurrences
+    sorted (stable), then summed into a zeroed scratch at scale 1 with one
+    write per row. The run-scatter has no atomics, so the same ids and
+    values give the same bits on every card and every run, where
+    `index_add_` and `hot_accumulate` add in a varying order. The scratch
+    is f32 or bfloat16 (`grad_dtype`); any other float dtype sums in f32 and
+    rounds once to it. The planner's replicated group takes this, so its
+    replicas stay bitwise equal without an all-reduce."""
+    v, d = data.shape
+    sdt = torch.float32 if grad_dtype is None else _as_dtype(grad_dtype)
+    if not sdt.is_floating_point:
+        raise ValueError(
+            f"dense_grad_dtype must be a floating dtype, got {sdt}")
+    run_dtype = sdt if sdt in (torch.float32, torch.bfloat16) \
+        else torch.float32
+    grad = torch.zeros((v, d), dtype=run_dtype, device=data.device)
+    scatter_update(grad, resolve_rows(rows, v), g.float().contiguous(), 1.0)
+    return grad.to(sdt).float()
+
+
 def _as_dtype(d) -> torch.dtype:
     """A torch dtype from a dtype or its name ("bfloat16", "float32")."""
     return d if isinstance(d, torch.dtype) else getattr(torch, str(d))
@@ -132,11 +153,14 @@ def _clip_rows(grad_dense, clipnorm):
 
 def sgd_dense_body(data, rows, g, lr, weight_decay: float = 0.0,
                    clipnorm: Optional[float] = None, generator=None,
-                   grad_dtype=None) -> torch.Tensor:
+                   grad_dtype=None, dense_grad=_dense_grad) -> torch.Tensor:
     """`data[r] -= lr * clip(sum g_r)` with lazy decay on touched rows,
     written into `data` in place. With `generator` and a bf16 table the one
-    cast back to storage rounds stochastically; untouched rows stay exact."""
-    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    cast back to storage rounds stochastically; untouched rows stay exact.
+    `dense_grad(data, rows, g, grad_dtype)` realizes the `(V, D)` f32
+    gradient (every body takes it: `_dense_grad`, or
+    `run_scatter_dense_grad` where the bits must not vary)."""
+    grad = _clip_rows(dense_grad(data, rows, g, grad_dtype), clipnorm)
     new = data.float() - lr * grad
     if weight_decay == 0.0:
         # Untouched rows: grad = 0 gives new == data, and SR is exact on
@@ -153,11 +177,11 @@ def sgd_dense_body(data, rows, g, lr, weight_decay: float = 0.0,
 def adagrad_dense_body(data, accum, rows, g, lr, eps,
                        weight_decay: float = 0.0,
                        clipnorm: Optional[float] = None, generator=None,
-                       grad_dtype=None):
+                       grad_dtype=None, dense_grad=_dense_grad):
     """Row-wise AdaGrad through the dense gradient, in place: returns
     `(data, accum)`. Untouched rows are exact fixed points, at eps = 0 too
     (the 1e-30 clamp keeps rsqrt finite)."""
-    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    grad = _clip_rows(dense_grad(data, rows, g, grad_dtype), clipnorm)
     accum.add_(torch.mean(grad * grad, dim=-1))
     denom = torch.rsqrt(torch.clamp_min(accum + eps, 1e-30))
     step = lr * grad * denom[:, None]
@@ -176,12 +200,12 @@ def adagrad_dense_body(data, accum, rows, g, lr, eps,
 def adam_dense_body(data, m, v, t, rows, g, lr, b1, b2, eps,
                     weight_decay: float = 0.0,
                     clipnorm: Optional[float] = None, generator=None,
-                    grad_dtype=None):
+                    grad_dtype=None, dense_grad=_dense_grad):
     """Lazy Adam through the dense gradient, in place: returns
     `(data, m, v)`. `t` is the global step (an int or a 0-d tensor). Touched
     rows advance their moments and take a step; untouched rows are exact
     fixed points. `weight_decay` is decoupled (AdamW-style) and lazy."""
-    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    grad = _clip_rows(dense_grad(data, rows, g, grad_dtype), clipnorm)
     touched = _touched(grad)[:, None]
     m.copy_(torch.where(touched, b1 * m + (1 - b1) * grad, m))
     v.copy_(torch.where(touched, b2 * v + (1 - b2) * grad * grad, v))
@@ -213,7 +237,7 @@ def ftrl_init_arrays(data, alpha, beta, l1, l2, initial_accum):
 
 def ftrl_dense_body(data, z, n, rows, g, alpha, beta, l1, l2,
                     clipnorm: Optional[float] = None, generator=None,
-                    grad_dtype=None):
+                    grad_dtype=None, dense_grad=_dense_grad):
     """FTRL-Proximal through the dense gradient, in place: returns
     `(data, z, n)`. Per touched row, per coordinate:
 
@@ -224,7 +248,7 @@ def ftrl_dense_body(data, z, n, rows, g, alpha, beta, l1, l2,
 
     Untouched rows are exact fixed points; `l1` gives exact zeros. On bf16
     tables the recomputed weights of a touched row re-round."""
-    grad = _clip_rows(_dense_grad(data, rows, g, grad_dtype), clipnorm)
+    grad = _clip_rows(dense_grad(data, rows, g, grad_dtype), clipnorm)
     touched = _touched(grad)[:, None]
     w = data.float()
     new_n = n + grad * grad

@@ -20,7 +20,8 @@ from ..models.dlrm import RowState, _param_list, with_dense_tx
 from ..ops.ensemble import StackedTables
 from ..optim import SparseSGD, check_dense_tx
 from .dlrm import (_check_sharded_opt, _copy_layers, _lookup_gather,
-                   batch_shardings, gather_train_step)  # noqa: F401
+                   batch_shardings, gather_train_step,
+                   owned_updates)  # noqa: F401
 from .sharded import ShardedStackedTables, shard_row_accum, unshard_row_state
 
 
@@ -86,7 +87,8 @@ def make_sharded_dcn_train_step(cfg: DCNConfig, mesh, axis="data",
         lookups=lambda m, c: [_lookup_gather(mesh, m.tables, cfg, c)],
         forward=lambda m, d, acts: forward_from_embeddings(
             m.cross, m.deep, m.head, cfg, d, acts[0]),
-        stacks=lambda m, deltas: [("tables", "emb_state", deltas[0])],
+        update=owned_updates(cfg, sparse_opt, lambda m, deltas: [
+            ("tables", "emb_state", deltas[0])]),
         entry="train_dcn", init_name="shard_dcn")
 
 

@@ -23,7 +23,8 @@ from ..models.dlrm import RowState, _param_list, with_dense_tx
 from ..ops.ensemble import StackedTables
 from ..optim import SparseSGD, check_dense_tx
 from .dlrm import (_check_sharded_opt, _copy_layers, _lookup_gather,
-                   batch_shardings, gather_train_step)  # noqa: F401
+                   batch_shardings, gather_train_step,
+                   owned_updates)  # noqa: F401
 from .sharded import ShardedStackedTables, shard_row_accum, unshard_row_state
 
 
@@ -125,7 +126,8 @@ def make_sharded_deepfm_train_step(cfg: DeepFMConfig, mesh, axis="data",
         cfg, sparse_opt, dense_lr, dense_tx, microbatch,
         lookups=lambda m, c: _lookups(mesh, cfg, m, c),
         forward=lambda m, d, acts: _forward(cfg, m, d, acts),
-        stacks=stacks, entry="train_deepfm", init_name="shard_deepfm")
+        update=owned_updates(cfg, sparse_opt, stacks), entry="train_deepfm",
+        init_name="shard_deepfm")
 
 
 def make_sharded_deepfm_eval_step(cfg: DeepFMConfig, mesh, axis="data"):

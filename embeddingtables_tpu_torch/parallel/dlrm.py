@@ -20,7 +20,8 @@
 `gather_train_step` is the gather exchange's step body; the sharded DCN
 and DeepFM steps (`parallel/dcn.py`, `parallel/deepfm.py`) run it with
 their own lookups, forward and stacks, as JAX's families share
-`_sharded_sparse_apply`.
+`_sharded_sparse_apply`, and the planned families (`parallel/planner.py`)
+with the planner's lookup and update.
 
 The steps update the model in place and return the loss (the port's
 counterpart of JAX's donated model). Every rank must call every step, eval
@@ -273,30 +274,60 @@ def _lookup_gather(mesh, st, cfg, cat):
         return e
 
 
+def tables_device(tables) -> torch.device:
+    """The device of a model's tables: a sharded stack's shard, or a
+    planned placement's (`parallel.planner.PlannedTables.device`)."""
+    data = getattr(tables, "data", None)
+    return data.device if data is not None else tables.device
+
+
+def owned_updates(cfg, sparse_opt, stacks):
+    """The gather exchange's update hook of `gather_train_step`:
+    `stacks(model, deltas)` names `[(tables attr, state attr, delta)]`, the
+    lazy update of each stack, and each stack takes one `owned_apply`, in
+    order, drawing its stochastic rounding from the one generator."""
+
+    def update(model, cat, deltas, lr, kw):
+        shifted, scale = _padded_stack_inputs(model.tables, cat, cfg.combiner,
+                                              cfg.pad_idx)
+        idx = shifted.transpose(0, 1).contiguous()
+        scale = None if scale is None else scale.transpose(0, 1).contiguous()
+        for tables_attr, state_attr, delta in stacks(model, deltas):
+            setattr(model, state_attr, owned_apply(
+                getattr(model, tables_attr), idx,
+                delta.transpose(0, 1).contiguous(), scale, sparse_opt,
+                getattr(model, state_attr), lr=lr, **kw))
+
+    return update
+
+
 def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
-                      *, lookups, forward, stacks, entry: str,
+                      *, lookups, forward, update, entry: str,
                       init_name: str):
-    """The gather exchange's train step of any sharded CTR family,
-    `step(model, dense, cat, label, lr=None, generator=None) -> loss`, in
-    place:
+    """The gather exchange's train step of any sharded or planned CTR
+    family, `step(model, dense, cat, label, lr=None, generator=None) ->
+    loss`, in place:
 
       lookups(model, cat) -> [acts]    the `(T, b, D_i)` activation sets,
                                        looked up without gradients
       forward(model, dense, acts)      the block's logits `(b,)`
-      stacks(model, deltas)            `[(tables attr, state attr, delta)]`:
-                                       the lazy update of each stack
+      update(model, cat, deltas, lr, kw)
+                                       the lazy update of the tables from
+                                       the activation sets' cotangents
+                                       (`owned_updates`, or the planner's
+                                       `planned_apply`); `kw` holds the
+                                       stochastic-rounding generator
 
     The local-mean gradients (over `microbatch=k` slices of the block when
     k > 1) become the global mean's (`_global_mean`); the deltas are
-    divided by the data-axis size (and by the bag for an unpadded mean) and
-    each stack takes one `owned_apply`, in order, drawing its stochastic
-    rounding from the one `generator`; the towers then step."""
+    divided by the data-axis size (and by the bag for an unpadded mean)
+    before the update; the towers then step."""
     k = microbatch_slices(microbatch)
 
     def step(model, dense, cat, label, lr=None, generator=None):
         kw = step_generator(sparse_opt, generator, entry)
         require_dense_state(model, dense_tx, init_name)
-        device = model.tables.data.device
+        device = tables_device(model.tables)
         dense = torch.as_tensor(dense).to(device)
         cat = torch.as_tensor(cat).to(device)
         label = torch.as_tensor(label).to(device)
@@ -316,15 +347,7 @@ def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
         deltas = [d.float() / ex.n_data for d in deltas]
         if cfg.pad_idx is None and cfg.combiner == "mean" and cat.dim() == 3:
             deltas = [d / cat.shape[2] for d in deltas]
-        shifted, scale = _padded_stack_inputs(model.tables, cat, cfg.combiner,
-                                              cfg.pad_idx)
-        idx = shifted.transpose(0, 1).contiguous()
-        scale = None if scale is None else scale.transpose(0, 1).contiguous()
-        for tables_attr, state_attr, delta in stacks(model, deltas):
-            setattr(model, state_attr, owned_apply(
-                getattr(model, tables_attr), idx,
-                delta.transpose(0, 1).contiguous(), scale, sparse_opt,
-                getattr(model, state_attr), lr=lr, **kw))
+        update(model, cat, deltas, lr, kw)
         apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
                        dense_lr)
         return loss
@@ -373,7 +396,8 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
             lookups=lambda m, c: [_lookup_gather(mesh, m.tables, cfg, c)],
             forward=lambda m, d, acts: forward_from_embeddings(
                 m.bottom, m.top, cfg, d, acts[0]),
-            stacks=lambda m, deltas: [("tables", "emb_state", deltas[0])],
+            update=owned_updates(cfg, sparse_opt, lambda m, deltas: [
+                ("tables", "emb_state", deltas[0])]),
             entry="train_dlrm", init_name="init_sharded_dlrm")
 
     def step_a2a(model, dense, cat, label, lr=None, generator=None):

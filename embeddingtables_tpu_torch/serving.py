@@ -11,9 +11,9 @@ of `embeddingtables_tpu/serving.py`).
     from a CTR model, or its int8 / int4 quantized tables (`quant.py`), to a
     `MicroBatcher`; `make_retrieval_service` serves a two-tower model's
     top-k retrieval the same way. With `mesh=` each serves a sharded model
-    (the CTR families) or a sharded index (retrieval) from every rank of
-    the mesh: rank 0 batches and broadcasts, the other ranks follow
-    (`MeshFollower`).
+    (the CTR families; the DLRM and DCN also a planned one) or a sharded
+    index (retrieval) from every rank of the mesh: rank 0 batches and
+    broadcasts, the other ranks follow (`MeshFollower`).
   - `make_refreshable_service` (any CTR family) and
     `make_refreshable_dlrm_service`: a service whose tables (or whole model)
     can be swapped while it serves, for a replica that follows a trainer's
@@ -235,24 +235,34 @@ def _scoring_service(model, make_eval_step, quantize, sharded, *,
     `torch.inference_mode()`, or with `quantized=True` the eval function of
     `quantize(model, bits=quantize_bits)`) and copied back as numpy float32.
     Nothing synchronises explicitly: the copy back is where the worker waits
-    for the batch. With a `mesh`, the family's sharded model (`sharded()`:
-    its class and sharded eval-step factory) behind `_mesh_service`; JAX's
-    own error on a quantized mesh service comes first."""
+    for the batch. With a `mesh`, the family's sharded or planned model
+    (`sharded()`: the sharded class and eval-step factory, then the planned
+    ones, or None where the family has no planned service) behind
+    `_mesh_service`; JAX's own error on a quantized mesh service comes
+    first."""
     if mesh is not None:
         if quantized:
             raise NotImplementedError(
                 "quantized serving is single-chip; unshard the model first")
-        from .parallel.dlrm import sharded_logits
-        cls, make_sharded_eval = sharded()
-        if not isinstance(model, cls):
+        from .parallel.dlrm import sharded_logits, tables_device
+        cls, make_sharded_eval, planned_cls, make_planned_eval = sharded()
+        if isinstance(model, cls):
+            step = make_sharded_eval(model.config, mesh, axis)
+        elif planned_cls is not None and isinstance(model, planned_cls):
+            step = make_planned_eval(model.config, mesh)
+        elif planned_cls is None:
             raise NotImplementedError(
                 f"{entry}(mesh=...) serves a {cls.__name__} (parallel."
                 f"shard_*), got a {type(model).__name__}; a model placed by "
-                "the planner waits for the planner (ROADMAP.md queue 1, "
-                "item I-3)")
-        step = make_sharded_eval(model.config, mesh, axis)
+                "the planner (item I-3) has no mesh service here, as JAX's "
+                "has none (ROADMAP.md queue 3)")
+        else:
+            raise NotImplementedError(
+                f"{entry}(mesh=...) serves a {cls.__name__} (parallel."
+                f"shard_*) or a {planned_cls.__name__} (the planner, "
+                f"ROADMAP.md item I-3), got a {type(model).__name__}")
         return _mesh_service(
-            model.tables.data.device, model.tables.exchange.n,
+            tables_device(model.tables), model.tables.exchange.n,
             lambda dense, cat: sharded_logits(model, dense, cat, step),
             max_batch=max_batch, max_latency_ms=max_latency_ms)
     device = model.tables.data.device
@@ -360,13 +370,19 @@ def _mesh_service(device, pad_to: int, score, *, max_batch: int,
                         max_latency_ms=max_latency_ms)
 
 
-def _sharded(module: str, cls: str, eval_step: str):
-    """`() -> (sharded model class, sharded eval-step factory)` of
-    `parallel.<module>`, imported when a mesh asks for them."""
+def _sharded(module: str, cls: str, eval_step: str, planned=None):
+    """`() -> (sharded model class, sharded eval-step factory, planned model
+    class, planned eval-step factory)` of `parallel.<module>` and
+    `parallel.planner` (`planned`: the planned names, or None), imported
+    when a mesh asks for them."""
     def get():
         import importlib
         m = importlib.import_module(f"{__package__}.parallel.{module}")
-        return getattr(m, cls), getattr(m, eval_step)
+        if planned is None:
+            return getattr(m, cls), getattr(m, eval_step), None, None
+        p = importlib.import_module(f"{__package__}.parallel.planner")
+        return (getattr(m, cls), getattr(m, eval_step),
+                getattr(p, planned[0]), getattr(p, planned[1]))
     return get
 
 
@@ -379,16 +395,18 @@ def make_dlrm_service(model, *, quantized: bool = False,
     (`quantize_bits=8`) or int4 rows (`quant.quantize_dlrm`). Returns a
     running `MicroBatcher`; use `.predict`/`.submit`, `.stop()` when done.
 
-    With `mesh` (a `parallel.dlrm.ShardedDLRM` placed on it over `axis`)
-    every rank of the group calls this: rank 0 gets the running
-    `MicroBatcher`, whose batches every rank scores through the sharded
-    eval step; the other ranks follow until rank 0's `stop()` and then
-    return a `MeshFollower`. `quantized` serving is single-device, as in
-    JAX, and a planned model waits for the planner; `axis` is ignored
+    With `mesh` (a `parallel.dlrm.ShardedDLRM` placed on it over `axis`,
+    or a `parallel.planner.PlannedDLRM` on its plan) every rank of the
+    group calls this: rank 0 gets the running `MicroBatcher`, whose batches
+    every rank scores through the sharded or planned eval step; the other
+    ranks follow until rank 0's `stop()` and then return a `MeshFollower`.
+    `quantized` serving is single-device, as in JAX; `axis` is ignored
     without a mesh."""
     return _scoring_service(model, dlrm.make_eval_step, quant.quantize_dlrm,
                             _sharded("dlrm", "ShardedDLRM",
-                                     "make_sharded_eval_step"), quantized=quantized,
+                                     "make_sharded_eval_step",
+                                     ("PlannedDLRM", "make_planned_eval_step")),
+                            quantized=quantized,
                             quantize_bits=quantize_bits, mesh=mesh, axis=axis,
                             entry="make_dlrm_service", max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
@@ -400,10 +418,13 @@ def make_dcn_service(model, *, quantized: bool = False,
                      max_latency_ms: float = 5.0) -> MicroBatcher:
     """Batched DCN-v2 scoring service, `make_dlrm_service`'s contract for a
     `models.dcn.DCN` (`quant.quantize_dcn`), or with `mesh` a
-    `parallel.dcn.ShardedDCN`."""
+    `parallel.dcn.ShardedDCN` or a `parallel.planner.PlannedDCN`."""
     return _scoring_service(model, dcn.make_eval_step, quant.quantize_dcn,
                             _sharded("dcn", "ShardedDCN",
-                                     "make_sharded_dcn_eval_step"), quantized=quantized,
+                                     "make_sharded_dcn_eval_step",
+                                     ("PlannedDCN",
+                                      "make_planned_dcn_eval_step")),
+                            quantized=quantized,
                             quantize_bits=quantize_bits, mesh=mesh, axis=axis,
                             entry="make_dcn_service", max_batch=max_batch,
                             max_latency_ms=max_latency_ms)
@@ -417,7 +438,9 @@ def make_deepfm_service(model, *, quantized: bool = False,
     `make_dlrm_service`'s contract for a `models.deepfm.DeepFM`
     (`quant.quantize_deepfm`: the folded stack quantizes its fused rows,
     so `quantize_bits=4` raises there; the unfolded first-order stack stays
-    in its storage dtype), or with `mesh` a `parallel.deepfm.ShardedDeepFM`."""
+    in its storage dtype), or with `mesh` a `parallel.deepfm.ShardedDeepFM`;
+    a `PlannedDeepFM` is refused, as JAX's service has no planned branch
+    (ROADMAP.md queue 3)."""
     return _scoring_service(model, deepfm.make_eval_step,
                             quant.quantize_deepfm,
                             _sharded("deepfm", "ShardedDeepFM",

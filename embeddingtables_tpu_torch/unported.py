@@ -3,8 +3,9 @@ every training loop, train step and service.
 
 Each loop and service accepts every parameter of its JAX counterpart. An
 option of `UNPORTED` at one of its off values does nothing; any other value
-raises `NotImplementedError` naming what it waits for. Only the planner
-(`plan`) waits now. Options that JAX reads only together with another one
+raises `NotImplementedError` naming what it waits for. Only the planner's
+two-tower model waits now: `train_two_tower` refuses a `plan` (the CTR loops
+take one). Options that JAX reads only together with another one
 are accepted and ignored as JAX ignores them, since the one that gives them
 a meaning is unset:
 
@@ -18,21 +19,22 @@ a meaning is unset:
 Every other option is ported and read, beside a `mesh` too: the loops'
 eviction, checkpoints, guard, delta checkpoints and `device_prefetch`, the
 CTR loops' and train steps' `dense_tx` and `microbatch`, the services'
-`quantized`, and every family's `mesh` (with `axis`; `train_dlrm` and
+`quantized`, every family's `mesh` (with `axis`; `train_dlrm` and
 `make_dlrm_service` also with `exchange`, `capacity_factor`,
-`auto_capacity`, `wire_dtype`).
+`auto_capacity`, `wire_dtype`), and the CTR loops' `plan` with a `mesh`.
 
 Where JAX raises on a combination, the callers raise the same exception
 class first (`plan` without `mesh`, `wire_dtype` without an `a2a` mesh,
 `delta_ckpt` without `delta_every`: `ValueError`; `plan` with another
-exchange than "gather", a quantized service on a `mesh`, and `microbatch`
-with the `a2a` exchange: `NotImplementedError`).
+exchange than "gather", `delta_ckpt` with a `plan`, a quantized service on a
+`mesh`, and `microbatch` with the `a2a` exchange: `NotImplementedError`).
 """
 from __future__ import annotations
 
 # option: (the values at which it is off, what it waits for)
 UNPORTED = {
-    "plan": ((None,), "the planner (ROADMAP.md queue 1, item I-3)"),
+    "plan": ((None,), "the planner's two-tower model (ROADMAP.md queue 1, "
+                      "item I-3b)"),
 }
 
 
@@ -68,3 +70,7 @@ def check_jax_combinations(*, mesh=None, plan=None, delta_ckpt=None,
         raise ValueError("plan= requires mesh=")
     if delta_ckpt is not None and not delta_every:
         raise ValueError("delta_ckpt requires delta_every > 0")
+    if delta_ckpt is not None and plan is not None:
+        raise NotImplementedError(
+            "delta checkpointing covers single-chip and uniform sharded "
+            "placements (a planner placement has no single global row space)")

@@ -791,3 +791,406 @@ def families_where_they_lie(ctx):
     finally:
         svc.stop()
     return seen
+
+
+# ---------------------------------------------------------------------------
+# Column sharding and the planner
+# ---------------------------------------------------------------------------
+
+def _ct(ctx, table):
+    from embeddingtables_tpu_torch.ops.ensemble import StackedTables
+    from embeddingtables_tpu_torch.parallel import ColShardedStackedTables
+    if isinstance(table, tuple):                   # (data, offsets)
+        data, offsets = table
+        table = StackedTables(_t(data), offsets, data.shape[1])
+    elif isinstance(table, list):
+        table = [_t(t) for t in table]
+    else:
+        table = _t(table)
+    return ColShardedStackedTables.shard(ctx.mesh1, "data", table)
+
+
+def col_layout(ctx, table):
+    """This rank's slice, the unsharded table and each member table."""
+    ct = _ct(ctx, table)
+    return {"slice": _np(ct.data), "full": _np(ct.unshard()),
+            "tables": [_np(ct.table(t)) for t in range(ct.ntables)]}
+
+
+def col_lookup(ctx, table, idx, kw, batch_sharded=True):
+    """`col_sharded_lookup` of this rank's block of `idx` (of the whole
+    `idx` when not `batch_sharded`): this rank's rows."""
+    from embeddingtables_tpu_torch.parallel import col_sharded_lookup
+    ct = _ct(ctx, table)
+    kw = dict(kw)
+    if batch_sharded:
+        if kw.get("weights") is not None:
+            kw["weights"] = _t(_block(ctx, "data", kw["weights"]))
+        idx = _block(ctx, "data", idx)
+    elif kw.get("weights") is not None:
+        kw["weights"] = _t(kw["weights"])
+    return _np(col_sharded_lookup(ctx.mesh1, ct, _t(idx),
+                                  batch_sharded=batch_sharded, **kw))
+
+
+def _col_state_out(ct, state):
+    """A col group's state as whole arrays: AdaGrad's accumulator as it is,
+    Adam's and FTRL's slices unsliced to `(V, dim)`, Adam's count."""
+    import torch
+    from embeddingtables_tpu_torch.parallel.colshard import col_unslice
+    if state is None:
+        return []
+    if torch.is_tensor(state):
+        return [_np(state).copy()]
+    return [_np(col_unslice(ct.exchange.gather_flat(x), ct.dim))
+            if x.dim() == 2 else _np(x).copy() for x in state]
+
+
+def col_update(ctx, table, upds, opt, sr_seed=None, bf16=False):
+    """`col_sharded_update` of this rank's block of each update of `upds`
+    (`dict(delta=, indices=, weights=)`), from `init_col_row_state`: the
+    unsharded table and state after each step. `sr_seed`: each rank's
+    generator seeded with `sr_seed + rank`; `bf16`: a bfloat16 table."""
+    import torch
+    from embeddingtables_tpu_torch.ops.sparse_update import \
+        SparseEmbeddingUpdate
+    from embeddingtables_tpu_torch.parallel import (col_sharded_update,
+                                                    init_col_row_state)
+    from embeddingtables_tpu_torch.optim import SparseSGD
+    ct = _ct(ctx, table)
+    if bf16:
+        ct.data = ct.data.to(torch.bfloat16)
+    state = init_col_row_state(ctx.mesh1, ct, opt)
+    kw = {}
+    if sr_seed is not None:
+        kw["generator"] = torch.Generator().manual_seed(sr_seed + ctx.rank)
+    out = []
+    for u in upds:
+        upd = SparseEmbeddingUpdate(
+            delta=_t(_block(ctx, "data", u["delta"])),
+            indices=_t(_block(ctx, "data", u["indices"])),
+            weights=None if u.get("weights") is None
+            else _t(_block(ctx, "data", u["weights"])))
+        if isinstance(opt, SparseSGD):
+            col_sharded_update(ctx.mesh1, ct, upd, opt, **kw)
+        else:
+            _, state = col_sharded_update(ctx.mesh1, ct, upd, opt, state,
+                                          **kw)
+        out.append({"table": _np(ct.unshard()),
+                    "state": _col_state_out(ct, state)})
+    return out
+
+
+def col_guards(ctx, table):
+    """The errors `col_sharded_update` raises before any exchange."""
+    from embeddingtables_tpu_torch.ops.sparse_update import \
+        SparseEmbeddingUpdate
+    from embeddingtables_tpu_torch.optim import (SparseFTRL,
+                                                 SparseRowWiseAdaGrad,
+                                                 SparseSGD)
+    from embeddingtables_tpu_torch.parallel import (col_sharded_lookup,
+                                                    col_sharded_update)
+    import torch
+    ct = _ct(ctx, table)
+    upd = SparseEmbeddingUpdate(delta=torch.zeros(2, ct.dim),
+                                indices=torch.zeros(2, dtype=torch.int32))
+    calls = [
+        lambda: col_sharded_update(ctx.mesh1, ct, upd, SparseSGD(
+            stochastic_rounding=True)),
+        lambda: col_sharded_update(ctx.mesh1, ct, upd, SparseSGD(),
+                                   torch.zeros(3)),
+        lambda: col_sharded_update(ctx.mesh1, ct, upd,
+                                   SparseRowWiseAdaGrad()),
+        lambda: col_sharded_update(ctx.mesh1, ct, upd, SparseFTRL(),
+                                   (torch.zeros(1), torch.zeros(1)), lr=0.5),
+        lambda: col_sharded_update(ctx.mesh1, ct, upd, object()),
+        lambda: col_sharded_lookup(ctx.mesh1, ct, torch.zeros(
+            (2, 3), dtype=torch.int32), reducing=False, combiner="mean"),
+    ]
+    out = []
+    for call in calls:
+        try:
+            call()
+            out.append(None)
+        except Exception as e:  # noqa: BLE001
+            out.append(type(e).__name__)
+    return out
+
+
+def _plan_of(ctx, axis, vocabs, dim, plan_kw):
+    from embeddingtables_tpu_torch.parallel import plan_sharding
+    return plan_sharding(list(vocabs), dim, ctx.mesh(axis), axis,
+                         **(plan_kw or {}))
+
+
+def planned_dense(pt):
+    """A `PlannedTables` as one single-device model's would be: the stacked
+    table in the plan's table order, the row state's vocab-leading leaves
+    stacked the same way, and the groups' Adam counts (collectives)."""
+    import torch
+    from embeddingtables_tpu_torch.parallel.colshard import col_unslice
+    from embeddingtables_tpu_torch.parallel.sharded import unshard_row_state
+    per = [[] for _ in range(pt.ntables)]
+    counts = []
+
+    def split(leaves, table_ids, offs):
+        for j, t in enumerate(table_ids):
+            per[t] = [x[offs[j]:offs[j + 1]] for x in leaves]
+
+    def leaves(state, v):
+        out = []
+        for x in state:
+            if x.dim() == 0:
+                counts.append(int(x))
+            elif x.shape[0] == v and v:
+                out.append(x)
+        return out
+
+    if pt.repl_tables:
+        split(leaves(pt.repl_state, pt.repl.shape[0]), pt.repl_tables,
+              pt.repl_offsets)
+    if pt.shard_tables:
+        st = pt.shard_state
+        full = (unshard_row_state(pt.shard, st) if st[0].numel() else st)
+        split(leaves(full, pt.shard.vocab), pt.shard_tables,
+              pt.shard.offsets)
+    if pt.col_tables:
+        ct = pt.col
+        full = [col_unslice(ct.exchange.gather_flat(x), ct.dim)
+                if x.dim() == 2 else x for x in pt.col_state]
+        split(leaves(full, ct.vocab), pt.col_tables, ct.offsets)
+    nleaves = len(per[0])
+    state = [_np(torch.cat([per[t][i] for t in range(pt.ntables)]))
+             for i in range(nleaves)]
+    return {"tables": _np(torch.cat(pt.tables())), "state": state,
+            "counts": counts}
+
+
+def _repl_bits(pt):
+    """The replicated group's table and state as raw bytes."""
+    return [_np(pt.repl).tobytes()] + [
+        x.detach().cpu().numpy().tobytes() for x in pt.repl_state]
+
+
+def planner_plans(ctx, axis, cases):
+    """`plan_sharding(vocabs, dim, mesh, axis, **kw)` of each case on the
+    rank's real mesh: each plan's fields."""
+    import dataclasses
+    out = []
+    for vocabs, dim, kw in cases:
+        p = _plan_of(ctx, axis, vocabs, dim, kw)
+        out.append([dataclasses.asdict(d) for d in p.decisions]
+                   + [p.n_devices, p.opt_state_bytes_per_device,
+                      p.summary()])
+    return out
+
+
+def planner_ops(ctx, axis, vocabs, dim, plan_kw, tables, accums, opt, steps,
+                kw, sr_seed=None, bf16=False):
+    """`PlannedTables.from_tables` (then `planned_row_state` for `opt`),
+    and for each `(cat, delta_t)` global step: `planned_lookup` of this
+    rank's block (gathered over the data axis) and `planned_apply`. The
+    lookups, the dense planned tables and state after each step, and the
+    replicated group's bytes after each step. `bf16`: the tables stored
+    as bfloat16."""
+    import torch
+    from embeddingtables_tpu_torch.parallel import (PlannedTables,
+                                                    planned_apply,
+                                                    planned_lookup,
+                                                    planned_row_state)
+    mesh = ctx.mesh(axis)
+    plan = _plan_of(ctx, axis, vocabs, dim, plan_kw)
+    pt = PlannedTables.from_tables(plan, mesh, [
+        _t(t).to(torch.bfloat16 if bf16 else torch.float32) for t in tables],
+                                   accums=None if accums is None
+                                   else [_t(a) for a in accums])
+    if accums is None:
+        pt.set_row_state(*planned_row_state(mesh, pt, opt))
+    ex = pt.exchange
+    gen = (None if sr_seed is None
+           else torch.Generator().manual_seed(sr_seed + ctx.rank))
+    out = []
+    for cat, delta_t in steps:
+        c = _t(_block(ctx, axis, cat, 1))
+        e = planned_lookup(mesh, pt, c, **kw)
+        got = ex.gather_batch(e.transpose(0, 1).contiguous()).transpose(0, 1)
+        planned_apply(mesh, pt, c, _t(_block(ctx, axis, delta_t, 1)), opt,
+                      generator=gen, **kw)
+        out.append({"lookup": _np(got), **planned_dense(pt),
+                    "bits": _repl_bits(pt)})
+    return out
+
+
+def planned_evict(ctx, vocabs, dim, plan_kw, tables, opt, cold, state=None):
+    """`evict_rows_planned` of per-table `cold` rows from the tables placed
+    with `opt`'s state (carried from a single-device `state`, a list of
+    stacked leaves, when given): the dense planned tables and state."""
+    from embeddingtables_tpu_torch.ops.ensemble import StackedTables
+    from embeddingtables_tpu_torch.parallel import (evict_rows_planned,
+                                                    place_stacked_on_plan)
+    plan = _plan_of(ctx, "data", vocabs, dim, plan_kw)
+    st = StackedTables.stack([_t(t) for t in tables])
+    emb = None
+    if state is not None:
+        import torch
+        emb = type(opt.init(st.data))(*[torch.as_tensor(x) for x in state])
+    pt = place_stacked_on_plan(plan, ctx.mesh1, st, emb, opt)
+    evict_rows_planned(pt, cold)
+    return planned_dense(pt)
+
+
+def _planned_api(family):
+    from embeddingtables_tpu_torch import parallel as P
+    return {"dlrm": (P.make_planned_train_step, P.make_planned_eval_step),
+            "dcn": (P.make_planned_dcn_train_step,
+                    P.make_planned_dcn_eval_step),
+            "deepfm": (P.make_planned_deepfm_train_step,
+                       P.make_planned_deepfm_eval_step)}[family]
+
+
+def _planned_model(ctx, axis, family, cfg, arrays, opt, plan_kw):
+    from embeddingtables_tpu_torch.parallel import plan_model
+    model = _family_model(family, cfg, arrays)
+    plan = _plan_of(ctx, axis, cfg.vocab_sizes, model.tables.dim, plan_kw)
+    return plan_model(model, plan, ctx.mesh(axis), opt)
+
+
+def planned_family_steps(ctx, axis, family, cfg, arrays, opt, plan_kw,
+                         batches, step_kw=None):
+    """The family's planned step on each global batch, each rank on its
+    block: the losses, the dense planned model, the replicated group's
+    bytes after each step, and the eval of the last batch."""
+    from embeddingtables_tpu_torch.parallel import local_batch
+    from embeddingtables_tpu_torch.parallel.dlrm import sharded_logits
+    mesh = ctx.mesh(axis)
+    pm = _planned_model(ctx, axis, family, cfg, arrays, opt, plan_kw)
+    make_step, make_eval = _planned_api(family)
+    step = make_step(cfg, mesh, sparse_opt=opt, dense_lr=0.1,
+                     **(step_kw or {}))
+    losses, bits = [], []
+    for dense, cat, label in batches:
+        d, c, l = local_batch(mesh, axis, _t(dense), _t(cat), _t(label))
+        losses.append(float(step(pm, d, c, l)))
+        bits.append(_repl_bits(pm.tables))
+    logits = None
+    if batches:
+        dense, cat, _ = batches[-1]
+        logits = _np(sharded_logits(pm, _t(dense), _t(cat),
+                                    make_eval(cfg, mesh)))
+    return {"losses": losses, "bits": bits, "logits": logits,
+            "towers": [_np(p) for _, p in pm.tower_params()],
+            **planned_dense(pm.tables)}
+
+
+def planned_loop(ctx, family, cfg, arrays, opt, plan_kw, batches, kw):
+    """`train_<family>(mesh=, plan=)` over the global batches from the
+    single-device weights `arrays`, with `kw` (`ckpt_dir` makes a
+    `CheckpointManager` there, `guard=True` a `DivergenceGuard` on it):
+    losses, AUCs, evicted rows, rollbacks and the dense planned model."""
+    from embeddingtables_tpu_torch.models import train as T
+    from embeddingtables_tpu_torch.utils import (CheckpointManager,
+                                                 DivergenceGuard)
+    kw = dict(kw)
+    guard = None
+    if kw.get("ckpt_dir") is not None:
+        kw["ckpt_manager"] = CheckpointManager(kw.pop("ckpt_dir"))
+        if kw.pop("guard", False):
+            guard = kw["guard"] = DivergenceGuard(kw["ckpt_manager"])
+    plan = _plan_of(ctx, "data", cfg.vocab_sizes,
+                    arrays["table_data"].shape[1], plan_kw)
+    res = getattr(T, f"train_{family}")(
+        cfg, iter([dict(zip(("dense", "cat", "label"), b)) for b in batches]),
+        len(batches), model=dict(arrays), mesh=ctx.mesh1, plan=plan,
+        sparse_opt=opt, device="cpu", verbose=False, **kw)
+    return {"losses": res.losses, "evals": res.aucs,
+            "evicted": res.evicted_rows,
+            "rollbacks": None if guard is None else guard.rollbacks,
+            "type": type(res.model).__name__,
+            "towers": [_np(p) for _, p in res.model.tower_params()],
+            **planned_dense(res.model.tables)}
+
+
+def planned_serve(ctx, family, cfg, arrays, plan_kw, requests):
+    """`make_<family>_service(mesh=)` of the planned model: rank 0 answers
+    `requests` and stops; the other ranks follow until then."""
+    import torch.distributed as dist
+    import embeddingtables_tpu_torch as ett
+    pm = _planned_model(ctx, "data", family, cfg, arrays, None, plan_kw)
+    svc = getattr(ett, f"make_{family}_service")(
+        pm, mesh=ctx.mesh1, max_batch=16, max_latency_ms=2.0)
+    if dist.get_rank() != 0:
+        return svc.batches
+    try:
+        return [svc.predict(d, c, timeout=60) for d, c in requests]
+    finally:
+        svc.stop()
+
+
+def planned_misc(ctx, cfgs, arrays):
+    """What the planned families refuse: a foreign model and an unfolded
+    DeepFM under `plan=`, a planned DeepFM's mesh service, a plan whose dim
+    is not the fused stack's; and a single-device model carried onto a plan
+    whose placement is its own (the names of the exceptions)."""
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch.models.train import train_dlrm
+    from embeddingtables_tpu_torch.parallel import (init_planned_deepfm,
+                                                    plan_model)
+    mesh = ctx.mesh1
+    dcfg, fcfg, ucfg = cfgs
+    plan = _plan_of(ctx, "data", dcfg.vocab_sizes, dcfg.dim,
+                    dict(col_shard=[1]))
+    out = []
+    calls = [
+        lambda: train_dlrm(dcfg, iter(()), 1, mesh=mesh, plan=plan,
+                           model=object(), verbose=False, device="cpu"),
+        lambda: plan_model(ett.init_deepfm(ucfg, device="cpu"), plan, mesh),
+        lambda: init_planned_deepfm(fcfg, plan, mesh),
+        lambda: ett.make_deepfm_service(init_planned_deepfm(
+            fcfg, _plan_of(ctx, "data", fcfg.vocab_sizes, fcfg.stack_dim,
+                           dict(col_shard=[1])), mesh), mesh=mesh),
+    ]
+    for call in calls:
+        try:
+            call()
+            out.append(None)
+        except Exception as e:  # noqa: BLE001
+            out.append(f"{type(e).__name__}: {e}")
+    return out
+
+
+def planned_where_they_lie(ctx):
+    """With no card visible: a planned DLRM and DCN on a one-rank group
+    under a hand-made three-way plan (one rank's `plan_sharding`
+    replicates everything), one step, the eval and the mesh service: the
+    device types of every result."""
+    import dataclasses
+    import torch
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import parallel as P
+    torch.cuda.is_available = lambda: False
+    mesh = ctx.mesh1
+    cfgs = {"dlrm": ett.DLRMConfig(vocab_sizes=(5, 6, 7), num_dense=2, dim=4,
+                                   bottom_mlp=(4,), top_mlp=(3, 1)),
+            "dcn": ett.DCNConfig(vocab_sizes=(5, 6, 7), num_dense=2, dim=4,
+                                 deep_mlp=(3,), cross_rank=2)}
+    plan = P.plan_sharding((5, 6, 7), 4, mesh)
+    plan = dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, placement=p) for d, p in zip(
+            plan.decisions, (P.REPLICATE, P.ROW_SHARD, P.COL_SHARD))))
+    dense, cat = torch.zeros(4, 2), torch.zeros(3, 4, dtype=torch.int32)
+    seen = []
+    for family, cfg in cfgs.items():
+        init = getattr(P, f"init_planned_{family}")
+        make_step, make_eval = _planned_api(family)
+        pm = init(cfg, plan, mesh, sparse_opt=ett.SparseRowWiseAdaGrad())
+        seen.append(pm.tables.device.type)
+        seen.append(make_step(cfg, mesh)(pm, dense, cat,
+                                         torch.ones(4)).device.type)
+        seen.append(make_eval(cfg, mesh)(pm, dense, cat).device.type)
+        svc = getattr(ett, f"make_{family}_service")(pm, mesh=mesh)
+        try:
+            seen.append(type(svc.predict(dense.numpy(), cat.numpy(),
+                                         timeout=30)).__module__)
+        finally:
+            svc.stop()
+    return seen

@@ -673,6 +673,89 @@ def test_cuda_sharded_family_step_on_one_rank_is_bitwise_the_single_step(
         assert torch.equal(a, b), name
 
 
+class _plain_planner_path:
+    """Route every kernel of a planned step to its plain version, on the
+    card: the lookups of the three groups, the run-scatter and its value
+    permute, and `hot_accumulate`."""
+
+    def __enter__(self):
+        import sys
+        names = ("gather_rows", "gather_bags", "scatter_add_rows_sorted",
+                 "hot_accumulate")
+        plain = {"gather_rows": G.gather_rows_plain,
+                 "gather_bags": G.gather_bags_plain,
+                 "scatter_add_rows_sorted": S.scatter_add_rows_sorted_plain,
+                 "hot_accumulate": H.hot_accumulate_plain}
+        self.saved = [(m, n, getattr(m, n))
+                      for k, m in list(sys.modules.items())
+                      if k.startswith("embeddingtables_tpu_torch")
+                      and m is not None
+                      for n in names if hasattr(m, n)]
+        for m, n, _ in self.saved:
+            setattr(m, n, plain[n])
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adagrad_indexer"])
+def test_cuda_planned_step_on_one_rank_matches_the_plain_planned_step(
+        one_rank_nccl_mesh, opt):
+    # A three-way plan made by hand on a one-rank NCCL group (one rank's
+    # plan_sharding replicates everything): one planned DLRM step through
+    # the kernels against the same step on the plain versions. Launches a
+    # step: a gather_rows per group's lookup, the replicated and row groups'
+    # value permutes and run-scatters; the column group (2,000 rows) sums
+    # with index_add_, whose atomics add in a varying order, so the tables
+    # are held to rtol 1e-6 (the AdaGrad epilogue's rsqrt as on the card).
+    import copy
+    import dataclasses
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch import parallel as P
+    mesh = one_rank_nccl_mesh
+    vocabs = (300, 5000, 2000)
+    cfg = ett.DLRMConfig(vocab_sizes=vocabs, num_dense=5, dim=128,
+                         bottom_mlp=(64, 128), top_mlp=(64, 1),
+                         compute_dtype=torch.float32)
+    sparse = (ett.SparseSGD(0.1) if opt == "sgd" else
+              ett.SparseRowWiseAdaGrad(0.1, method="indexer"))
+    plan = P.plan_sharding(vocabs, 128, mesh)
+    plan = dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, placement=p) for d, p in zip(
+            plan.decisions, (P.REPLICATE, P.ROW_SHARD, P.COL_SHARD))))
+    g = torch.Generator().manual_seed(4)
+    single = ett.init_dlrm(cfg, g, device="cpu", sparse_opt=sparse).to("cuda")
+    model = P.plan_model(single, plan, mesh, sparse)
+    plain = P.plan_model(copy.deepcopy(single), plan, mesh, sparse)
+    b = 512
+    batch = (torch.randn((b, 5), generator=g).cuda(),
+             torch.stack([torch.randint(0, v, (b,), generator=g,
+                                        dtype=torch.int32)
+                          for v in vocabs]).cuda(),
+             (torch.rand((b,), generator=g) < 0.5).float().cuda())
+    step = P.make_planned_train_step(cfg, mesh, sparse_opt=sparse)
+    before = (G.gather_rows.launches, S.scatter_add_rows_sorted.launches,
+              H.hot_accumulate.launches)
+    loss = step(model, *batch)
+    torch.cuda.synchronize()
+    assert (G.gather_rows.launches - before[0],
+            S.scatter_add_rows_sorted.launches - before[1],
+            H.hot_accumulate.launches - before[2]) == (5, 2, 0)
+    with _plain_planner_path():
+        loss_p = step(plain, *batch)
+    torch.cuda.synchronize()
+    assert G.gather_rows.launches - before[0] == 5
+    torch.testing.assert_close(loss, loss_p, rtol=1e-6, atol=0.0)
+    for (name, a), (_, b) in zip(model.named_buffers(),
+                                 plain.named_buffers()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=name)
+    for (name, a), (_, b) in zip(model.named_parameters(),
+                                 plain.named_parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=name)
+
+
 # ---------------------------------------------------------------------------
 # The table variants: quantized, compositional, offloaded and tiered tables
 # ---------------------------------------------------------------------------

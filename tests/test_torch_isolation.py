@@ -22,7 +22,8 @@ NEW_MODULES = ("quant", "qr", "md", "tt", "offload", "tiered",
                "io.synth", "io.criteo_file", "models.microbatch",
                "parallel", "parallel.mesh", "parallel.sharded",
                "parallel.alltoall", "parallel.dlrm", "parallel.dcn",
-               "parallel.deepfm", "parallel.two_tower", "compat", "nn")
+               "parallel.deepfm", "parallel.two_tower", "parallel.colshard",
+               "parallel.planner", "compat", "nn")
 ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 
 
@@ -260,3 +261,16 @@ def test_every_family_on_a_mesh_runs_where_its_model_lies(tmp_path):
     finally:
         pool.close()
     assert seen == ["cpu", "cpu", "numpy"] * 3 + ["cpu"] * 3 + ["numpy"]
+
+
+def test_a_planned_model_runs_where_its_tables_lie(tmp_path):
+    # A one-rank gloo group with no card visible: a planned DLRM and DCN
+    # (replicated, row- and column-sharded tables) make their tables, step,
+    # evaluate and serve on the CPU and ask for no card.
+    from _torch_mesh import MeshPool
+    pool = MeshPool(1, str(tmp_path))
+    try:
+        seen, = pool.run("planned_where_they_lie")
+    finally:
+        pool.close()
+    assert seen == ["cpu", "cpu", "cpu", "numpy"] * 2

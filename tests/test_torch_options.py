@@ -166,6 +166,9 @@ def test_planner_with_another_exchange_raises_as_jax_does():
         _run_ctr("dlrm", plan=object(), mesh=object(), exchange="a2a")
 
 
+CTR_LOOPS = ("train_dlrm", "train_dcn", "train_deepfm")
+
+
 @pytest.mark.parametrize("entry,kw", [
     ("train_dlrm", dict(mesh=object(), ckpt_manager=object(), plan=object())),
     ("train_dcn", dict(mesh=object(), plan=object())),
@@ -175,11 +178,11 @@ def test_planner_with_another_exchange_raises_as_jax_does():
     ("make_retrieval_service", dict(mesh=object())),
 ])
 def test_an_unported_value_raises_not_implemented(entry, kw):
-    """The planner is the one unported option: a `plan` is refused by name
-    before anything touches the (here fake) mesh, and a mesh service of a
-    model no sharded placement made waits for the planner too. A mesh
-    alone is ported: the retrieval service takes the single-device model
-    and reaches the fake mesh."""
+    """The planner's two-tower model is the one unported option: its `plan`
+    is refused by name before anything touches the (here fake) mesh, and
+    a mesh service of a model no sharded placement made names the planner
+    (item I-3). The CTR loops take a plan: they reach the fake mesh, as the
+    retrieval service, which takes the single-device model, does."""
     name = "plan" if "plan" in kw else "mesh"
 
     def call():
@@ -192,7 +195,7 @@ def test_an_unported_value_raises_not_implemented(entry, kw):
             family = entry[len("make_"):-len("_service")]
             getattr(ett, entry)(_service_model(family), **kw)
 
-    if entry == "make_retrieval_service":
+    if entry == "make_retrieval_service" or entry in CTR_LOOPS:
         with pytest.raises(AttributeError):
             call()
         return
@@ -214,13 +217,19 @@ def test_an_unknown_name_raises_type_error():
     dict(delta_ckpt=object(), delta_every=1), dict(evict_every=2),
 ], ids=["ckpt_manager", "guard", "delta_ckpt", "evict_every"])
 def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
-    # Sharded persistence and eviction (item I-2b) are ported: beside a
-    # (here fake) mesh the option is accepted and the loop reaches the mesh;
-    # only the planner (item I-3) is refused, before it touches the mesh.
+    # Sharded persistence and eviction (item I-2b) are ported, and the
+    # planner for the CTR loops (items I-2c and I-3a): beside a (here fake)
+    # mesh, with or without a plan, the option is accepted and the loop
+    # reaches the mesh; only delta checkpoints under a plan raise JAX's
+    # NotImplementedError, before anything touches the mesh.
     with pytest.raises(AttributeError):
         _run_ctr("dlrm", mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match=r"plan=.*item I-3"):
-        _run_ctr("dlrm", mesh=object(), plan=object(), **kw)
+    if "delta_ckpt" in kw:
+        with pytest.raises(NotImplementedError, match="delta checkpointing"):
+            _run_ctr("dlrm", mesh=object(), plan=object(), **kw)
+    else:
+        with pytest.raises(AttributeError):
+            _run_ctr("dlrm", mesh=object(), plan=object(), **kw)
 
 
 @pytest.mark.parametrize("entry", ["train_dcn", "train_deepfm",
@@ -230,8 +239,10 @@ def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
 def test_the_other_families_mesh_waits_for_item_i2(entry):
     # Every family's mesh is ported (item I-2a): the loops and the
     # retrieval service reach the (here fake) mesh; a CTR mesh service
-    # takes the family's sharded model and names the planner (item I-3)
-    # for any other; a loop's plan is refused by name.
+    # takes the family's sharded model (or the DLRM's and DCN's planned
+    # one) and names the planner (item I-3) for any other; the CTR loops
+    # take a plan and reach the mesh, and the two-tower loop's plan is
+    # refused by name (item I-3b).
     if entry.startswith("make_"):
         family = entry[len("make_"):-len("_service")]
         if family == "retrieval":
@@ -244,7 +255,8 @@ def test_the_other_families_mesh_waits_for_item_i2(entry):
         return
     for kw, err in ((dict(mesh=object()), AttributeError),
                     (dict(mesh=object(), plan=object()),
-                     NotImplementedError)):
+                     NotImplementedError if entry == "train_two_tower"
+                     else AttributeError)):
         with pytest.raises(err):
             if entry == "train_two_tower":
                 port_train.train_two_tower(_two_tower_cfg(), _tt_batches(),
@@ -257,8 +269,10 @@ def test_the_unported_table_names_each_option_and_its_item():
     from embeddingtables_tpu_torch.unported import UNPORTED
     items = {name: what.split("item ")[-1].rstrip(")")
              for name, (_, what) in UNPORTED.items()}
-    assert items == {"plan": "I-3"}
+    assert items == {"plan": "I-3b"}
     assert {name: off for name, (off, _) in UNPORTED.items()} == {
         "plan": (None,)}
-    with pytest.raises(NotImplementedError, match="I-3"):
-        _run_ctr("dlrm", mesh=object(), plan=object())
+    with pytest.raises(NotImplementedError, match="I-3b"):
+        port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                   device="cpu", mesh=object(),
+                                   plan=object())

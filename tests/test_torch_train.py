@@ -337,9 +337,10 @@ def test_train_dlrm_with_stochastic_rounding_on_bf16_tables():
                                   "device_prefetch", "microbatch",
                                   "dense_tx"])
 def test_train_dlrm_options_not_ported_raise(name):
-    # Every option is ported beside a mesh now but the planner (item I-3):
-    # each comes with a mesh and a plan, and only the plan is refused, by
-    # name, before anything touches the (here fake) mesh.
+    # Every option is ported beside a mesh now, the planner too (items
+    # I-2c, I-3a): each comes with a (here fake) mesh and a plan and the
+    # loop reaches the mesh, but delta checkpoints under a plan raise JAX's
+    # NotImplementedError before anything touches the mesh.
     value = {"exchange": "a2a", "evict_every": 10, "device_prefetch": 2,
              "microbatch": 2, "dense_tx": ADAM}.get(name, object())
     kw = {"mesh": object(), "plan": object()}
@@ -352,15 +353,14 @@ def test_train_dlrm_options_not_ported_raise(name):
                        **{**kw, "plan": object()}, exchange=value)
     kw[name] = value
     cfg = ett.DLRMConfig(**SMALL)
-    if kw["plan"] is None:
+    if name == "delta_ckpt":
+        with pytest.raises(NotImplementedError,
+                           match="delta checkpointing") as err:
+            train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
+        assert "planner" in str(err.value)
+    else:
         with pytest.raises(AttributeError):      # reaches the fake mesh
             train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
-    else:
-        with pytest.raises(NotImplementedError, match="plan=") as err:
-            train_dlrm(cfg, iter(()), 1, device="cpu", **kw)
-        assert "I-3" in str(err.value)
-        assert not any(f"{p}=" in str(err.value) for p in kw
-                       if p != "plan")
     # JAX's axis= at its default is taken and does nothing.
     res = train_dlrm(cfg, iter(()), 0, device="cpu", axis="data")
     assert res.losses == []

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --mesh               # only the mesh phase, every card
     python3 chip_smoke.py --planner            # only the mesh phase's planner
     python3 chip_smoke.py --compat             # only compat, nn and the bridge
+    python3 chip_smoke.py --clis               # only the training commands
 
 Phases, each of which ends the script with a non-zero exit if it fails:
 
@@ -183,25 +184,53 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     replicated group bitwise over the ranks after each step); the planned
     DLRM and DCN services (every score the single-device eval's, rtol
     1e-5); `train_dlrm(mesh=, plan=)` through a guard rollback on a NaN
-    batch (bitwise the run without it) and `evict_every=2`.
+    batch (bitwise the run without it) and `evict_every=2`. Then mixed
+    dims (`mesh_mixed`): the same 26 tables, the 16 of at most 8,192 rows
+    at D = 32 and the 10 larger at D = 128, placed by
+    `plan_sharding_mixed` (the D = 128 group row-sharded by hand on one
+    rank), `mixed_planned_lookup` and `mixed_planned_apply` with SGD and
+    indexer AdaGrad against each table's single-device `lookup` (bitwise)
+    and `opt.apply` (rtol 2e-5 / atol 1e-6), launches a rank by width
+    required exactly. Then the planned two-tower model (`mesh_planner_tt`)
+    at the two-tower shape: the 1k query table replicated, the 1M one
+    row-sharded, the 100k one column-sharded and the 2M-item corpus
+    row-sharded; SGD and indexer AdaGrad beside the uniform sharded step
+    (launches a rank required exactly); two planned steps against the
+    single-device step (losses rtol 1e-4, tables and towers rtol 5e-4 /
+    atol 1e-5, the replicated group bitwise over the ranks); the planned
+    index over every item against `build_item_index` (rtol 1e-5 / atol
+    1e-6) and `planned_retrieve` against the plain retriever (the same ids
+    as sets per row); `train_two_tower(mesh=, plan=)` with a recall eval,
+    device prefetch and a checkpoint restored bitwise. Before the spawn,
+    `gather_rows` at those shapes (the corpus at D = 64 by 16,384 item ids
+    and by 65,536-id index chunks, the column slice at D = 16, the mixed
+    replicated group at D = 32) bitwise its plain version and timed.
 17. compat, nn and the torch bridge: a stock loop at B = 65,536 with
     `torch.optim.SGD` on the DLRM's towers and 26 `nn.SparseEmbed` tables
     (the Criteo Kaggle cardinalities capped at 250,000) through
     `sparse_updates_from_grads` / `apply_sparse_updates`, against the same
     steps on the plain versions; `to_torch_embedding(bag=True)` of a trained
     table (an `nn.EmbeddingBag` on the card) against its `lookup`.
-18. The input pipeline: a 524,288-row Criteo-format file written by
+18. The training commands (`embeddingtables_tpu_torch/scripts/`), each
+    its own process for 20 steps (the DLRM and DCN at 26 x 250,000 x 128,
+    the DeepFM and two-tower model at their flags' defaults), then
+    `train_dlrm --mesh --auto-shard` on every card: each exits 0 with
+    finite, falling losses. (Run before phase 19's input pipeline, which
+    is last.)
+19. The input pipeline: a 524,288-row Criteo-format file written by
     `io.criteo_file`, parsed natively (the library must build) bitwise
     `criteo_kaggle_batches` on the first batch, rows/s of both parsers;
     the stacked DLRM trained from `CriteoFileLoader` -> `parallel_batches`
     -> `DevicePrefetcher` for 8 steps; the same host batches at
     `device_prefetch` 0 and 2, bitwise equal, with examples/s and the idle
     share of each; `NativeSyntheticCriteo` against the numpy generator.
-19. A `kernels` JSON line (every hand kernel, its launches on its paths and
+20. A `kernels` JSON line (every hand kernel, its launches on its paths and
     its times; the run-scatter's Zipf time beside its uniform one, the
     D = 129 times of both gathers and the run-scatter, the D = 1 times
     of `gather_rows` and the run-scatter, and the run-scatter's wide-row
-    times), the card line again, and the final JSON status line.
+    times, and `gather_rows` at the column and planned two-tower and
+    mixed-dim widths), the card line again, and the final JSON status
+    line.
 
 With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
 the run-scatter's window length (`run_window_sweep`); with `--gather-sweep`
@@ -214,9 +243,9 @@ measures that commit's kernels the same way. With `--ensemble` it runs
 phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
 phase 12; with `--persistence` phases 1-2 and phase 13; with `--microbatch`,
-`--rpc`, `--mesh`, `--compat` and `--input-pipeline` phases 1-2 and phase
-14, 15, 16, 17 or 18; with `--planner` phases 1-2 and phase 16's planner
-part alone.
+`--rpc`, `--mesh`, `--compat`, `--clis` and `--input-pipeline` phases 1-2
+and phase 14, 15, 16, 17, 18 or 19; with `--planner` phases 1-2 and phase
+16's planner part alone.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -4530,10 +4559,15 @@ def planner_plan(P, mesh, n: int, dim: int):
     places = [P.COL_SHARD if i in PLANNER_COL
               else P.REPLICATE if v * dim * 4 <= 4 << 20 else P.ROW_SHARD
               for i, v in enumerate(PLANNER_VOCABS)]
-    return (dataclasses.replace(plan, decisions=tuple(
+    return (by_hand(plan, places),
+            "by hand: one rank's plan_sharding replicates every table")
+
+
+def by_hand(plan, places):
+    """`plan` with the given placements, one a table."""
+    return dataclasses.replace(plan, decisions=tuple(
         dataclasses.replace(d, placement=p)
-        for d, p in zip(plan.decisions, places))),
-        "by hand: one rank's plan_sharding replicates every table")
+        for d, p in zip(plan.decisions, places)))
 
 
 def planned_api(P, family):
@@ -4844,12 +4878,386 @@ def mesh_planner_loop(ett, P, S, G, mesh, rank, n, host, root):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16, planner part: the planned two-tower retriever and mixed dims
+# ---------------------------------------------------------------------------
+
+# The 100k-row query table column-shards; the 1k one replicates (256 KiB at
+# D = 64), the 1M one and the 2M-item corpus row-shard.
+TT_PLANNER_COL = (1,)
+MIXED_SMALL = 8_192                 # tables of at most this many rows: D = 32
+
+
+def tt_plans(P, mesh, n: int, dim: int):
+    """(q_plan, i_plan, how) of the planned two-tower model: on more than
+    one rank `plan_sharding(col_shard=TT_PLANNER_COL)` of the query tables
+    and `plan_sharding([TT_ITEMS])` of the corpus; on one rank, where
+    `plan_sharding` replicates every table, the same placements by hand."""
+    qp = P.plan_sharding(TT_QUERY_VOCABS, dim, mesh,
+                         col_shard=list(TT_PLANNER_COL))
+    ip = P.plan_sharding([TT_ITEMS], dim, mesh)
+    if n > 1:
+        return qp, ip, ("plan_sharding(col_shard=TT_PLANNER_COL), "
+                        "plan_sharding([TT_ITEMS])")
+    return (by_hand(qp, (P.ROW_SHARD, P.COL_SHARD, P.REPLICATE)),
+            by_hand(ip, (P.ROW_SHARD,)),
+            "by hand: one rank's plan_sharding replicates every table")
+
+
+# A planned two-tower step's launches on each rank (SGD and indexer AdaGrad):
+# `gather_rows` for the four lookups (the query stack's replicated, row and
+# column groups; the corpus's row group) and for the three value permutes of
+# the replicated group's gradient and of the two row groups' updates; one
+# run-scatter for each of those three. The 100k-row column group's update
+# sums with `index_add_` (more than 512 rows).
+PLANNED_TT_LAUNCHES = {"gather_rows": 7, "scatter_add_rows_sorted": 3}
+
+
+def planned_tt_exchanges(pm) -> list:
+    """Every exchange of a planned two-tower model's groups."""
+    out = []
+    for pt in (pm.query_tables, pm.item_tables):
+        out.append(pt.exchange)
+        out += [g.exchange for g in (pt.shard, pt.col) if g is not None]
+    return out
+
+
+def tt_host_blocks(ett, P, mesh, cfg):
+    """The two-tower phase's 4 host batches (B = 16,384 global), this
+    rank's blocks of them on the card, and the global batches on the card."""
+    host = list(ett.SyntheticRetrieval(
+        cfg.query_vocab_sizes, cfg.item_vocab, num_dense=4,
+        batch_size=TT_BATCH, seed=SEED + 20).batches(MESH_BATCHES))
+    shardings = P.tt_batch_shardings(mesh, "data")
+    keys = ("dense", "q_cat", "item_ids")
+    blocks = [tuple(torch.from_numpy(np.ascontiguousarray(f(b[k]))).cuda()
+                    for f, k in zip(shardings, keys)) for b in host]
+    return host, blocks
+
+
+def mesh_planner_tt(ett, P, S, G, mesh, rank, n, root, results):
+    """The planned two-tower model at the repo's two-tower shape (1M / 100k
+    / 1k query rows at D = 64, 2M items, MLPs 256-64, B = 16,384 global):
+    SGD and indexer AdaGrad timed beside the uniform sharded step (launches
+    a rank required exactly), two planned steps held to the single-device
+    step, the planned index over every item against `build_item_index`,
+    `planned_retrieve` against the plain retriever, and
+    `train_two_tower(mesh=, plan=)` with a recall eval, `device_prefetch`
+    and a checkpoint restored bitwise; each result put on `results`."""
+    from embeddingtables_tpu_torch.utils import CheckpointManager
+    tt = ett.models.two_tower
+    cfg = two_tower_config(ett)
+    qp, ip, how = tt_plans(P, mesh, n, cfg.dim)
+    host, blocks = tt_host_blocks(ett, P, mesh, cfg)
+    keys = ("dense", "q_cat", "item_ids")
+
+    def fresh(opt):
+        return ett.init_two_tower(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda", sparse_opt=opt)
+
+    for name, opt in mesh_family_opts(ett):
+        r0 = time.perf_counter()
+        single = fresh(opt)
+        pm = P.place_two_tower_on_plan(qp, ip, mesh, single, opt)
+        del single
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = P.make_planned_tt_train_step(cfg, mesh, sparse_opt=opt,
+                                            dense_lr=0.1)
+        got = timed_sharded_steps(S, G, step, pm, blocks, MESH_FAMILY_STEPS,
+                                  exchanges=planned_tt_exchanges(pm))
+        agree = repl_agree(pm.query_tables)
+        del pm, step
+        torch.cuda.empty_cache()
+        single = fresh(opt)
+        uniform = P.shard_two_tower(single, mesh, "data", sparse_opt=opt)
+        del single
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ustep = P.make_sharded_tt_train_step(cfg, mesh, "data",
+                                             sparse_opt=opt, dense_lr=0.1)
+        ugot = timed_sharded_steps(S, G, ustep, uniform, blocks,
+                                   MESH_FAMILY_STEPS)
+        del uniform, ustep
+        torch.cuda.empty_cache()
+        results.put({
+            "kind": "planner_tt", "rank": rank, "recipe": name, "plan": how,
+            "q_placements": [d.placement for d in qp.decisions],
+            "i_placements": [d.placement for d in ip.decisions],
+            "cols_local": -(-cfg.dim // n),
+            "planned": dict(got, replicated_bitwise_across_ranks=agree,
+                            per_step=PLANNED_TT_LAUNCHES),
+            "uniform": dict(ugot, per_step=family_launches("two_tower",
+                                                           cfg)),
+            "seconds": time.perf_counter() - r0})
+
+    # Two planned steps against two single-device steps (rank 0 replays the
+    # global batches on one card).
+    rows = []
+    for name, opt in mesh_family_opts(ett):
+        pm = P.place_two_tower_on_plan(qp, ip, mesh, fresh(opt), opt)
+        step = P.make_planned_tt_train_step(cfg, mesh, sparse_opt=opt,
+                                            dense_lr=0.1)
+        losses, agree = [], []
+        for b in blocks[:2]:
+            losses.append(float(step(pm, *b)[0]))
+            agree.append(repl_agree(pm.query_tables))
+        require(all(agree), f"planned two-tower parity {name}: the "
+                "replicated group differs between ranks")
+        got = [torch.cat(pm.query_tables.tables()),
+               pm.item_tables.tables()[0]] + [
+                   p.detach().clone() for p in pm.parameters()]
+        del pm, step
+        torch.cuda.empty_cache()
+        row = {"recipe": name, "replicated_bitwise": agree}
+        if rank == 0:
+            single = fresh(opt)
+            step1 = tt.make_train_step(cfg, sparse_opt=opt, dense_lr=0.1)
+            want = []
+            for b in host[:2]:
+                want.append(float(step1(single, *(
+                    torch.from_numpy(b[k]).cuda() for k in keys))[0]))
+            torch.cuda.synchronize()
+            pairs = list(zip(got, [single.query_tables.data,
+                                   single.item_data]
+                             + [p.detach() for p in single.parameters()]))
+            np.testing.assert_allclose(losses, want, rtol=1e-4)
+            for a, b in pairs:
+                require(torch.allclose(a, b, rtol=5e-4, atol=1e-5),
+                        f"planned two-tower parity {name}: off by "
+                        f"{max_abs_err(a, b)}")
+            row.update(tolerance="losses rtol 1e-4, tables and towers rtol "
+                       "5e-4 atol 1e-5", losses=losses, want=want,
+                       bitwise=losses == want and all(
+                           torch.equal(a, b) for a, b in pairs),
+                       max_abs_err=max(max_abs_err(a, b) for a, b in pairs))
+            del single
+        del got
+        torch.cuda.empty_cache()
+        rows.append(row)
+    results.put({"kind": "planner_tt_parity", "rank": rank, "rows": rows})
+
+    # The planned index over every item (whole on every rank) and the
+    # planned retrieval, against the single-device ones from the same
+    # weights on rank 0.
+    opt = ett.SparseSGD(1e-4)
+    single = fresh(opt)
+    pm = P.place_two_tower_on_plan(qp, ip, mesh, single, opt)
+    torch.cuda.synchronize()
+    G.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    index = P.planned_build_item_index(mesh, pm)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_launches = G.gather_rows.launches
+    e = ett.SyntheticRetrieval(cfg.query_vocab_sizes, cfg.item_vocab,
+                               num_dense=4, batch_size=TT_EVAL_BATCH,
+                               seed=SEED + 21).batches(1)
+    e = {k: torch.from_numpy(v).cuda() for k, v in next(iter(e)).items()}
+    torch.cuda.synchronize()
+    G.gather_rows.launches = 0
+    t0 = time.perf_counter()
+    ps, pi = P.planned_retrieve(mesh, pm, index, e["dense"], e["q_cat"],
+                                k=10)
+    torch.cuda.synchronize()
+    retrieve_s = time.perf_counter() - t0
+    retrieve_launches = G.gather_rows.launches
+    serve = {"index_s": index_s, "index_launches": index_launches,
+             "retrieve_s": retrieve_s, "retrieve_launches": retrieve_launches,
+             "queries": TT_EVAL_BATCH}
+    if rank == 0:
+        want = tt.build_item_index(single)
+        index_err = max_abs_err(index, want)
+        require(torch.allclose(index, want, rtol=1e-5, atol=1e-6),
+                f"planned index: off by {index_err}")
+        ws, wi = tt.retrieve(single, index, e["dense"], e["q_cat"], k=10)
+        torch.cuda.synchronize()
+        same = all(set(a) == set(b) for a, b in zip(pi.tolist(),
+                                                    wi.tolist()))
+        require(same and torch.allclose(ps, ws, rtol=1e-5, atol=1e-6),
+                "planned_retrieve: not the plain retriever's ids")
+        serve.update(index_max_abs_err=index_err,
+                     index_bitwise=torch.equal(bits(index), bits(want)),
+                     retrieve_ids_equal=torch.equal(pi, wi),
+                     retrieve_max_abs_err=max_abs_err(ps, ws))
+        del want
+    del single, pm, index
+    torch.cuda.empty_cache()
+    results.put({"kind": "planner_tt_serve", "rank": rank, **serve})
+
+    # The planned loop: a recall eval, device prefetch and a checkpoint at
+    # step 4, restored bitwise into a fresh planned model.
+    opt = ett.SparseSGD(0.05)
+    ckpt = os.path.join(root, "planned_tt_ckpt")
+    mgr = CheckpointManager(ckpt)
+    G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+    t0 = time.perf_counter()
+    res = ett.train_two_tower(
+        cfg, itertools.cycle(host), 4, model=fresh(opt), mesh=mesh,
+        plan=(qp, ip), sparse_opt=opt, seed=SEED, eval_every=4, k=10,
+        eval_batches=[{k: v.cpu().numpy() for k, v in e.items()}],
+        log_every=1, ckpt_manager=mgr, ckpt_every=4, device_prefetch=2,
+        verbose=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {"gather_rows": G.gather_rows.launches,
+                "scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches}
+    restored = P.init_planned_two_tower(cfg, qp, ip, mesh, sparse_opt=opt,
+                                        seed=SEED + 1)
+    mgr.restore_latest(restored)
+    same = all(torch.equal(a, b) for a, b in zip(
+        restored.state_dict().values(), res.model.state_dict().values()))
+    require(type(res.model).__name__ == "PlannedTwoTower" and same
+            and all(math.isfinite(x) for x in res.losses)
+            and len(res.recalls) == 1,
+            f"planned train_two_tower: {type(res.model).__name__}, restored "
+            f"bitwise {same}, losses {res.losses}, recalls {res.recalls}")
+    del res, restored
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    results.put({"kind": "planner_tt_loop", "rank": rank, "loop_s": loop_s,
+                 "launches": launches, "checkpoint_restored_bitwise": same,
+                 "steps": 4})
+
+
+def mixed_plans(P, mesh, n: int):
+    """(plans, groups, dims, how) of the mixed-dim per-feature tables: the
+    16 tables of at most `MIXED_SMALL` rows at D = 32, the 10 larger ones
+    at D = 128, by `plan_sharding_mixed` (the D = 32 group replicates, the
+    D = 128 group row-shards); on one rank, where every table replicates,
+    the D = 128 group row-sharded by hand."""
+    dims = tuple(32 if v <= MIXED_SMALL else 128 for v in PLANNER_VOCABS)
+    plans, groups = P.plan_sharding_mixed(PLANNER_VOCABS, dims, mesh)
+    if n > 1:
+        return plans, groups, dims, "plan_sharding_mixed"
+    return ((plans[0], by_hand(plans[1], [P.ROW_SHARD] * len(groups[1]))),
+            groups, dims, "plan_sharding_mixed, the D = 128 group "
+            "row-sharded by hand on one rank")
+
+
+def rounding_bound(ett, opt, ids, delta, v: int, c: float = 2.0 ** -20):
+    """A per-element bound `(v, D)` on the f32 rounding that another order
+    of the run sums adds to one lazy update of a table of `v` rows from a
+    fresh state: `c` (8 ulps) times each element's summed delta magnitude
+    S, as the optimizer scales the sum g (SGD: lr * c * S; row-wise AdaGrad:
+    lr * c * (S + |g| * mean(|g| S) / a) / sqrt(a + eps), a = mean(g^2),
+    the second term the rms's own move). On more than one rank the row
+    group's owned stream cuts its runs at other window edges than one
+    device's stream does, so its sums round in another order."""
+    r = ids.long()
+    d = delta.shape[1]
+    s = torch.zeros((v, d), dtype=torch.float64, device=delta.device
+                    ).index_add_(0, r, delta.abs().double())
+    if isinstance(opt, ett.SparseSGD):
+        return (c * opt.lr * s).float()
+    g = torch.zeros((v, d), dtype=torch.float64, device=delta.device
+                    ).index_add_(0, r, delta.double())
+    a = (g * g).mean(dim=1, keepdim=True)
+    cross = (g.abs() * s).mean(dim=1, keepdim=True) / (a + opt.eps)
+    return (c * opt.lr * (s + g.abs() * cross)
+            * torch.rsqrt(a + opt.eps)).float()
+
+
+def mesh_mixed(ett, P, S, G, mesh, rank, n, results):
+    """Mixed dims on the 26 per-feature tables at B = 65,536 global:
+    `mixed_planned_lookup` and `mixed_planned_apply` (SGD and indexer
+    AdaGrad, JAX's test's rates, unit deltas) against each table's
+    single-device `lookup` and `opt.apply` (rank 0; lookups bitwise, tables
+    to JAX's rtol 2e-5 / atol 1e-6 plus `rounding_bound`: a Zipf row sums
+    thousands of deltas), their times, and the launches a rank
+    (`gather_rows` by width: one lookup and one value permute a group;
+    one run-scatter a group) required exactly."""
+    from embeddingtables_tpu_torch.ops.sparse_update import \
+        SparseEmbeddingUpdate
+    from embeddingtables_tpu_torch.parallel.sharded import Exchange
+    plans, groups, dims, how = mixed_plans(P, mesh, n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    tables = [torch.randn((v, d), generator=gen, device="cuda")
+              for v, d in zip(PLANNER_VOCABS, dims)]
+    b = next(iter(ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
+                                      batch_size=B_TRAIN,
+                                      seed=SEED + 41).batches(1)))
+    ids = torch.from_numpy(b["cat"]).cuda()
+    deltas = [torch.randn((B_TRAIN, d), generator=gen, device="cuda")
+              for d in dims]
+    ex = Exchange(mesh, "data")
+    sl = slice(ex.data_index * (B_TRAIN // ex.n_data),
+               (ex.data_index + 1) * (B_TRAIN // ex.n_data))
+    block = ids[:, sl]
+    rows = []
+    for name, opt in (("sgd", ett.SparseSGD(0.2)),
+                      ("adagrad_indexer", ett.SparseRowWiseAdaGrad(
+                          lr=0.1, eps=1e-6, method="indexer"))):
+        mt = P.MixedDimPlannedTables.from_tables(plans, groups, mesh,
+                                                 [t.clone() for t in tables],
+                                                 sparse_opt=opt)
+        torch.cuda.synchronize()
+        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        G.gather_rows.widths.clear()
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        looked = P.mixed_planned_lookup(mesh, mt, block)
+        mid.record()
+        P.mixed_planned_apply(mesh, mt, block, [d[sl] for d in deltas], opt)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {"gather_rows": G.gather_rows.launches,
+                    "scatter_add_rows_sorted":
+                        S.scatter_add_rows_sorted.launches}
+        widths = {str(d): c for d, c in sorted(G.gather_rows.widths.items())}
+        got = [ex.gather_batch(x.contiguous()) for x in looked]
+        dense = [mt.table(t) for t in range(mt.ntables)]
+        row = {"recipe": name, "launches": launches, "widths": widths,
+               "lookup_ms": start.elapsed_time(mid),
+               "apply_ms": mid.elapsed_time(end)}
+        if rank == 0:
+            look_err = table_err = worst = 0.0
+            bitwise = True
+            for t, table in enumerate(tables):
+                want = ett.lookup(ett.SimpleEmbedding(table), ids[t])
+                require(torch.equal(bits(got[t]), bits(want)),
+                        f"mixed lookup table {t}: not bitwise")
+                look_err = max(look_err, max_abs_err(got[t], want))
+                upd = SparseEmbeddingUpdate(delta=deltas[t], indices=ids[t])
+                new, _ = opt.apply(table.clone(), upd, opt.init(table))
+                err = (dense[t] - new).abs()
+                tol = 2e-5 * new.abs() + 1e-6 + rounding_bound(
+                    ett, opt, ids[t], deltas[t], table.shape[0])
+                require(bool((err <= tol).all()), f"mixed apply {name} table "
+                        f"{t}: off by {float(err.max())}, "
+                        f"{float((err / tol).max())} of the tolerance")
+                table_err = max(table_err, float(err.max()))
+                worst = max(worst, float((err / tol).max()))
+                bitwise = bitwise and torch.equal(bits(dense[t]), bits(new))
+            row.update(tolerance="lookups bitwise, tables rtol 2e-5 atol "
+                       "1e-6 (JAX's) plus rounding_bound",
+                       lookup_max_abs_err=look_err,
+                       table_max_abs_err=table_err,
+                       worst_share_of_tolerance=worst, bitwise=bitwise)
+        del mt, looked, got, dense
+        torch.cuda.empty_cache()
+        rows.append(row)
+    results.put({"kind": "planner_mixed", "rank": rank, "how": how,
+                 "groups": [list(g) for g in groups],
+                 "dims": sorted(set(dims)),
+                 "placements": [[d.placement for d in p.decisions]
+                                for p in plans],
+                 "batch": B_TRAIN, "rows": rows})
+
+
 def mesh_planner(ett, P, S, G, mesh, rank, n, root, results):
     """The planner part of the mesh phase on the per-feature tables at B =
     65,536 global (4 cycled Zipf(1.1) batches): the plans (and the one
     `skew_from_trackers` would choose), every recipe against the uniform
     row-sharded step, the parity runs, the DLRM and DCN planned services
-    and the planned loop; each result put on `results`."""
+    and the planned loop; then the same tables at mixed dims
+    (`mesh_mixed`) and the planned two-tower model (`mesh_planner_tt`);
+    each result put on `results`."""
     import types
     from embeddingtables_tpu_torch.utils import FrequencyTracker
     host = list(ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
@@ -4887,6 +5295,10 @@ def mesh_planner(ett, P, S, G, mesh, rank, n, root, results):
                                           root)
     results.put({"kind": "planner_loop", "rank": rank, "launches": launches,
                  **summary})
+    del host, blocks
+    torch.cuda.empty_cache()
+    mesh_mixed(ett, P, S, G, mesh, rank, n, results)
+    mesh_planner_tt(ett, P, S, G, mesh, rank, n, root, results)
 
 
 def col_width_kernels(ett, G, gen):
@@ -4931,6 +5343,66 @@ def col_width_kernels(ett, G, gen):
              for k, t in times.items()},
           "seconds": time.perf_counter() - t0})
     return err, times
+
+
+def planner_rest_kernels(ett, G, gen):
+    """`gather_rows` at the shapes of the planned two-tower model and the
+    mixed dims, each bitwise its plain version (with wrapped and
+    out-of-range ids) and timed beside the plain version, `F.embedding`
+    and the byte bound: the 2M-item corpus at D = 64 by a step's 16,384
+    item ids and by the index build's 65,536-id chunks; the 100k query
+    table's column slice at D = 16 (its width on four cards) by a step's
+    16,384 ids; the mixed replicated group at D = 32 (the 16 small tables
+    stacked) by one card's 16 x 65,536 ids. Returns {key: times}."""
+    t0 = time.perf_counter()
+    tt_host = list(ett.SyntheticRetrieval(
+        TT_QUERY_VOCABS, TT_ITEMS, num_dense=4, batch_size=TT_BATCH,
+        seed=SEED + 20).batches(3))
+    small = [i for i, v in enumerate(PLANNER_VOCABS) if v <= MIXED_SMALL]
+    offs = np.cumsum([0] + [PLANNER_VOCABS[i] for i in small])
+    mixed = []
+    for b in ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
+                                 batch_size=B_TRAIN,
+                                 seed=SEED + 41).batches(3):
+        mixed.append(torch.from_numpy(np.stack(
+            [b["cat"][i] + offs[j] for j, i in enumerate(small)]).reshape(
+                -1).astype(np.int32)).cuda())
+
+    def cuda_ids(x):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(
+            np.int32)).cuda()
+    cases = (
+        ("tt_items_d64", [cuda_ids(b["item_ids"]) for b in tt_host],
+         TT_ITEMS, 64),
+        ("tt_index_d64", [torch.arange(lo, lo + 65_536, dtype=torch.int32,
+                                       device="cuda")
+                          for lo in (0, (TT_ITEMS - 65_536) // 2,
+                                     TT_ITEMS - 65_536)],
+         TT_ITEMS, 64),
+        ("tt_qcol_d16", [cuda_ids(b["q_cat"][1]) for b in tt_host],
+         TT_QUERY_VOCABS[1], 16),
+        ("mixed_d32", mixed, int(offs[-1]), 32))
+    times = {}
+    for key, sets, v, d in cases:
+        tab = torch.randn((v, d), generator=gen, device="cuda")
+        ids = with_specials(sets[0].clone(), v, gen)
+        got, want = G.gather_rows(tab, ids), G.gather_rows_plain(tab, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(got), bits(want)),
+                f"gather_rows {key} not bitwise")
+        emit({"phase": "kernel_check", "kernel": "gather_rows",
+              "stream": key, "dtype": "float32", "V": v, "D": d,
+              "n": ids.numel(), "bitwise": True})
+        del tab, got, want
+        times[key] = time_gather(G, gen, sets, v, d, key)
+        torch.cuda.empty_cache()
+    emit({"phase": "planner_rest_times",
+          **{k: {"kernel_ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+                 "share_of_bound": t["bound_ms"] / t["kernel_ms"],
+                 "library_ms": t["library_ms"], "plain_ms": t["plain_ms"]}
+             for k, t in times.items()},
+          "seconds": time.perf_counter() - t0})
+    return times
 
 
 def mesh_rank(rank: int, n: int, port: int, root: str, results,
@@ -5130,6 +5602,66 @@ def check_planner(got, n: int, total: dict) -> None:
                                     and g["evicted_rows"] > 0
                                     for g in loops),
             "planner: loop results missing")
+    for g in loops:
+        for k in total:
+            total[k] += g["launches"][k]
+    check_planner_rest(got, n, total)
+
+
+def check_planner_rest(got, n: int, total: dict) -> None:
+    """The mixed-dim and planned two-tower results: launches a rank exactly
+    (the mixed step's `gather_rows` at each width too), losses finite and
+    equal on every rank, the replicated group bitwise over the ranks, the
+    parity rows, the index's and retrieval's launches, the loop's restored
+    checkpoint. Adds the launches to `total`."""
+    mixed = [g for g in got if g["kind"] == "planner_mixed"]
+    require(len(mixed) == n, "planner: mixed-dim results missing")
+    for g in mixed:
+        for row in g["rows"]:
+            require(row["launches"] == {"gather_rows": 4,
+                                        "scatter_add_rows_sorted": 2}
+                    and row["widths"] == {"32": 2, "128": 2},
+                    f"mixed {row['recipe']} rank {g['rank']}: launches "
+                    f"{row['launches']}, by width {row['widths']}")
+            for k in total:
+                total[k] += row["launches"][k]
+    rows = [g for g in got if g["kind"] == "planner_tt"]
+    require(len(rows) == n * 2, f"planner: {len(rows)} two-tower results")
+    for g in rows:
+        lead = next(h for h in rows if h["rank"] == 0
+                    and h["recipe"] == g["recipe"])
+        for kind in ("planned", "uniform"):
+            r = g[kind]
+            want = {k: v * MESH_FAMILY_STEPS
+                    for k, v in r["per_step"].items()}
+            require(all(math.isfinite(x) for x in r["losses"])
+                    and r["losses"] == lead[kind]["losses"],
+                    f"planned two-tower {kind} {g['recipe']}: losses "
+                    f"{r['losses']}")
+            require(r["launches"] == want, f"planned two-tower {kind} "
+                    f"{g['recipe']} rank {g['rank']}: launches "
+                    f"{r['launches']}, want {want}")
+            for k in total:
+                total[k] += r["launches"][k]
+        require(g["planned"]["replicated_bitwise_across_ranks"],
+                f"planned two-tower {g['recipe']}: replicated group differs "
+                "between ranks")
+    parity = [g for g in got if g["kind"] == "planner_tt_parity"
+              and g["rank"] == 0]
+    require(len(parity) == 1 and len(parity[0]["rows"]) == 2,
+            "planner: two-tower parity results missing")
+    serve = [g for g in got if g["kind"] == "planner_tt_serve"]
+    require(len(serve) == n and all(
+        g["index_launches"] == -(-TT_ITEMS // 65_536)
+        and g["retrieve_launches"] == 3 for g in serve),
+        f"planned index / retrieval launches "
+        f"{[(g['index_launches'], g['retrieve_launches']) for g in serve]}")
+    total["gather_rows"] += sum(g["index_launches"] + g["retrieve_launches"]
+                                for g in serve)
+    loops = [g for g in got if g["kind"] == "planner_tt_loop"]
+    require(len(loops) == n and all(g["checkpoint_restored_bitwise"]
+                                    for g in loops),
+            "planner: two-tower loop results missing")
     for g in loops:
         for k in total:
             total[k] += g["launches"][k]
@@ -5390,6 +5922,62 @@ def compat_phase(ett, S, H, G):
             "hot_accumulate": 9 * COMPAT_STEPS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the training command lines on the card
+# ---------------------------------------------------------------------------
+
+CLI_STEPS = 20
+CLI_RUNS = (
+    ("train_dlrm", ("--tables", "26", "--vocab", "250000", "--dim", "128")),
+    ("train_dcn", ("--tables", "26", "--vocab", "250000", "--dim", "128")),
+    ("train_deepfm", ()),
+    ("train_two_tower", ()),
+    ("train_dlrm", ("--tables", "26", "--vocab", "250000", "--dim", "128",
+                    "--mesh", "--auto-shard")),
+)
+
+
+def cli_phase() -> list:
+    """Each of the four command lines (`embeddingtables_tpu_torch/scripts/`)
+    as its own process on the card for `CLI_STEPS` steps at its flags'
+    defaults (the DLRM and DCN at 26 x 250,000 x 128), then `train_dlrm
+    --mesh --auto-shard` on every card (it spawns one rank a card): each
+    must exit 0 with finite losses whose last 5 average below the first
+    5. The kernels are those `main` built; each process loads them."""
+    import re
+    out = []
+    root = os.path.dirname(os.path.abspath(__file__))
+    for module, flags in CLI_RUNS:
+        cmd = [sys.executable, "-m",
+               f"embeddingtables_tpu_torch.scripts.{module}", "--steps",
+               str(CLI_STEPS), "--log-every", "1", *flags]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                           timeout=600)
+        seconds = time.perf_counter() - t0
+        losses = [float(x) for x in re.findall(
+            r"^step\s+\d+\s+loss\s+(\S+)", p.stdout, re.M)]
+        rate = re.findall(r"^([\d,]+) examples/s", p.stdout, re.M)
+        row = {"phase": "cli", "command": " ".join(cmd[2:]), "rc":
+               p.returncode, "seconds": seconds, "losses": losses,
+               "examples_per_s": (int(rate[-1].replace(",", ""))
+                                  if rate else None),
+               "plan": [ln for ln in p.stdout.splitlines()
+                        if ln.startswith("sharding plan")]}
+        emit(row)
+        require(p.returncode == 0, f"{module} {' '.join(flags)}: exit "
+                f"{p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        require(len(losses) == CLI_STEPS
+                and all(math.isfinite(x) for x in losses)
+                and statistics.mean(losses[-5:]) < statistics.mean(
+                    losses[:5]),
+                f"{module} {' '.join(flags)}: losses {losses}")
+        if "--auto-shard" in flags:
+            require(len(row["plan"]) == 1, f"{module}: no plan printed")
+        out.append(row)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5476,7 +6064,12 @@ def main() -> int:
         return 0
     if "--planner" in sys.argv[1:]:
         col_width_kernels(ett, G, gen)
+        planner_rest_kernels(ett, G, gen)
         mesh_phase(ett, S, H, G, planner_only=True)
+        print(card_line(), flush=True)
+        return 0
+    if "--clis" in sys.argv[1:]:
+        cli_phase()
         print(card_line(), flush=True)
         return 0
     if "--compat" in sys.argv[1:]:
@@ -5521,8 +6114,10 @@ def main() -> int:
     micro = microbatch_phase(ett, S, H, G, train_batches)
     served_rpc = rpc_phase(ett, S, H, G)
     _, col_times = col_width_kernels(ett, G, gen)
+    rest_times = planner_rest_kernels(ett, G, gen)
     meshed = mesh_phase(ett, S, H, G)
     compat = compat_phase(ett, S, H, G)
+    cli_phase()
     # Last: loading the native libraries (built with -ffast-math, as the JAX
     # package builds them) sets flush-to-zero in this thread.
     piped = input_pipeline_phase(ett, S, H, G)
@@ -5545,11 +6140,12 @@ def main() -> int:
         timings[key].update({f"d{d}_ms": t["kernel_ms"],
                              f"d{d}_bound_ms": t["bound_ms"],
                              f"d{d}_library_ms": t["library_ms"]})
-    for k, t in col_times.items():
+    for key, t in ([(f"col_{k}", t) for k, t in col_times.items()]
+                   + list(rest_times.items())):
         timings["gather_rows"].update({
-            f"col_{k}_ms": t["kernel_ms"], f"col_{k}_plain_ms": t["plain_ms"],
-            f"col_{k}_bound_ms": t["bound_ms"],
-            f"col_{k}_library_ms": t["library_ms"]})
+            f"{key}_ms": t["kernel_ms"], f"{key}_plain_ms": t["plain_ms"],
+            f"{key}_bound_ms": t["bound_ms"],
+            f"{key}_library_ms": t["library_ms"]})
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"

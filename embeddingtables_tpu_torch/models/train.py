@@ -35,8 +35,8 @@ the trackers follow the same global batches). With `mesh=...` and
 family's planned model (`parallel/planner.py`): replicated, row- and
 column-sharded tables in one model, evicting through `evict_rows_planned`,
 with checkpoints and the guard as on the mesh; delta checkpoints under a
-plan raise JAX's `NotImplementedError`. `train_two_tower` refuses a plan
-(`unported.py`).
+plan raise JAX's `NotImplementedError`. `train_two_tower(mesh=,
+plan=(q_plan, i_plan))` trains the planned two-tower model the same way.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ from ..config import resolve_device
 from ..metrics import (auc, calibration, log_loss, normalized_entropy,
                        recall_at_k)
 from ..optim import SparseFTRL, SparseSGD, require_dense_state
-from ..unported import check_jax_combinations, refuse_unported
+from ..unported import check_jax_combinations
 from ..utils import telemetry as _telemetry
 from ..utils.deltackpt import ModRowLayout, TouchedRowTracker
 from ..utils.rowstats import (FrequencyTracker, evict_rows,
@@ -75,18 +75,6 @@ class RetrievalTrainResult:
     accs: list               # in-batch top-1 accuracy at the log cadence
     recalls: list            # [(step, recall@k)]
     examples_per_sec: float
-
-
-def _refuse(loop: str, *, exchange="gather", wire_dtype=None, delta_ckpt=None,
-            delta_every=0, mesh=None, plan=None) -> None:
-    """JAX's own errors on the combinations first, then the planner's
-    two-tower model, which is not ported yet (the rest of JAX's options are
-    read or ignored, as `unported.py` says)."""
-    check_jax_combinations(
-        mesh=mesh, plan=plan, delta_ckpt=delta_ckpt, delta_every=delta_every,
-        wire_dtype=wire_dtype, exchange=exchange)
-    if loop == "train_two_tower":
-        refuse_unported(loop, plan=plan)
 
 
 def _collect_scores(eval_step, model, batches):
@@ -730,12 +718,13 @@ def train_dlrm(cfg: DLRMConfig, train_iter: Iterator[dict], num_steps: int, *,
     as on the mesh, and `delta_ckpt` raises `NotImplementedError`, as in
     JAX.
 
-    JAX's other options follow `unported.py`: set, an unported one raises,
-    as does an `lr_schedule` with `SparseFTRL` (alpha is baked into its
-    state), before the first step, as the JAX loop's first step does."""
-    _refuse("train_dlrm", exchange=exchange, wire_dtype=wire_dtype,
-            delta_ckpt=delta_ckpt, delta_every=delta_every, mesh=mesh,
-            plan=plan)
+    JAX's invalid combinations of options raise JAX's errors
+    (`unported.check_jax_combinations`), as does an `lr_schedule` with
+    `SparseFTRL` (alpha is baked into its state), before the first step, as
+    the JAX loop's first step does."""
+    check_jax_combinations(exchange=exchange, wire_dtype=wire_dtype,
+                           delta_ckpt=delta_ckpt, delta_every=delta_every,
+                           mesh=mesh, plan=plan)
     step_kw = tuner = None
     if mesh is not None:
         from ..parallel.alltoall import CapacityAutoTuner
@@ -773,8 +762,8 @@ def train_dcn(cfg, train_iter: Iterator[dict], num_steps: int, *,
     included; with `mesh` the sharded DCN (`parallel.dcn`) on the gather
     exchange, or with `plan` too the planned DCN, `train_dlrm`'s
     contract."""
-    _refuse("train_dcn", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan)
+    check_jax_combinations(delta_ckpt=delta_ckpt, delta_every=delta_every,
+                           mesh=mesh, plan=plan)
     return _train_ctr(
         _dcn_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
@@ -815,8 +804,8 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
                                                            "fm_state"),)
         return (("tables", "emb_state"),) + fm
 
-    _refuse("train_deepfm", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan)
+    check_jax_combinations(delta_ckpt=delta_ckpt, delta_every=delta_every,
+                           mesh=mesh, plan=plan)
     return _train_ctr(
         _deepfm_family(), cfg, train_iter, num_steps, sparse_opt=sparse_opt,
         dense_lr=dense_lr, dense_tx=dense_tx, microbatch=microbatch,
@@ -834,6 +823,32 @@ def train_deepfm(cfg, train_iter: Iterator[dict], num_steps: int, *,
 # ---------------------------------------------------------------------------
 # Retrieval
 # ---------------------------------------------------------------------------
+
+def _planned_two_tower(cfg, model, mesh, q_plan, i_plan, sparse_opt, seed,
+                       tel):
+    """The planned two-tower model to train in place (JAX's branch order):
+    a fresh one from `seed` on the plans, a single-device model (given, or
+    built from numpy arrays) carried onto them with its optimizer state, or
+    a `PlannedTwoTower` itself; anything else is a `TypeError`."""
+    from ..interop import two_tower_from_arrays
+    from ..parallel import planner as pp
+    from ..parallel.mesh import mesh_device
+    from .two_tower import TwoTower
+    if model is None:
+        with tel.phase("init"):
+            return pp.init_planned_two_tower(cfg, q_plan, i_plan, mesh,
+                                             sparse_opt=sparse_opt, seed=seed)
+    if isinstance(model, dict):
+        model = two_tower_from_arrays(cfg, device=mesh_device(mesh), **model)
+    if isinstance(model, TwoTower):
+        return pp.place_two_tower_on_plan(q_plan, i_plan, mesh, model,
+                                          sparse_opt)
+    if not isinstance(model, pp.PlannedTwoTower):
+        raise TypeError(
+            f"plan= expects a TwoTower or PlannedTwoTower model, got "
+            f"{type(model).__name__} (unshard a sharded model first)")
+    return model
+
 
 def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
                     sparse_opt=None, dense_lr: float = 0.05, model=None,
@@ -856,12 +871,18 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     arguments and batches) the sharded step (`parallel.two_tower`) trains
     on each rank's data-axis block, the recall comes from the sharded
     retriever over the block-row index of the unsharded model, and the
-    result's model is unsharded, as JAX's. JAX's other options follow
-    `unported.py`."""
+    result's model is unsharded, as JAX's. With `plan=(q_plan, i_plan)`
+    beside `mesh` the model is a `parallel.planner.PlannedTwoTower` (made
+    fresh, carried from a single-device `model` with its optimizer state,
+    or given; anything else is JAX's `TypeError`), the batch splits over
+    `q_plan.axis`, the recall comes from the planned index and retrieval,
+    full checkpoints are saved by every rank of the placement, and the
+    result carries the planned model, as JAX's; `delta_ckpt` with a plan
+    raises JAX's `NotImplementedError`."""
     from . import two_tower as tt
     from ..interop import two_tower_from_arrays
-    _refuse("train_two_tower", delta_ckpt=delta_ckpt, delta_every=delta_every,
-            mesh=mesh, plan=plan)
+    check_jax_combinations(delta_ckpt=delta_ckpt, delta_every=delta_every,
+                           mesh=mesh, plan=plan)
     tel = _telemetry.get_telemetry()
     sparse_opt = sparse_opt or SparseSGD(0.05)
     if mesh is None:
@@ -884,17 +905,44 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
         from ..parallel import two_tower as ptt
         from ..parallel.dlrm import rank_generator
         from ..parallel.mesh import mesh_device
-        if not isinstance(model, ptt.ShardedTwoTower):
-            model = ptt.shard_two_tower(
-                _model_for(tt.init_two_tower, two_tower_from_arrays, cfg,
-                           model, seed, mesh_device(mesh), sparse_opt, tel),
-                mesh, axis, sparse_opt=sparse_opt)
-        ex = model.query_tables.exchange
-        device = model.query_tables.data.device
-        step = ptt.make_sharded_tt_train_step(cfg, mesh, axis,
-                                              sparse_opt=sparse_opt,
-                                              dense_lr=dense_lr)
-        shardings = ptt.tt_batch_shardings(mesh, axis)
+        if plan is not None:
+            from ..parallel import planner as pp
+            q_plan, i_plan = plan
+            model = _planned_two_tower(cfg, model, mesh, q_plan, i_plan,
+                                       sparse_opt, seed, tel)
+            ex = model.query_tables.exchange
+            device = model.query_tables.device
+            step = pp.make_planned_tt_train_step(cfg, mesh,
+                                                 sparse_opt=sparse_opt,
+                                                 dense_lr=dense_lr)
+            shardings = ptt.tt_batch_shardings(mesh, q_plan.axis)
+
+            def retriever(m):
+                index = pp.planned_build_item_index(mesh, m)
+                return index, (lambda index, dense, q_cat: pp.planned_retrieve(
+                    mesh, m, index, dense, q_cat, k=k))
+
+            to_dense = None
+        else:
+            if not isinstance(model, ptt.ShardedTwoTower):
+                model = ptt.shard_two_tower(
+                    _model_for(tt.init_two_tower, two_tower_from_arrays, cfg,
+                               model, seed, mesh_device(mesh), sparse_opt,
+                               tel), mesh, axis, sparse_opt=sparse_opt)
+            ex = model.query_tables.exchange
+            device = model.query_tables.data.device
+            step = ptt.make_sharded_tt_train_step(cfg, mesh, axis,
+                                                  sparse_opt=sparse_opt,
+                                                  dense_lr=dense_lr)
+            shardings = ptt.tt_batch_shardings(mesh, axis)
+
+            def retriever(m):
+                single = ptt.unshard_two_tower(m)
+                return (ptt.build_sharded_item_index(single, mesh, axis),
+                        ptt.make_sharded_retriever(single, mesh, k=k,
+                                                   axis=axis))
+
+            to_dense = ptt.unshard_two_tower
 
         def put(b):
             return tuple(torch.as_tensor(f(b[key])).to(device,
@@ -902,15 +950,9 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
                          for f, key in zip(shardings,
                                            ("dense", "q_cat", "item_ids")))
 
-        def retriever(m):
-            single = ptt.unshard_two_tower(m)
-            return (ptt.build_sharded_item_index(single, mesh, axis),
-                    ptt.make_sharded_retriever(single, mesh, k=k, axis=axis))
-
         generator = None
         if getattr(sparse_opt, "stochastic_rounding", False):
             generator = rank_generator(seed + 1_000_003, ex.me, device)
-        to_dense = ptt.unshard_two_tower
         verbose = verbose and _rank() == 0
 
     def eval_fn(m):
@@ -961,8 +1003,7 @@ def train_two_tower(cfg, train_iter: Iterator[dict], num_steps: int, *,
     model, losses, recalls, eps, _ = _run_loop(
         model=model, device=device, step=step, put=put, train_iter=train_iter,
         num_steps=num_steps, tel=tel,
-        batch_count=lambda b: b["item_ids"].shape[0],
-        generator=_sr_generator_for(sparse_opt, seed, device),
+        batch_count=lambda b: b["item_ids"].shape[0], generator=generator,
         split_out=split_out, log_every=log_every, verbose=verbose,
         on_log=on_log, eval_every=eval_every, eval_batches=eval_batches,
         eval_fn=eval_fn, delta_fn=delta_fn, ckpt_manager=ckpt_manager,

@@ -16,10 +16,12 @@ also what the kernel is checked against on the card. The kernels take any
 width and any table base aligned to its element: rows off the 16-byte grid
 (DeepFM's fused D + 1 = 129, a table viewed from inside its buffer) take the
 realigning vector kernels. Each wrapper counts its launches in
-`<wrapper>.launches`.
+`<wrapper>.launches`, and `gather_rows` its launches at each row width in
+`gather_rows.widths` (a `Counter` keyed by D).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -96,6 +98,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                  _lib.stream_of(table))
     _lib.check(lib, err, "gather_rows")
     gather_rows.launches += 1
+    gather_rows.widths[d] += 1
     return out
 
 
@@ -120,4 +123,5 @@ def gather_bags(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+gather_rows.widths = collections.Counter()
 gather_bags.launches = 0

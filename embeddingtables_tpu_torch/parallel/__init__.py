@@ -4,10 +4,9 @@ gloo on the CPU. Meshes (`mesh`), mod-row-sharded tables with the exact
 gather exchange (`sharded`), the capacity-bounded butterfly (`alltoall`),
 and every family on the mesh: the sharded DLRM (`dlrm`), DCN (`dcn`),
 DeepFM (`deepfm`) and two-tower retriever (`two_tower`), column sharding
-(`colshard`) and the sharding planner for the CTR families (`planner`:
-replicated, row- and column-sharded tables in one plan). The planner's mixed
-dimensions and planned two-tower model are not ported yet (ROADMAP.md queue
-1, item I-3b)."""
+(`colshard`) and the sharding planner (`planner`: replicated, row- and
+column-sharded tables in one plan, for every family, and tables of mixed
+dims)."""
 from .alltoall import (CapacityAutoTuner, sharded_adagrad_update_a2a,
                        sharded_adam_update_a2a, sharded_ftrl_update_a2a,
                        sharded_lookup_a2a, sharded_sgd_update_a2a,
@@ -23,17 +22,23 @@ from .dlrm import (ShardedDLRM, batch_shardings, init_sharded_dlrm,
                    local_batch, make_sharded_eval_step,
                    make_sharded_train_step, shard_dlrm, unshard_dlrm)
 from .mesh import default_mesh, init_process, local_mesh, multihost_mesh
-from .planner import (COL_SHARD, REPLICATE, ROW_SHARD, PlacementDecision,
-                      PlannedDCN, PlannedDeepFM, PlannedDLRM, PlannedTables,
+from .planner import (COL_SHARD, REPLICATE, ROW_SHARD, MixedDimPlannedTables,
+                      PlacementDecision, PlannedDCN, PlannedDeepFM,
+                      PlannedDLRM, PlannedTables, PlannedTwoTower,
                       ShardingPlan, evict_rows_planned, hotness_from_trackers,
                       init_planned_dcn, init_planned_deepfm,
-                      init_planned_dlrm, make_planned_dcn_eval_step,
+                      init_planned_dlrm, init_planned_two_tower,
+                      make_planned_dcn_eval_step,
                       make_planned_dcn_train_step,
                       make_planned_deepfm_eval_step,
                       make_planned_deepfm_train_step, make_planned_eval_step,
-                      make_planned_train_step, place_stacked_on_plan,
-                      plan_model, plan_sharding, planned_apply,
-                      planned_lookup, planned_row_state, skew_from_trackers)
+                      make_planned_train_step, make_planned_tt_train_step,
+                      mixed_planned_apply, mixed_planned_lookup,
+                      place_stacked_on_plan, place_two_tower_on_plan,
+                      plan_model, plan_sharding, plan_sharding_mixed,
+                      planned_apply, planned_build_item_index,
+                      planned_lookup, planned_retrieve, planned_row_state,
+                      skew_from_trackers)
 from .sharded import (ShardedStackedTables, flat_index, shard_row_accum,
                       shard_table, sharded_ensemble_lookup,
                       sharded_ensemble_update, sharded_lookup,

@@ -1,5 +1,5 @@
 """The sharding planner: a placement for every table over the mesh
-(counterpart of the CTR part of `embeddingtables_tpu/parallel/planner.py`).
+(counterpart of `embeddingtables_tpu/parallel/planner.py`).
 
 Three placements, each a group stacked along the vocab axis, so a plan
 still does one gather per group:
@@ -31,13 +31,20 @@ shapes; the col group's AdaGrad accumulator and the replicated group's are
 whole on every rank). `planned_lookup` and `planned_apply` run the three
 groups. The planned DLRM, DCN and folded DeepFM are adapters on
 `parallel.dlrm.gather_train_step` with the planner's lookup and update, as
-the sharded families are with the gather exchange's.
+the sharded families are with the gather exchange's. Tables of several dims
+group by dim (`plan_sharding_mixed`, `MixedDimPlannedTables`: one
+`PlannedTables` a group). The planned two-tower retriever
+(`PlannedTwoTower`) puts its query stack and its item corpus each on a plan
+and trains with the sharded two-tower step's in-batch softmax over the
+ranks; its corpus index is whole on every rank.
 
 Stochastic rounding: the replicated group draws its noise from a generator
 seeded by one number that rank 0 of the placement draws from its generator
 and broadcasts (the replicas must round alike); the row and col groups draw
 each rank's own noise from its generator, after it, in that order (JAX
-folds 0, 1 and 2 into one key: ROADMAP.md queue 3).
+folds 0, 1 and 2 into one key: ROADMAP.md queue 3); the groups of a
+mixed-dim plan draw from the one generator in group order (JAX folds the
+group index in).
 
 Every rank must call every function here that touches a sharded group in
 the same order: they are collectives.
@@ -58,20 +65,23 @@ from ..models.dcn import DCN
 from ..models.deepfm import DeepFM
 from ..models.dlrm import (RowState, _init_mlp, _pairs, _param_list,
                            forward_from_embeddings as dlrm_forward,
-                           with_dense_tx)
+                           step_generator, with_dense_tx)
+from ..models.two_tower import (TwoTower, TwoTowerConfig,
+                                item_embed_from_rows, query_embed_from_rows)
 from ..ops.cuda.gather import gather_rows
 from ..ops.ensemble import StackedTables, normalize_indices
 from ..ops.sparse_update import SparseEmbeddingUpdate
 from ..optim import (SparseAdamState, SparseFTRL, SparseFTRLState,
                      SparseLazyAdam, SparseOptState, SparseRowWiseAdaGrad,
                      SparseSGD, adagrad_dense_body, adam_dense_body,
-                     check_dense_tx, ftrl_dense_body, ftrl_init_arrays,
-                     run_scatter_dense_grad, sgd_dense_body)
+                     apply_dense_tx, check_dense_tx, ftrl_dense_body,
+                     ftrl_init_arrays, run_scatter_dense_grad,
+                     sgd_dense_body)
 from ..tables import SimpleEmbedding
 from .colshard import (ColShardedStackedTables, col_sharded_lookup,
                        col_sharded_update, col_slice, init_col_row_state)
-from .dlrm import (_check_sharded_opt, _copy_layers, gather_train_step,
-                   rank_generator)
+from .dlrm import (_block, _check_sharded_opt, _copy_layers, _global_mean,
+                   _local_grads, gather_train_step, rank_generator)
 from .mesh import mesh_device
 from .sharded import (Exchange, ShardedStackedTables, _apply_table_major,
                       _axes_tuple, _dims, shard_row_accum,
@@ -1226,3 +1236,321 @@ def evict_rows_planned(pt: PlannedTables, cold_per_table) -> PlannedTables:
                 pt.col.data.index_fill_(0, rows, 0)
                 _zero_state_rows(pt.col_state, rows, pt.col.vocab)
     return pt
+
+
+# ---------------------------------------------------------------------------
+# Mixed feature dimensions: one PlannedTables group per distinct dim
+# ---------------------------------------------------------------------------
+
+def plan_sharding_mixed(vocab_sizes: Sequence[int], dims: Sequence[int],
+                        mesh, axis: str | tuple = "data", **kw) -> tuple:
+    """A placement for an ensemble whose tables have their own dims (a
+    stack needs one dim, so the tables group by dim first): `(plans,
+    groups)`, `plans[g]` the `ShardingPlan` of dim group g in ascending dim
+    order and `groups[g]` the original table indices it covers, in order.
+    `plan_sharding`'s other keywords hold for every group. The budgets are
+    per device for the whole ensemble: each group's replicate budget is
+    what the earlier groups left of `replicate_budget_bytes`, and
+    `hbm_budget_bytes` is checked on the groups' combined total
+    (`ValueError` with every group's summary)."""
+    if len(dims) != len(vocab_sizes):
+        raise ValueError("dims/vocab_sizes length mismatch")
+    names = kw.pop("names", None)
+    hotness = kw.pop("hotness", None)
+    hbm_budget = kw.pop("hbm_budget_bytes", None)
+    repl_budget = kw.pop("replicate_budget_bytes", 256 << 20)
+    plans, groups = [], []
+    for d in sorted(set(dims)):
+        idxs = tuple(i for i, dd in enumerate(dims) if dd == d)
+        plan = plan_sharding(
+            [vocab_sizes[i] for i in idxs], d, mesh, axis,
+            names=None if names is None else [names[i] for i in idxs],
+            hotness=None if hotness is None else [hotness[i] for i in idxs],
+            replicate_budget_bytes=repl_budget, **kw)
+        repl_budget -= sum(dec.table_bytes for dec in plan.decisions
+                           if dec.placement == REPLICATE)
+        plans.append(plan)
+        groups.append(idxs)
+    if hbm_budget is not None:
+        total = sum(p.bytes_per_device for p in plans)
+        if total > hbm_budget:
+            raise ValueError(
+                f"mixed plan needs {total / 2**20:.1f} MiB/device, budget "
+                f"is {hbm_budget / 2**20:.1f} MiB\n"
+                + "\n".join(p.summary() for p in plans))
+    return tuple(plans), tuple(groups)
+
+
+class MixedDimPlannedTables(nn.Module):
+    """A mixed-dim plan, realized: one `PlannedTables` per dim group
+    (`groups`) and `table_map[t] = (group, position in the group)` of each
+    original table. Lookups and updates take and give per-table lists in
+    the original order (tables of several dims make no `(T, B, D)`
+    stack)."""
+
+    def __init__(self, groups: Sequence[PlannedTables], table_map):
+        super().__init__()
+        self.groups = nn.ModuleList(groups)
+        self.table_map = tuple(table_map)
+
+    @property
+    def ntables(self) -> int:
+        return len(self.table_map)
+
+    def table(self, t: int) -> torch.Tensor:
+        """Table t, dense (a collective)."""
+        g, j = self.table_map[t]
+        return self.groups[g].table(j)
+
+    def members(self, g: int) -> list:
+        """The original table indices of group g, in group order."""
+        return [t for t, (gg, _) in enumerate(self.table_map) if gg == g]
+
+    @staticmethod
+    def _map(group_idxs) -> tuple:
+        table_map = [None] * sum(len(ix) for ix in group_idxs)
+        for g, idxs in enumerate(group_idxs):
+            for j, t in enumerate(idxs):
+                table_map[t] = (g, j)
+        return tuple(table_map)
+
+    @classmethod
+    def from_tables(cls, plans, group_idxs, mesh, tables: Sequence, *,
+                    adagrad: bool = False,
+                    sparse_opt=None) -> "MixedDimPlannedTables":
+        """Place existing per-table `(V, D_t)` tables by the mixed plan
+        (`plan_sharding_mixed`'s `(plans, groups)`). `sparse_opt`: each
+        group's fresh state of that optimizer (`planned_row_state`; it
+        supersedes `adagrad`)."""
+        groups = []
+        for plan, idxs in zip(plans, group_idxs):
+            pt = PlannedTables.from_tables(
+                plan, mesh, [tables[i] for i in idxs], adagrad=adagrad)
+            if sparse_opt is not None:
+                pt.set_row_state(*planned_row_state(mesh, pt, sparse_opt))
+            groups.append(pt)
+        return cls(groups, cls._map(group_idxs))
+
+    @classmethod
+    def init(cls, generator: torch.Generator, plans, group_idxs, mesh, *,
+             dtype=torch.float32, adagrad: bool = False,
+             sparse_opt=None) -> "MixedDimPlannedTables":
+        """Random tables by the mixed plan: each group by
+        `PlannedTables.init` from `generator`, in group order (seeded alike
+        on every rank)."""
+        groups = []
+        for plan in plans:
+            pt = PlannedTables.init(generator, plan, mesh, dtype=dtype,
+                                    adagrad=adagrad)
+            if sparse_opt is not None:
+                pt.set_row_state(*planned_row_state(mesh, pt, sparse_opt))
+            groups.append(pt)
+        return cls(groups, cls._map(group_idxs))
+
+
+def mixed_planned_lookup(mesh, mt: MixedDimPlannedTables, indices, *,
+                         combiner: str = "sum",
+                         pad_idx: int | None = None) -> list:
+    """Per-table lookups `[(b, D_t), ...]` in the original table order:
+    one `planned_lookup` a group (`combiner` and `pad_idx` as there)."""
+    idx_list = normalize_indices(indices, mt.ntables)
+    out = [None] * mt.ntables
+    for g, pt in enumerate(mt.groups):
+        idxs = mt.members(g)
+        sub = planned_lookup(mesh, pt, [idx_list[t] for t in idxs],
+                             combiner=combiner, pad_idx=pad_idx)
+        for j, t in enumerate(idxs):
+            out[t] = sub[j]
+    return out
+
+
+def mixed_planned_apply(mesh, mt: MixedDimPlannedTables, indices,
+                        deltas: Sequence, sparse_opt, *, combiner: str = "sum",
+                        pad_idx: int | None = None, lr=None,
+                        generator=None) -> MixedDimPlannedTables:
+    """The per-table lazy deltas `[(b, D_t), ...]` applied by the mixed
+    plan, in place: one `planned_apply` a group, in group order. Returns
+    `mt`. Under stochastic rounding every group draws from `generator`
+    after the groups before it (JAX folds the group index into its key:
+    ROADMAP.md queue 3)."""
+    idx_list = normalize_indices(indices, mt.ntables)
+    for g, pt in enumerate(mt.groups):
+        idxs = mt.members(g)
+        delta_t = torch.stack([torch.as_tensor(deltas[t]).to(pt.device)
+                               for t in idxs])
+        planned_apply(mesh, pt, [idx_list[t] for t in idxs], delta_t,
+                      sparse_opt, combiner=combiner, pad_idx=pad_idx, lr=lr,
+                      generator=generator)
+    return mt
+
+
+# ---------------------------------------------------------------------------
+# The two-tower retriever on the planner
+# ---------------------------------------------------------------------------
+
+class PlannedTwoTower(nn.Module):
+    """A two-tower retriever whose two row spaces are `PlannedTables`: the
+    query stack under `q_plan` (`query_tables`) and the item corpus as a
+    single-table plan under `i_plan` (`item_tables`; a large corpus
+    row-shards, a small one replicates), each with its groups' sparse
+    optimizer state; the MLPs replicated on every rank."""
+
+    query_mlp, item_mlp = TwoTower.query_mlp, TwoTower.item_mlp
+
+    def __init__(self, config: TwoTowerConfig, query_tables: PlannedTables,
+                 item_tables: PlannedTables, query_mlp, item_mlp):
+        super().__init__()
+        self.config = config
+        self.query_tables = query_tables
+        self.item_tables = item_tables
+        self.query_mlp_params = _param_list(query_mlp)
+        self.item_mlp_params = _param_list(item_mlp)
+
+
+def _check_item_plan(i_plan: ShardingPlan, cfg) -> None:
+    if len(i_plan.decisions) != 1 or \
+            i_plan.decisions[0].vocab != cfg.item_vocab:
+        raise ValueError(
+            "i_plan must be a single-table plan over (item_vocab,): build it "
+            "with plan_sharding([cfg.item_vocab], cfg.dim, mesh)")
+
+
+def init_planned_two_tower(cfg: TwoTowerConfig, q_plan: ShardingPlan,
+                           i_plan: ShardingPlan, mesh, sparse_opt=None,
+                           seed: int = 0) -> PlannedTwoTower:
+    """A random two-tower model made directly on the plans (JAX's `key` is
+    `seed`): from one generator seeded alike on every rank, the query
+    tables and the item corpus (`PlannedTables.init`, at `1/sqrt(dim)`),
+    then the MLPs; `sparse_opt`'s fresh state of every group (default
+    `SparseSGD(0.05)`)."""
+    _check_item_plan(i_plan, cfg)
+    sparse_opt = sparse_opt or SparseSGD(0.05)
+    device = mesh_device(mesh)
+    g = torch.Generator(device=device).manual_seed(seed)
+    scale = 1.0 / cfg.dim ** 0.5
+    groups = []
+    for plan in (q_plan, i_plan):
+        pt = PlannedTables.init(g, plan, mesh, scale=scale,
+                                dtype=cfg.tables_dtype)
+        groups.append(pt.set_row_state(*planned_row_state(mesh, pt,
+                                                          sparse_opt)))
+    q_in = cfg.num_dense + cfg.num_query_tables * cfg.dim
+    qmlp = _init_mlp((q_in,) + cfg.query_mlp, cfg.param_dtype, g, device)
+    imlp = _init_mlp((cfg.dim,) + cfg.item_mlp, cfg.param_dtype, g, device)
+    return PlannedTwoTower(cfg, *groups, qmlp, imlp)
+
+
+def place_two_tower_on_plan(q_plan: ShardingPlan, i_plan: ShardingPlan,
+                            mesh, model: TwoTower,
+                            sparse_opt) -> PlannedTwoTower:
+    """A single-device `TwoTower` carried onto the plans with its tables'
+    optimizer states (`place_stacked_on_plan` for each row space) and
+    copies of its MLPs: the resume path of `train_two_tower(plan=)`. Every
+    rank must pass the same model."""
+    cfg = model.config
+    _check_item_plan(i_plan, cfg)
+    q_pt = place_stacked_on_plan(q_plan, mesh, model.query_tables,
+                                 model.q_state, sparse_opt)
+    items = StackedTables(model.item_data, (0, cfg.item_vocab), cfg.dim)
+    i_pt = place_stacked_on_plan(i_plan, mesh, items, model.i_state,
+                                 sparse_opt)
+    return PlannedTwoTower(cfg, q_pt, i_pt, _copy_layers(model.query_mlp),
+                           _copy_layers(model.item_mlp))
+
+
+def make_planned_tt_train_step(cfg: TwoTowerConfig, mesh, sparse_opt=None,
+                               dense_lr: float = 0.05):
+    """The contrastive train step on a planned model, `step(model, dense,
+    q_cat, item_ids, generator=None) -> (loss, acc)` on this rank's block
+    (`parallel.tt_batch_shardings` over the query plan's axis), in place:
+    the sharded two-tower step's math (`make_sharded_tt_train_step`: the
+    in-batch softmax over every rank's items, `_softmax_over_ranks`) with
+    both lookups through `planned_lookup` and both lazy updates through
+    `planned_apply`, the query stack's first, then the item corpus's (under
+    stochastic rounding both from this rank's `generator`: JAX folds 0 and
+    1 into its key); then plain SGD on both MLPs."""
+    from .two_tower import _softmax_over_ranks
+    sparse_opt = sparse_opt or SparseSGD(0.05)
+    _check_sharded_opt(sparse_opt)
+
+    def step(model: PlannedTwoTower, dense, q_cat, item_ids,
+             generator=None):
+        kw = step_generator(sparse_opt, generator, "train_two_tower")
+        qt, it = model.query_tables, model.item_tables
+        ex = qt.exchange
+        device = qt.device
+        dense = torch.as_tensor(dense).to(device)
+        q_cat = torch.as_tensor(q_cat).to(device, torch.int32)
+        item_ids = torch.as_tensor(item_ids).to(device, torch.int32)
+        with torch.no_grad():
+            q_rows = planned_lookup(mesh, qt, q_cat).transpose(0, 1)
+            i_rows = planned_lookup(mesh, it, item_ids[None])[0]
+        params = list(model.parameters())
+        acc = []
+
+        def loss_fn(acts):
+            q = query_embed_from_rows(model.query_mlp, cfg, dense, acts[0])
+            i = item_embed_from_rows(model.item_mlp, cfg, acts[1])
+            loss, a = _softmax_over_ranks(ex, q, i, cfg.temperature)
+            acc.append(a.detach())
+            return loss
+
+        loss, grads, (q_delta, i_delta) = _local_grads(
+            params, [q_rows, i_rows], loss_fn)
+        loss, grads = _global_mean(ex, loss, grads + [acc[0].reshape(1)])
+        acc = grads.pop()[0]
+        planned_apply(mesh, qt, q_cat,
+                      q_delta.transpose(0, 1).float() / ex.n_data,
+                      sparse_opt, **kw)
+        planned_apply(mesh, it, item_ids[None],
+                      i_delta[None].float() / ex.n_data, sparse_opt, **kw)
+        apply_dense_tx(params, grads, None, None, dense_lr)
+        return loss, acc
+
+    return step
+
+
+def planned_build_item_index(mesh, model: PlannedTwoTower,
+                             batch: int = 65_536) -> torch.Tensor:
+    """The `(item_vocab, embed_dim)` corpus index of a planned model, whole
+    on every rank (a collective): the item tower over `batch` items at a
+    time, each rank embedding its block of the chunk (rows by
+    `planned_lookup`), the blocks all-gathered. A ragged last chunk is
+    padded to a multiple of the data axis with item 0, as in JAX, and
+    trimmed. JAX's index is one global array that GSPMD places; every rank
+    holds it whole here (ROADMAP.md queue 3)."""
+    cfg = model.config
+    it = model.item_tables
+    ex = it.exchange
+    v = cfg.item_vocab
+    outs = []
+    with torch.inference_mode():
+        for lo in range(0, v, batch):
+            n = min(v, lo + batch) - lo
+            ids = torch.arange(lo, lo + n + (-n % ex.n_data),
+                               dtype=torch.int32, device=it.device) % v
+            ids = ids[_block(ex, ids.shape[0])]
+            rows = planned_lookup(mesh, it, ids[None])[0]
+            emb = item_embed_from_rows(model.item_mlp, cfg, rows)
+            outs.append(ex.gather_batch(emb.contiguous())[:n])
+    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def planned_retrieve(mesh, model: PlannedTwoTower, index: torch.Tensor,
+                     dense, q_cat, k: int = 10):
+    """Top-k retrieval on a planned model (a collective: every rank calls
+    it with the same queries and gets the same answer): the query rows by
+    `planned_lookup`, the query tower, one `(B, V)` product with the whole
+    index (`planned_build_item_index`) and `torch.topk`, as
+    `models.two_tower.retrieve`. Returns `(scores (B, k), item_ids (B, k)
+    int32)`."""
+    cfg = model.config
+    qt = model.query_tables
+    with torch.inference_mode():
+        q_cat = torch.as_tensor(q_cat).to(qt.device, torch.int32)
+        q_rows = planned_lookup(mesh, qt, q_cat).transpose(0, 1)
+        q = query_embed_from_rows(model.query_mlp, cfg,
+                                  torch.as_tensor(dense).to(qt.device),
+                                  q_rows)
+        scores, ids = torch.topk(q @ index.T, k, dim=-1)
+    return scores, ids.to(torch.int32)

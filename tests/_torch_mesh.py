@@ -5,7 +5,9 @@ through a `FileStore` in `directory` (no TCP port, so parallel test workers
 do not collide) and build the 1-D `("data",)` mesh and the `(2, 2)`
 `("data", "model")` mesh. `pool.run(name, *args)` then runs the function
 `name` of this module on every rank at once, `fn(ctx, *args)`, and returns
-the ranks' results in rank order. The ranks import torch and the port only,
+the ranks' results in rank order; `pool.submit(name, *args)` starts the
+same and returns a function that waits for those results, so a test can
+compute JAX's side while the ranks run. The ranks import torch and the port only,
 never JAX: the tests compute JAX's side in their own process. A rank that
 raises, or ranks that do not answer within `TIMEOUT` seconds, fail the call;
 the ranks are then killed and the next call starts a new group.
@@ -15,11 +17,13 @@ return numpy arrays (or plain values), so nothing but data crosses.
 """
 import multiprocessing
 import os
+import pickle
 import queue
 import time
 import traceback
 
 import numpy as np
+from multiprocessing.reduction import ForkingPickler
 
 TIMEOUT = 120.0
 
@@ -60,29 +64,36 @@ def _worker(rank, n, store, inbox, outbox):
         pmesh.init_process(f"file://{store}", n, rank, device="cpu")
         ctx = Ctx(rank, n)
     except BaseException:
-        outbox.put((rank, ("err", traceback.format_exc())))
+        outbox.put((rank, "ready", ("err", traceback.format_exc())))
         return
-    outbox.put((rank, ("ok", "ready")))
+    outbox.put((rank, "ready", ("ok", "ready")))
     while True:
         msg = inbox.get()
         if msg is None:
             break
-        name, args, kwargs = msg
+        name, args, kwargs = pickle.loads(msg)
         try:
             out = ("ok", globals()[name](ctx, *args, **kwargs))
         except BaseException:
             out = ("err", traceback.format_exc())
-        outbox.put((rank, out))
+        outbox.put((rank, "result", out))
     dist.destroy_process_group()
 
 
 class MeshPool:
     def __init__(self, n: int, directory: str):
+        """Spawn the n ranks now; they join their group while the caller
+        goes on (the first result waits for them)."""
         self.n, self.directory = n, directory
         self.generation = 0
         self.procs = []
+        self._starting = False
+        self._early = {}
+        self._start()
 
     def _start(self):
+        """Spawn the ranks; their "ready" is collected before the first
+        result (`_starting`)."""
         mp = multiprocessing.get_context("spawn")
         self.generation += 1
         store = os.path.join(self.directory, f"store{self.generation}")
@@ -94,15 +105,20 @@ class MeshPool:
                       for r in range(self.n)]
         for p in self.procs:
             p.start()
-        self._collect("start")
+        self._starting = True
+        self._early = {}
 
-    def _collect(self, name):
+    def _collect(self, name, kind="result"):
+        """The n ranks' messages of `kind` ("ready" or "result"); a result
+        that comes before every rank is ready waits in `_early`."""
         got = {}
+        if kind == "result":
+            got, self._early = self._early, {}
         deadline = time.monotonic() + TIMEOUT
         while len(got) < self.n:
             left = deadline - time.monotonic()
             try:
-                rank, out = self.outbox.get(timeout=max(left, 0.01))
+                rank, k, out = self.outbox.get(timeout=max(left, 0.01))
             except queue.Empty:
                 self.close(kill=True)
                 raise AssertionError(f"mesh ranks did not answer {name} "
@@ -111,16 +127,33 @@ class MeshPool:
                 self.close(kill=True)
                 raise AssertionError(f"rank {rank} failed in {name}:\n"
                                      f"{out[1]}")
+            if k != kind:
+                self._early[rank] = out[1]
+                continue
             got[rank] = out[1]
         return [got[r] for r in range(self.n)]
 
-    def run(self, name: str, *args, **kwargs) -> list:
+    def submit(self, name: str, *args, **kwargs):
+        """Start `name` on every rank; returns `result()`, which waits for
+        the ranks' results (call it before the next submit)."""
         if not self.procs or not all(p.is_alive() for p in self.procs):
             self.close(kill=True)
             self._start()
+        # Pickled now: the queue's feeder thread would pickle later, after
+        # the caller may have reused the arrays (JAX donates its buffers).
+        msg = bytes(ForkingPickler.dumps((name, args, kwargs)))
         for q in self.inboxes:
-            q.put((name, args, kwargs))
-        return self._collect(name)
+            q.put(msg)
+
+        def result() -> list:
+            if self._starting:
+                self._collect("start", "ready")
+                self._starting = False
+            return self._collect(name)
+        return result
+
+    def run(self, name: str, *args, **kwargs) -> list:
+        return self.submit(name, *args, **kwargs)()
 
     def close(self, kill: bool = False):
         for p, q in zip(self.procs, getattr(self, "inboxes", [])):
@@ -1194,3 +1227,242 @@ def planned_where_they_lie(ctx):
         finally:
             svc.stop()
     return seen
+
+
+# ---------------------------------------------------------------------------
+# Mixed dims, the planned two-tower model and the CLIs (test_torch_planner_tt)
+# ---------------------------------------------------------------------------
+
+def _by_hand(plan, places):
+    """`plan` with the given placements (one rank's `plan_sharding`
+    replicates every table)."""
+    import dataclasses
+    return dataclasses.replace(plan, decisions=tuple(
+        dataclasses.replace(d, placement=p)
+        for d, p in zip(plan.decisions, places)))
+
+
+def mixed_ops(ctx, vocabs, dims, plan_kw, tables, opt, steps, init_seed=None,
+              sr_seed=None, bf16=False):
+    """`plan_sharding_mixed` on the rank's mesh, `MixedDimPlannedTables`
+    from `tables` (or by `init` from `init_seed`) with `opt`'s state, then
+    for each `(idx, deltas)` global step this rank's block through
+    `mixed_planned_lookup` (gathered over the data axis) and
+    `mixed_planned_apply`. The groups, placements, initial tables, lookups
+    and the dense groups after each step."""
+    import torch
+    from embeddingtables_tpu_torch.parallel import (MixedDimPlannedTables,
+                                                    mixed_planned_apply,
+                                                    mixed_planned_lookup,
+                                                    plan_sharding_mixed)
+    mesh = ctx.mesh1
+    plans, groups = plan_sharding_mixed(list(vocabs), list(dims), mesh,
+                                        **(plan_kw or {}))
+    if init_seed is not None:
+        mt = MixedDimPlannedTables.init(
+            torch.Generator().manual_seed(init_seed), plans, groups, mesh,
+            sparse_opt=opt)
+    else:
+        mt = MixedDimPlannedTables.from_tables(
+            plans, groups, mesh,
+            [_t(t).to(torch.bfloat16 if bf16 else torch.float32)
+             for t in tables], sparse_opt=opt)
+    ex = mt.groups[0].exchange
+    gen = (None if sr_seed is None
+           else torch.Generator().manual_seed(sr_seed + ctx.rank))
+    out = {"groups": [list(g) for g in groups],
+           "placements": [[d.placement for d in p.decisions] for p in plans],
+           "init": [_np(mt.table(t)).copy() for t in range(mt.ntables)],
+           "steps": []}
+    for idx, deltas in steps:
+        block = [_t(_block(ctx, "data", i)) for i in idx]
+        got = mixed_planned_lookup(mesh, mt, block)
+        mixed_planned_apply(mesh, mt, block,
+                            [_t(_block(ctx, "data", d)) for d in deltas],
+                            opt, generator=gen)
+        out["steps"].append({
+            "lookup": [_np(ex.gather_batch(g.contiguous())) for g in got],
+            "groups": [planned_dense(pt) for pt in mt.groups],
+            "bits": [_repl_bits(pt) for pt in mt.groups]})
+    return out
+
+
+def mixed_sr_order(ctx, vocabs, dims, tables, seed):
+    """Stochastic rounding on bf16 mixed-dim tables: `mixed_planned_apply`
+    with a generator against each group's `planned_apply` in group order
+    with a generator of the same seed (the groups draw one after the
+    other). Whether the two give the same bits."""
+    import torch
+    from embeddingtables_tpu_torch.parallel import (MixedDimPlannedTables,
+                                                    mixed_planned_apply,
+                                                    plan_sharding_mixed,
+                                                    planned_apply)
+    from embeddingtables_tpu_torch.optim import SparseSGD
+    mesh = ctx.mesh1
+    plans, groups = plan_sharding_mixed(list(vocabs), list(dims), mesh,
+                                        replicate_max_bytes=1 << 20)
+    opt = SparseSGD(0.3, stochastic_rounding=True)
+    rng = np.random.default_rng(seed)
+    idx = [_t(rng.integers(0, v, 8).astype(np.int32)) for v in vocabs]
+    deltas = [_t(rng.standard_normal((8, d)).astype(np.float32) * 1e-3)
+              for d in dims]
+
+    def fresh():
+        return MixedDimPlannedTables.from_tables(
+            plans, groups, mesh, [_t(t).to(torch.bfloat16) for t in tables])
+    a, b = fresh(), fresh()
+    mixed_planned_apply(mesh, a, idx, deltas, opt,
+                        generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    for g, pt in enumerate(b.groups):
+        ts = b.members(g)
+        planned_apply(mesh, pt, [idx[t] for t in ts],
+                      torch.stack([deltas[t] for t in ts]), opt,
+                      generator=gen)
+    same = all(torch.equal(a.table(t).view(torch.int16),
+                           b.table(t).view(torch.int16))
+               for t in range(a.ntables))
+    moved = any(not torch.equal(a.table(t).float(), _t(tables[t]).to(
+        torch.bfloat16).float()) for t in range(a.ntables))
+    return same, moved
+
+
+def _tt_plans(ctx, cfg, q_kw, i_kw, places=None):
+    from embeddingtables_tpu_torch.parallel import plan_sharding
+    mesh = ctx.mesh1
+    qp = plan_sharding(cfg.query_vocab_sizes, cfg.dim, mesh, **q_kw)
+    ip = plan_sharding([cfg.item_vocab], cfg.dim, mesh, **i_kw)
+    if places is not None:
+        qp, ip = _by_hand(qp, places[0]), _by_hand(ip, places[1])
+    return qp, ip
+
+
+def _planned_tt_out(pm):
+    return {"query": planned_dense(pm.query_tables),
+            "items": planned_dense(pm.item_tables),
+            "towers": [_np(p) for p in pm.parameters()],
+            "bits": _repl_bits(pm.query_tables)}
+
+
+def planned_tt_steps(ctx, cfg, arrays, opt, q_kw, i_kw, batches,
+                     places=None):
+    """`place_two_tower_on_plan` of the single-device weights `arrays`,
+    then `make_planned_tt_train_step` on each global batch, each rank on
+    its block: losses, accuracies, the dense planned model and the
+    replicated group's bytes. `places`: the plans' placements by hand."""
+    from embeddingtables_tpu_torch.interop import two_tower_from_arrays
+    from embeddingtables_tpu_torch.parallel import (
+        make_planned_tt_train_step, place_two_tower_on_plan,
+        tt_batch_shardings)
+    mesh = ctx.mesh1
+    qp, ip = _tt_plans(ctx, cfg, q_kw, i_kw, places)
+    pm = place_two_tower_on_plan(
+        qp, ip, mesh, two_tower_from_arrays(cfg, device="cpu", **arrays), opt)
+    step = make_planned_tt_train_step(cfg, mesh, sparse_opt=opt, dense_lr=0.1)
+    put = tt_batch_shardings(mesh)
+    losses, accs = [], []
+    for batch in batches:
+        loss, acc = step(pm, *(_t(f(x)) for f, x in zip(put, batch)))
+        losses.append(float(loss))
+        accs.append(float(acc))
+    return {"losses": losses, "accs": accs, **_planned_tt_out(pm)}
+
+
+def planned_tt_bitwise(ctx, cfg, arrays, opt, batches, places):
+    """One rank: the planned two-tower step under the hand-made `places`
+    against the single-device step from the same weights: the names of
+    what differs in any bit (losses, query tables, items, towers)."""
+    import torch
+    from embeddingtables_tpu_torch.interop import two_tower_from_arrays
+    from embeddingtables_tpu_torch.models.two_tower import make_train_step
+    from embeddingtables_tpu_torch.parallel import (
+        make_planned_tt_train_step, place_two_tower_on_plan)
+    mesh = ctx.mesh1
+    qp, ip = _tt_plans(ctx, cfg, {}, {}, places)
+    pm = place_two_tower_on_plan(
+        qp, ip, mesh, two_tower_from_arrays(cfg, device="cpu", **arrays), opt)
+    single = two_tower_from_arrays(cfg, device="cpu", **arrays)
+    step = make_planned_tt_train_step(cfg, mesh, sparse_opt=opt, dense_lr=0.1)
+    step1 = make_train_step(cfg, sparse_opt=opt, dense_lr=0.1)
+    bad = []
+    for s, batch in enumerate(batches):
+        args = [_t(x) for x in batch]
+        lp, ap = step(pm, *args)
+        l1, a1 = step1(single, *args)
+        if not (torch.equal(lp, l1) and torch.equal(ap, a1)):
+            bad.append(f"loss {s}")
+    if not torch.equal(torch.cat(pm.query_tables.tables()),
+                       single.query_tables.data):
+        bad.append("query tables")
+    if not torch.equal(pm.item_tables.tables()[0], single.item_data):
+        bad.append("items")
+    if not all(torch.equal(a, b) for a, b in zip(pm.parameters(),
+                                                   single.parameters())):
+        bad.append("towers")
+    for name, st in (("q", single.q_state), ("i", single.i_state)):
+        pt = pm.query_tables if name == "q" else pm.item_tables
+        got = planned_dense(pt)["state"]
+        want = [_np(x) for x in st if x.dim() and x.numel()]
+        if any(not np.array_equal(g, w) for g, w in zip(got, want)) or \
+                len(got) != len(want):
+            bad.append(f"{name} state")
+    return bad
+
+
+def planned_tt_serve(ctx, cfg, arrays, q_kw, i_kw, batch, dense, q_cat, k):
+    """`planned_build_item_index` (chunks of `batch` items) and
+    `planned_retrieve` of the planned model: the index and the top k."""
+    from embeddingtables_tpu_torch.interop import two_tower_from_arrays
+    from embeddingtables_tpu_torch.optim import SparseSGD
+    from embeddingtables_tpu_torch.parallel import (place_two_tower_on_plan,
+                                                    planned_build_item_index,
+                                                    planned_retrieve)
+    mesh = ctx.mesh1
+    qp, ip = _tt_plans(ctx, cfg, q_kw, i_kw)
+    pm = place_two_tower_on_plan(
+        qp, ip, mesh, two_tower_from_arrays(cfg, device="cpu", **arrays),
+        SparseSGD(0.1))
+    index = planned_build_item_index(mesh, pm, batch=batch)
+    scores, ids = planned_retrieve(mesh, pm, index, _t(dense), _t(q_cat), k=k)
+    return _np(index), _np(scores), ids.numpy()
+
+
+def planned_tt_loop(ctx, cfg, arrays, opt, q_kw, i_kw, batches, evals,
+                    ckpt_dir):
+    """`train_two_tower(mesh=, plan=)` from the single-device weights with
+    a recall eval, `device_prefetch=1` and a `CheckpointManager` saving
+    every 2 steps; then the last checkpoint restored into a fresh planned
+    model of the same placement: the losses, recalls, the dense planned
+    model, and whether the restore is bitwise the trained model."""
+    import torch
+    from embeddingtables_tpu_torch.models.train import train_two_tower
+    from embeddingtables_tpu_torch.parallel import init_planned_two_tower
+    from embeddingtables_tpu_torch.utils import CheckpointManager
+    mesh = ctx.mesh1
+    qp, ip = _tt_plans(ctx, cfg, q_kw, i_kw)
+    keys = ("dense", "q_cat", "item_ids")
+    mgr = CheckpointManager(ckpt_dir)
+    res = train_two_tower(
+        cfg, iter([dict(zip(keys, b)) for b in batches]), len(batches),
+        model=dict(arrays), mesh=mesh, plan=(qp, ip), sparse_opt=opt,
+        dense_lr=0.1, log_every=1, eval_every=2,
+        eval_batches=[dict(zip(keys, b)) for b in evals], k=5,
+        ckpt_manager=mgr, ckpt_every=2, device_prefetch=1, device="cpu",
+        verbose=False)
+    fresh = init_planned_two_tower(cfg, qp, ip, mesh, sparse_opt=opt, seed=7)
+    mgr.restore_latest(fresh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        fresh.state_dict().values(), res.model.state_dict().values()))
+    return {"losses": res.losses, "recalls": res.recalls,
+            "type": type(res.model).__name__, "step": mgr.latest_step(),
+            "restored_bitwise": same, **_planned_tt_out(res.model)}
+
+
+def cli_mesh(ctx, argv):
+    """A port CLI's `main(argv)` on every rank of the (already formed)
+    group: the losses and the plan's placements."""
+    from embeddingtables_tpu_torch.scripts import train_dlrm
+    res = train_dlrm.main(argv)
+    pt = res.model.tables
+    return {"losses": res.losses, "type": type(res.model).__name__,
+            "placements": [d.placement for d in pt.plan.decisions]}

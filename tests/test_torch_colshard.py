@@ -182,8 +182,9 @@ def test_update_matches_jax_over_three_steps(pool, name):
     3): the tables and the whole state after each step."""
     data = table(10, 11)
     upds = updates(10, seed=len(name))
+    got = pool.submit("col_update", data, upds, OPTS[name](PO))
     want = jax_col_steps(data, upds, OPTS[name](JO))
-    got = pool.run("col_update", data, upds, OPTS[name](PO))[0]
+    got = got()[0]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["table"], w["table"], **TABLE)
         assert len(g["state"]) == len(w["state"])
@@ -195,8 +196,9 @@ def test_update_matches_jax_over_three_steps(pool, name):
 def test_weighted_sgd_update_at_an_even_width_matches_jax(pool, bag):
     data = table(8, 12)
     upds = updates(8, steps=2, seed=5, bag=bag, weights=True)
+    got = pool.submit("col_update", data, upds, PO.SparseSGD(0.5))
     want = jax_col_steps(data, upds, JO.SparseSGD(0.5))
-    got = pool.run("col_update", data, upds, PO.SparseSGD(0.5))[0]
+    got = got()[0]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["table"], w["table"], **TABLE)
 
@@ -209,8 +211,9 @@ def test_a_row_touched_in_one_slice_advances_every_slice(pool):
     delta = np.zeros((B, 8), np.float32)
     delta[:, 0] = 1.0
     upds = [dict(delta=delta, indices=np.full((B,), 7, np.int32))]
+    got = pool.submit("col_update", data, upds, PO.SparseLazyAdam(lr=0.1))
     want = jax_col_steps(data, upds, JO.SparseLazyAdam(lr=0.1))[0]
-    got = pool.run("col_update", data, upds, PO.SparseLazyAdam(lr=0.1))[0][0]
+    got = got()[0][0]
     np.testing.assert_allclose(got["table"], want["table"], rtol=1e-5,
                                atol=1e-6)
     assert got["table"][7, 0] != 1.0

@@ -33,13 +33,18 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 B = 16
 
 
-def _pair(seed=0, compute_dtype="float32", table_dtype=None, **kw):
-    """(JAX model, the same weights as a port model on the CPU)."""
+def _pair(seed=0, compute_dtype="float32", table_dtype=None, jit=False,
+          **kw):
+    """(JAX model, the same weights as a port model on the CPU). `jit`:
+    JAX's init as one compiled program (many tables: one compile instead
+    of one per op and table)."""
     jcfg = JaxConfig(**kw, compute_dtype=JAX_DT[compute_dtype],
                      table_dtype=JAX_DT.get(table_dtype))
     pcfg = ett.DLRMConfig(**kw, compute_dtype=TORCH_DT[compute_dtype],
                           table_dtype=TORCH_DT.get(table_dtype))
-    jm = jax_init_dlrm(jax.random.key(seed), jcfg)
+    init = (jax.jit(jax_init_dlrm, static_argnums=1) if jit
+            else jax_init_dlrm)
+    jm = init(jax.random.key(seed), jcfg)
 
     def arrays(layers):
         return [(np.asarray(w), np.asarray(b)) for w, b in layers]
@@ -61,8 +66,9 @@ def _inputs(cfg, seed=1, pad_frac=0.0):
     return dense, cat
 
 
-def _both(jm, pm, dense, cat):
-    want = np.asarray(jax_forward(jm, jnp.asarray(dense), jnp.asarray(cat)))
+def _both(jm, pm, dense, cat, jit=False):
+    forward = jax.jit(jax_forward) if jit else jax_forward
+    want = np.asarray(forward(jm, jnp.asarray(dense), jnp.asarray(cat)))
     got = ett.dlrm_forward(pm, dense, cat)
     assert got.dtype == torch.float32 and got.shape == (B,)
     return got.detach().numpy(), want
@@ -98,8 +104,8 @@ def test_64_tables_take_the_index_fallback(self_interaction):
     t1 = 65
     pairs = t1 * (t1 + 1) // 2 if self_interaction else t1 * (t1 - 1) // 2
     assert t1 * t1 * pairs > P._SEL_MAX_ENTRIES
-    jm, pm = _pair(**kw)
-    got, want = _both(jm, pm, *_inputs(pm.config))
+    jm, pm = _pair(jit=True, **kw)
+    got, want = _both(jm, pm, *_inputs(pm.config), jit=True)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 

@@ -92,11 +92,12 @@ def test_each_rank_holds_jax_devices_rows(pool, kind):
 def test_sharded_lookup_matches_jax(pool, kind, bag):
     table = _table(2)
     idx = _ids(3, (B,) if bag is None else (B, bag))
+    got = pool.submit("lookup", AXES[kind], table, idx, {})
     mesh = jax_mesh(kind)
     st = JS.ShardedStackedTables.shard(mesh, AXES[kind], jnp.asarray(table))
     want = np.asarray(jit(lambda s, i: JS.sharded_lookup(mesh, s, i),
                            st, put(mesh, idx)))
-    got = _blocks(pool.run("lookup", AXES[kind], table, idx, {}), kind)
+    got = _blocks(got(), kind)
     if bag is None:
         np.testing.assert_array_equal(got, want)
     else:
@@ -125,9 +126,11 @@ def test_sharded_ensemble_lookup_matches_jax(pool, mode):
     spec = P(None, "data")
     w = put(mesh, kw["weights"], spec) if "weights" in kw else None
     jkw = {k: v for k, v in kw.items() if k != "weights"}
+    outs = pool.submit("lookup", "data", (table, offs), idx, kw,
+                       ensemble=True)
     want = jit(lambda s, i, w: JS.sharded_ensemble_lookup(
         mesh, s, i, weights=w, **jkw), st, put(mesh, idx, spec), w)
-    outs = pool.run("lookup", "data", (table, offs), idx, kw, ensemble=True)
+    outs = outs()
     if mode == "fused":
         np.testing.assert_array_equal(np.concatenate(outs), np.asarray(want))
     else:
@@ -151,9 +154,10 @@ def test_sharded_sgd_update_matches_jax(pool, kind, bag):
     jupd = et.SparseEmbeddingUpdate(
         delta=put(mesh, upd["delta"]), indices=put(mesh, idx),
         weights=None if bag is None else put(mesh, upd["weights"]))
+    got = pool.submit("sgd_update", AXES[kind], table, upd, 0.5)
     want = np.asarray(jit(lambda s, u: JS.sharded_sgd_update(
         mesh, s, u, 0.5), st, jupd).unshard())
-    got = pool.run("sgd_update", AXES[kind], table, upd, 0.5)
+    got = got()
     for g in got:
         np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-6)
 
@@ -173,10 +177,11 @@ def test_sharded_ensemble_update_matches_jax(pool):
     jupds = [et.SparseEmbeddingUpdate(
         delta=put(mesh, u["delta"]), indices=put(mesh, u["indices"]),
         weights=put(mesh, u["weights"])) for u in upds]
+    got = pool.submit("sgd_update", "data", (table, offs), upds, 0.3,
+                      ensemble=True)
     want = np.asarray(jit(lambda s, u: JS.sharded_ensemble_update(
         mesh, s, u, 0.3), st, jupds).unshard())
-    got = pool.run("sgd_update", "data", (table, offs), upds, 0.3,
-                   ensemble=True)
+    got = got()
     np.testing.assert_allclose(got[0], want, rtol=1e-5, atol=1e-6)
 
 
@@ -186,10 +191,11 @@ def test_a2a_lookup_matches_jax_and_its_overflow(pool, kind, cf):
     idx = _ids(12, (B,), skew=True)
     mesh = jax_mesh(kind)
     st = JS.ShardedStackedTables.shard(mesh, AXES[kind], jnp.asarray(table))
+    outs = pool.submit("lookup_a2a", AXES[kind], table, idx,
+                       {"capacity_factor": cf})
     want, ovf = jit(lambda s, i: JA.sharded_lookup_a2a(
         mesh, s, i, capacity_factor=cf), st, put(mesh, idx))
-    outs = pool.run("lookup_a2a", AXES[kind], table, idx,
-                    {"capacity_factor": cf})
+    outs = outs()
     np.testing.assert_array_equal(_blocks([o[0] for o in outs], kind),
                                   np.asarray(want))
     assert [o[1] for o in outs] == [int(ovf)] * 4
@@ -262,11 +268,11 @@ def test_a2a_update_matches_jax_and_its_overflow(pool, name, kind):
     idx[rng.random(B) < 0.2] = -1
     upd = dict(delta=rng.standard_normal((B, D)).astype(np.float32),
                indices=idx)
+    got = pool.submit("update_a2a", AXES[kind], table, upd,
+                      PORT_OPTS[name], dict(capacity_factor=1.0, pad_idx=-1))
     want, want_state, ovf = _jax_a2a_update(jax_mesh(kind), AXES[kind],
                                             table, upd, name, 1.0, pad_idx=-1)
-    got, state, got_ovf = pool.run(
-        "update_a2a", AXES[kind], table, upd, PORT_OPTS[name],
-        dict(capacity_factor=1.0, pad_idx=-1))[0]
+    got, state, got_ovf = got()[0]
     assert got_ovf == ovf > 0
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     for g, w in zip(state, want_state):

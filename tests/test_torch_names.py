@@ -5,10 +5,8 @@ The walk: for every module of the JAX package that has a port counterpart
 kernels' `ops.pallas` -> `ops.cuda`), each public name the module defines
 (a package: each name it exports from the package) is a name of the port's
 module, or an entry of `PINNED`, whose reason is a line of ROADMAP.md: a
-deliberate divergence of queue 3 or a whole item still in queue 1 (the
-planner's mixed dimensions and planned two-tower model, item I-3b). Modules
-that wait whole are skipped by name with their item (`SKIPPED`: the
-CLIs).
+deliberate divergence of queue 3. No module is skipped (`SKIPPED` is
+empty): the CLIs are ported too (`embeddingtables_tpu_torch/scripts/`).
 
 Not part of F3, and not names of a module: the framework's own swaps of
 parameters, `FRAMEWORK_SWAPS` (JAX's `key` is the port's `generator`; JAX's
@@ -48,22 +46,14 @@ from _torch_threads import _one_torch_thread  # noqa: F401
 ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "ROADMAP.md")
 
-SKIPPED = {"embeddingtables_tpu.scripts": "J. **The CLIs.**"}
+SKIPPED = {}
 
 _NO_SWITCH = "**No kernel switch.**"
-_PLANNER_REST = "I-3b. **The planner, the rest.**"
 PINNED = {
     ("embeddingtables_tpu.config", name): _NO_SWITCH
     for name in ("lookup_impl", "update_impl", "set_lookup_impl",
                  "set_update_impl", "on_tpu", "pallas_interpret",
                  "set_pallas_interpret", "use_impl")}
-PINNED.update({("embeddingtables_tpu.parallel.planner", name): _PLANNER_REST
-               for name in ("plan_sharding_mixed", "MixedDimPlannedTables",
-                            "mixed_planned_lookup", "mixed_planned_apply",
-                            "PlannedTwoTower", "init_planned_two_tower",
-                            "place_two_tower_on_plan",
-                            "make_planned_tt_train_step",
-                            "planned_build_item_index", "planned_retrieve")})
 
 FRAMEWORK_SWAPS = {"key": "generator", "jit": None, "table_init": None,
                    "parent": None, "name": None}

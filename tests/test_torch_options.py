@@ -5,7 +5,8 @@ Each entry point is called with every keyword parameter of the JAX
 function, read by `inspect.signature`, at JAX's default, on a 2-table
 configuration on the CPU for one step: it must run. Then: values JAX
 ignores are ignored, JAX's `ValueError`s on invalid combinations are raised,
-an unported value raises `NotImplementedError`, and an unknown name raises
+no option is unported (the two-tower loop's `plan` trains the planned model
+on a one-rank gloo group in this process), and an unknown name raises
 `TypeError` as Python does.
 """
 import inspect
@@ -13,6 +14,7 @@ import inspect
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import embeddingtables_tpu.models.train as jax_train
 import embeddingtables_tpu.serving as jax_serving
@@ -54,6 +56,42 @@ def _ctr_batches(cfg):
 def _tt_batches():
     return SyntheticRetrieval(query_vocab_sizes=VOCABS, item_vocab=40,
                               num_dense=3, batch_size=B, seed=1).batches()
+
+
+def _tt_plans(mesh):
+    """The planned two-tower model's `(q_plan, i_plan)`: the query tables
+    replicated, the corpus row-sharded (by hand on one rank)."""
+    import dataclasses
+    from embeddingtables_tpu_torch.parallel import ROW_SHARD, plan_sharding
+    cfg = _two_tower_cfg()
+    ip = plan_sharding([cfg.item_vocab], cfg.dim, mesh)
+    ip = dataclasses.replace(ip, decisions=(dataclasses.replace(
+        ip.decisions[0], placement=ROW_SHARD),))
+    return plan_sharding(cfg.query_vocab_sizes, cfg.dim, mesh), ip
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A one-rank gloo group in this process and its mesh (left after the
+    module's tests)."""
+    from embeddingtables_tpu_torch.parallel import init_process, local_mesh
+    store = tmp_path_factory.mktemp("options_group") / "store"
+    init_process(f"file://{store}", 1, 0, device="cpu")
+    try:
+        yield local_mesh(1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _planned_tt(mesh, **kw):
+    """`train_two_tower(mesh=, plan=)` for one step on the one-rank group:
+    the planned loop."""
+    res = port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                     device="cpu", mesh=mesh,
+                                     plan=_tt_plans(mesh), **kw)
+    assert type(res.model).__name__ == "PlannedTwoTower"
+    assert len(res.losses) == 1 and np.isfinite(res.losses).all()
+    return res
 
 
 def _run_ctr(family, **kw):
@@ -177,19 +215,19 @@ CTR_LOOPS = ("train_dlrm", "train_dcn", "train_deepfm")
     ("make_deepfm_service", dict(mesh=object())),
     ("make_retrieval_service", dict(mesh=object())),
 ])
-def test_an_unported_value_raises_not_implemented(entry, kw):
-    """The planner's two-tower model is the one unported option: its `plan`
-    is refused by name before anything touches the (here fake) mesh, and
-    a mesh service of a model no sharded placement made names the planner
-    (item I-3). The CTR loops take a plan: they reach the fake mesh, as the
-    retrieval service, which takes the single-device model, does."""
+def test_an_unported_value_raises_not_implemented(request, entry, kw):
+    """No option is unported. The two-tower loop's `plan` trains the
+    planned model (one step on a one-rank group); a mesh service of a model
+    no sharded placement made names the planner (item I-3), as JAX has no
+    such service. The CTR loops take a plan: they reach the fake mesh, as
+    the retrieval service, which takes the single-device model, does."""
     name = "plan" if "plan" in kw else "mesh"
+    if entry == "train_two_tower":
+        _planned_tt(request.getfixturevalue("mesh1"), verbose=False)
+        return
 
     def call():
-        if entry == "train_two_tower":
-            port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
-                                       device="cpu", **kw)
-        elif entry.startswith("train_"):
+        if entry.startswith("train_"):
             _run_ctr(entry[len("train_"):], **kw)
         else:
             family = entry[len("make_"):-len("_service")]
@@ -236,13 +274,13 @@ def test_train_dlrm_on_a_mesh_refuses_what_waits_for_item_i2(kw):
                                    "train_two_tower", "make_dcn_service",
                                    "make_deepfm_service",
                                    "make_retrieval_service"])
-def test_the_other_families_mesh_waits_for_item_i2(entry):
+def test_the_other_families_mesh_waits_for_item_i2(request, entry):
     # Every family's mesh is ported (item I-2a): the loops and the
     # retrieval service reach the (here fake) mesh; a CTR mesh service
     # takes the family's sharded model (or the DLRM's and DCN's planned
     # one) and names the planner (item I-3) for any other; the CTR loops
-    # take a plan and reach the mesh, and the two-tower loop's plan is
-    # refused by name (item I-3b).
+    # take a plan and reach the mesh, and the two-tower loop's plan trains
+    # the planned model on a real (one-rank) mesh (item I-3b).
     if entry.startswith("make_"):
         family = entry[len("make_"):-len("_service")]
         if family == "retrieval":
@@ -253,26 +291,27 @@ def test_the_other_families_mesh_waits_for_item_i2(entry):
             with pytest.raises(NotImplementedError, match=r"mesh=.*I-3"):
                 getattr(ett, entry)(_service_model(family), mesh=object())
         return
-    for kw, err in ((dict(mesh=object()), AttributeError),
-                    (dict(mesh=object(), plan=object()),
-                     NotImplementedError if entry == "train_two_tower"
-                     else AttributeError)):
-        with pytest.raises(err):
-            if entry == "train_two_tower":
-                port_train.train_two_tower(_two_tower_cfg(), _tt_batches(),
-                                           1, device="cpu", **kw)
-            else:
-                _run_ctr(entry[len("train_"):], **kw)
+    if entry == "train_two_tower":
+        with pytest.raises(AttributeError):
+            port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
+                                       device="cpu", mesh=object())
+        _planned_tt(request.getfixturevalue("mesh1"), verbose=False,
+                    log_every=1, eval_every=1,
+                    eval_batches=list(SyntheticRetrieval(
+                        query_vocab_sizes=VOCABS, item_vocab=40,
+                        num_dense=3, batch_size=B, seed=2).batches(1)))
+        return
+    for kw in (dict(mesh=object()), dict(mesh=object(), plan=object())):
+        with pytest.raises(AttributeError):
+            _run_ctr(entry[len("train_"):], **kw)
 
 
-def test_the_unported_table_names_each_option_and_its_item():
+def test_the_unported_table_names_each_option_and_its_item(mesh1):
+    """Every option is ported: the table is empty, and the two-tower loop
+    takes every JAX parameter at its default beside a mesh and a plan."""
     from embeddingtables_tpu_torch.unported import UNPORTED
-    items = {name: what.split("item ")[-1].rstrip(")")
-             for name, (_, what) in UNPORTED.items()}
-    assert items == {"plan": "I-3b"}
-    assert {name: off for name, (off, _) in UNPORTED.items()} == {
-        "plan": (None,)}
-    with pytest.raises(NotImplementedError, match="I-3b"):
-        port_train.train_two_tower(_two_tower_cfg(), _tt_batches(), 1,
-                                   device="cpu", mesh=object(),
-                                   plan=object())
+    assert UNPORTED == {}
+    kw = _jax_defaults(jax_train.train_two_tower)
+    kw.update(verbose=False, mesh=mesh1)
+    del kw["plan"]
+    _planned_tt(**kw)

@@ -314,9 +314,10 @@ def test_three_way_placement_matches_jax(pool, opt_key, bag, pad):
     kw = {}
     if pad is not None:
         kw = dict(pad_idx=pad, combiner="mean" if bag else "sum")
+    got = pool.submit("planner_ops", "data", THREE_WAY, DIM, THREE_WAY_KW,
+                      tables, None, OPS[opt_key](PO), steps, kw)
     want = jax_ops_run(opt_key, THREE_WAY, THREE_WAY_KW, tables, steps, kw)
-    got = pool.run("planner_ops", "data", THREE_WAY, DIM, THREE_WAY_KW,
-                   tables, None, OPS[opt_key](PO), steps, kw)
+    got = got()
     for g, w in zip(got[0], want):
         np.testing.assert_allclose(g["lookup"], w["lookup"], **LOOKUP)
         assert_dense_close(g, w)
@@ -456,10 +457,12 @@ def run_family(pool, family, opt_key, cfg_kw=None, data_kw=None,
     (jcfg, jopt, jm), (pcfg, popt, _) = pair(family, opt_key,
                                              **(cfg_kw or {}))
     data = global_batches(family, n=n, **(data_kw or {}))
-    got = pool.run("planned_family_steps", "data", base(family), pcfg,
-                   family_arrays(family, jm), popt, PLAN_KW, data, step_kw)
+    got = pool.submit("planned_family_steps", "data", base(family), pcfg,
+                      family_arrays(family, jm), popt, PLAN_KW, data,
+                      step_kw)
     losses, jpm = jax_family_steps(family, opt_key, jcfg, jopt, jm, data,
                                    repr(sorted((cfg_kw or {}).items())))
+    got = got()
     for g in got:
         np.testing.assert_allclose(g["losses"], losses, **STEP)
     assert_dense_close(got[0], jax_dense(jpm.tables))
@@ -508,13 +511,14 @@ def test_planned_loop_with_eviction_matches_jax(pool):
     data = global_batches("dlrm", n=4, seed=7, zipf_a=1.5)
     kw = dict(dense_lr=0.1, log_every=1, evict_every=2, evict_threshold=0.3,
               freq_decay=0.5)
-    got = pool.run("planned_loop", "dlrm", pcfg, family_arrays("dlrm", jm),
-                   popt, PLAN_KW, data, kw)
+    got = pool.submit("planned_loop", "dlrm", pcfg,
+                      family_arrays("dlrm", jm), popt, PLAN_KW, data, kw)
     plan = jplan(jcfg.vocab_sizes, jcfg.dim, **PLAN_KW)
     res = JT.train_dlrm(jcfg, iter([dict(zip(("dense", "cat", "label"), b))
                                     for b in data]), len(data),
                         sparse_opt=jopt, model=jm, mesh=jmesh(), plan=plan,
                         verbose=False, **kw)
+    got = got()
     assert res.evicted_rows > 0
     for g in got:
         assert g["type"] == "PlannedDLRM"
@@ -603,9 +607,11 @@ def test_delta_checkpoints_under_a_plan_raise_as_jax_does(tmp_path):
         ett.train_dlrm(cfg, iter(()), 1, mesh=object(), plan=object(),
                        delta_ckpt=DeltaCheckpointManager(str(tmp_path)),
                        delta_every=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="plan=.*I-3b"):
+    with pytest.raises(NotImplementedError, match="delta checkpointing"):
         ett.train_two_tower(ett.TwoTowerConfig(
             query_vocab_sizes=VOCABS, item_vocab=20, num_dense=3, dim=DIM,
             embed_dim=DIM, query_mlp=(8,), item_mlp=(8,)), iter(()), 1,
-            mesh=object(), plan=object(), device="cpu")
+            mesh=object(), plan=object(), delta_every=1, device="cpu",
+            delta_ckpt=(DeltaCheckpointManager(str(tmp_path)),
+                        DeltaCheckpointManager(str(tmp_path))))
     assert os.listdir(tmp_path) == []

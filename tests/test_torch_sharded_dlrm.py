@@ -113,10 +113,11 @@ def run_case(pool, kind, exchange, opt, cfg_kw=None, data_kw=None,
     step_kw = dict(exchange=exchange, **(step_kw or {}))
     if exchange == "a2a":
         step_kw.update(capacity_factor=1.0, with_overflow=True)
-    got = pool.run("dlrm_steps", AXES[kind], pcfg, model_arrays(jm), popt,
-                   data, {**step_kw, **(port_kw or {})})
+    got = pool.submit("dlrm_steps", AXES[kind], pcfg, model_arrays(jm),
+                      popt, data, {**step_kw, **(port_kw or {})})
     losses, overflows, want = jax_steps(kind, jcfg, jopt, jm, data,
                                         **step_kw, **(jax_kw or {}))
+    got = got()
     for g in got:
         np.testing.assert_allclose(g["losses"], losses, rtol=1e-5)
         assert g["overflows"] == overflows
@@ -214,12 +215,13 @@ def test_train_dlrm_on_a_mesh_matches_jax(pool, exchange):
               eval_batches=evals)
     if exchange == "a2a":
         kw.update(capacity_factor=0.5, auto_capacity=True)
-    got = pool.run("train_loop", "data", pcfg, model_arrays(jm), popt, data,
-                   kw)
+    got = pool.submit("train_loop", "data", pcfg, model_arrays(jm), popt,
+                      data, kw)
     res = JT.train_dlrm(jcfg, iter([dict(dense=d, cat=c, label=l)
                                     for d, c, l in data]), len(data),
                         sparse_opt=jopt, model=jm, mesh=jax_mesh("1d"),
                         axis="data", verbose=False, **kw)
+    got = got()
     for g in got:
         np.testing.assert_allclose(g["losses"], res.losses, rtol=1e-5)
         assert [s for s, _ in g["aucs"]] == [s for s, _ in res.aucs]

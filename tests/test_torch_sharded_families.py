@@ -167,10 +167,11 @@ def run_case(pool, family, opt, kind="1d", cfg_kw=None, data_kw=None,
              step_kw=None):
     (jcfg, jopt, jm), (pcfg, popt, _) = pair(family, opt, **(cfg_kw or {}))
     data = global_batches(family, **(data_kw or {}))
-    got = pool.run("family_steps", AXES[kind], base(family), pcfg,
-                   family_arrays(family, jm), popt, data, step_kw)
+    got = pool.submit("family_steps", AXES[kind], base(family), pcfg,
+                      family_arrays(family, jm), popt, data, step_kw)
     losses, want = jax_steps(family, kind, jcfg, jopt, jm, data,
                              **(step_kw or {}))
+    got = got()
     step_tol, table_tol = ((TT_STEP, TT_TABLE) if family == "two_tower"
                            else (STEP, TABLE))
     for g in got:
@@ -306,9 +307,10 @@ def test_train_loop_on_a_mesh_matches_jax(pool, family):
     kw = dict(dense_lr=0.1, log_every=1, eval_every=2, eval_batches=evals)
     if family == "two_tower":
         kw["k"] = 5
-    got = pool.run("family_loop", "data", base(family), pcfg,
-                   family_arrays(family, jm), popt, data, kw)
+    got = pool.submit("family_loop", "data", base(family), pcfg,
+                      family_arrays(family, jm), popt, data, kw)
     res = jax_loop(family, jcfg, jopt, jm, data, **kw)
+    got = got()
     want = res.model if family == "two_tower" else \
         JAPI[base(family)][3](res.model)
     step_tol, table_tol = ((TT_STEP, TT_TABLE) if family == "two_tower"

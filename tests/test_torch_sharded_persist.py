@@ -119,11 +119,12 @@ def test_loop_delta_chain_on_a_mesh_crosses_to_jax_and_back(pool, family,
     data = global_batches(family, n=4, seed=7)
     pdirs, jdirs = (managers(family, tmp_path, n) for n in ("port", "jax"))
     kw = dict(delta_every=1, log_every=1, dense_lr=0.1)
-    got = pool.run("family_loop", "data", base(family), pcfg,
-                   family_arrays(family, jm), popt, data,
-                   dict(kw, delta_dir=pdirs))
+    got = pool.submit("family_loop", "data", base(family), pcfg,
+                      family_arrays(family, jm), popt, data,
+                      dict(kw, delta_dir=pdirs))
     res = jax_loop(family, jcfg, jopt, jm, data, delta_ckpt=jax_managers(
         jdirs), **kw)
+    got = got()
     want = jax_final(family, res)
     tol = table_tol(family)
     assert_model_close(got[0], want, tol)
@@ -274,11 +275,12 @@ def test_loop_eviction_on_a_mesh_matches_jax(pool, family, tmp_path):
     data = global_batches(family, n=4, seed=3, b=8)
     kw = dict(evict_every=2, evict_threshold=0.6, freq_decay=0.5,
               log_every=1, dense_lr=0.1)
-    got = pool.run("family_loop", "data", base(family), pcfg,
-                   family_arrays(family, jm), popt, data,
-                   dict(kw, delta_dir=str(tmp_path / "p"), delta_every=2))
+    got = pool.submit("family_loop", "data", base(family), pcfg,
+                      family_arrays(family, jm), popt, data,
+                      dict(kw, delta_dir=str(tmp_path / "p"), delta_every=2))
     res = jax_loop(family, jcfg, jopt, jm, data, delta_ckpt=jax_managers(
         str(tmp_path / "j")), delta_every=2, **kw)
+    got = got()
     assert res.evicted_rows > 0
     assert all(g["evicted"] == res.evicted_rows for g in got)
     assert_model_close(got[0], jax_final(family, res), TABLE)

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --families           # only the model-family phase
     python3 chip_smoke.py --variants           # only the table-variant phase
     python3 chip_smoke.py --wide-rows          # only the wide-row run-scatter
+    python3 chip_smoke.py --scatter-widths     # only the run-scatter's widths
     python3 chip_smoke.py --persistence        # only the persistence phase
     python3 chip_smoke.py --microbatch         # only microbatching and dense_tx
     python3 chip_smoke.py --rpc                # only the binary RPC transport
@@ -98,13 +99,20 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     rtol 1e-6, the copies timed. `train_dlrm(evict_every=2)` with SGD and
     indexer AdaGrad for 8 steps: evicted rows > 0, those of the last
     eviction zero in the table and the accumulator.
-12. Wide rows: the run-scatter at D = 258, 1,025, 2,048 and 4,096 (wider
-    than a warp's registers: the column-chunk path), f32 and bf16 tables,
+12. Wide rows: the run-scatter at D = 258, 1,025, 2,048 and 4,096 (the
+    wide class: a block a window), f32 and bf16 tables,
     SGD bitwise and AdaGrad to rtol 1e-6 against the plain version on a
     window-edge and a Zipf stream, each width timed beside its byte bound
     and `index_add_`; TT at rank 32 on the 40M-row table (a 4,096-wide
     middle core) under indexer AdaGrad, one step against the plain step
-    and 4 counted steps (3 run-scatters a step).
+    and 4 counted steps (3 run-scatters a step). Then the run-scatter at
+    every width class (`scatter_widths_phase`): D = 1, 2, 4, 7, 8, 12, 16,
+    32, 36, 64, 128, 129, 258, 1,025, 2,048 and 4,096, f32 and bf16, SGD
+    bitwise and AdaGrad to rtol 1e-6 against the plain version on a
+    window-edge, a padded Zipf and a hot-run stream; the kernels one
+    wrapper call launches (counted by the launch code) at D = 1, 258, 1,025
+    and 4,096; each width timed beside its byte bound and `index_add_` on
+    its path's stream, every timed set also held to the plain version.
 13. Persistence on the stacked DLRM (indexer AdaGrad, B = 65,536), in a
     temporary directory checked for free space first: a delta chain (one
     base, three deltas) restored bitwise into a fresh model; a refreshable
@@ -229,8 +237,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     D = 129 times of both gathers and the run-scatter, the D = 1 times
     of `gather_rows` and the run-scatter, and the run-scatter's wide-row
     times, and `gather_rows` at the column and planned two-tower and
-    mixed-dim widths), the card line again, and the final JSON status
-    line.
+    mixed-dim widths; the run-scatter's times at every width of phase 12,
+    its kernels per call and its launches on the paths by width class),
+    the card line again, and the final JSON status line.
 
 With `--run-window-sweep` it runs only phases 1-2 and the sweep that chose
 the run-scatter's window length (`run_window_sweep`); with `--gather-sweep`
@@ -242,16 +251,18 @@ per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
 phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
-phase 12; with `--persistence` phases 1-2 and phase 13; with `--microbatch`,
-`--rpc`, `--mesh`, `--compat`, `--clis` and `--input-pipeline` phases 1-2
-and phase 14, 15, 16, 17, 18 or 19; with `--planner` phases 1-2 and phase
-16's planner part alone.
+phase 12's first part, with `--scatter-widths` its second; with
+`--persistence` phases 1-2 and phase 13; with `--microbatch`, `--rpc`,
+`--mesh`, `--compat`, `--clis` and `--input-pipeline` phases 1-2 and phase
+14, 15, 16, 17, 18 or 19; with `--planner` phases 1-2 and phase 16's
+planner part alone.
 
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -289,6 +300,23 @@ def card_line() -> str:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+# The run-scatter's launches on the counted paths by width class (narrow,
+# mid: 32-128 units, wide): every counting region below sets the wrapper's
+# `classes` anew with its `launches` (`zero_scatter`) and adds them here
+# when it reads the count (`scatter_count`). Mesh ranks send theirs back.
+SCATTER_CLASSES = collections.Counter()
+
+
+def zero_scatter(S) -> None:
+    S.scatter_add_rows_sorted.launches = 0
+    S.scatter_add_rows_sorted.classes = collections.Counter()
+
+
+def scatter_count(S) -> int:
+    SCATTER_CLASSES.update(getattr(S.scatter_add_rows_sorted, "classes", {}))
+    return S.scatter_add_rows_sorted.launches
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -699,6 +727,22 @@ def window_edge_stream(window: int, v: int, reps: int = 200) -> torch.Tensor:
                                        device="cuda")])
 
 
+def scatter_agrees(tk, tp, ak, ap, what: str) -> float:
+    """Holds a run-scatter's table tk (and accumulator ak, AdaGrad) to the
+    plain version's tp (ap): SGD bitwise, AdaGrad to rtol 1e-6 (2^-7 on a
+    bf16 table). Returns the max abs error."""
+    torch.cuda.synchronize()
+    if ak is not None:
+        rtol = 1e-6 if tk.dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(tk.float(), tp.float(), rtol=rtol,
+                                   atol=1e-6, msg=lambda m: f"{what}: {m}")
+        torch.testing.assert_close(ak, ap, rtol=1e-6, atol=0.0,
+                                   msg=lambda m: f"{what}: {m}")
+    else:
+        require(torch.equal(bits(tk), bits(tp)), f"{what} not bitwise")
+    return max_abs_err(tk, tp)
+
+
 def check_scatter(S, gen, streams, v, d):
     """scatter_add_rows_sorted against its plain version at the training
     shape, on sorted streams: SGD bitwise, AdaGrad to rtol 1e-6 (the mean's
@@ -722,16 +766,7 @@ def check_scatter(S, gen, streams, v, d):
                                           eps=1e-8)
                 S.scatter_add_rows_sorted_plain(tp, rows, vals, -1e-3,
                                                 accum=ap, eps=1e-8)
-                torch.cuda.synchronize()
-                if adagrad:
-                    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
-                    torch.testing.assert_close(tk.float(), tp.float(),
-                                               rtol=rtol, atol=1e-6)
-                    torch.testing.assert_close(ak, ap, rtol=1e-6, atol=0.0)
-                else:
-                    require(torch.equal(bits(tk), bits(tp)),
-                            f"scatter {kind} {dtype} not bitwise")
-                e = max_abs_err(tk, tp)
+                e = scatter_agrees(tk, tp, ak, ap, f"scatter {kind} {dtype}")
                 err = max(err, e)
                 emit({"phase": "kernel_check",
                       "kernel": "scatter_add_rows_sorted", "stream": kind,
@@ -949,8 +984,8 @@ def run_window_sweep(ett, S, gen, windows=(128, 256, 512, 1024)):
         (n,), (v, d) = rows.shape, table.shape
         scratch = torch.empty((2 * -(-n // w), d), device="cuda")
         err = libs[w](table.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-                      None, scratch.data_ptr(), n, v, d, 0, -1e-4, 0.0,
-                      _lib.stream_of(table))
+                      None, scratch.data_ptr(), None, n, v, d, 0, -1e-4, 0.0,
+                      _lib.stream_of(table), None)
         require(err == 0, f"run-scatter with L = {w}: CUDA error {err}")
 
     def sorted_sets(row_sets):
@@ -1343,12 +1378,12 @@ def stacked_training_phase(ett, S, H, G, batches):
                     "FTRL with l1 > 0 made no exact zeros")
         # The peak below is the training's: the parity copies come before.
         torch.cuda.reset_peak_memory_stats()
-        S.scatter_add_rows_sorted.launches = 0
+        zero_scatter(S)
         H.hot_accumulate.launches = 0
         res = ett.train_dlrm(rcfg, itertools.cycle(batches), steps,
                              sparse_opt=opt, dense_lr=dense_lr, model=model,
                              seed=SEED, log_every=1, verbose=False)
-        counts = {"scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches,
+        counts = {"scatter_add_rows_sorted": scatter_count(S),
                   "hot_accumulate": H.hot_accumulate.launches}
         losses = res.losses
         require(len(losses) == steps and all(math.isfinite(x) for x in losses),
@@ -1503,9 +1538,12 @@ class LaunchCounter:
     def run(self, fn):
         for w in self.wrappers.values():
             w.launches = 0
+        scatter = self.wrappers["scatter_add_rows_sorted"]
+        scatter.classes = collections.Counter()
         out = fn()
         torch.cuda.synchronize()
         got = {k: w.launches for k, w in self.wrappers.items()}
+        SCATTER_CLASSES.update(scatter.classes)
         for k, n in got.items():
             self.total[k] += n
         return out, got
@@ -2747,11 +2785,13 @@ WIDE_ROWS = 100_000                # table rows at each wide width
 TT_RANK_WIDE = 32                  # TT's middle core at rank 32: 4,096 wide
 
 
-def time_wide_scatter(S, gen, sets, v, d):
-    """The run-scatter at one wide width on sorted Zipf streams, f32 table,
-    SGD and AdaGrad epilogues: kernel and plain times, `index_add_` (SGD's
-    function in one library call; AdaGrad has none), and the byte bound
-    n*D*4 + n*4 + 2*U*D*4 (+ 2*U*4 for the accumulator)."""
+def time_wide_scatter(S, gen, sets, v, d, label="zipf"):
+    """The run-scatter at one width on sorted streams (Zipf), f32 table,
+    SGD and AdaGrad epilogues: each set's kernel result held to the plain
+    version's on clones of the table (`scatter_agrees`), kernel and plain
+    times, `index_add_` (SGD's function in one library call; AdaGrad has
+    none), and the byte bound n*D*4 + n*4 + 2*U*D*4 (+ 2*U*4 for the
+    accumulator)."""
     table = torch.randn((v, d), generator=gen, device="cuda") * 0.05
     accum = torch.rand((v,), generator=gen, device="cuda")
     n = sets[0][0].numel()
@@ -2759,6 +2799,16 @@ def time_wide_scatter(S, gen, sets, v, d):
     out = {}
     for epilogue in ("sgd", "adagrad"):
         a = accum if epilogue == "adagrad" else None
+        err = 0.0
+        for r, x in sets:
+            tk, tp = table.clone(), table.clone()
+            ak, ap = (None, None) if a is None else (a.clone(), a.clone())
+            S.scatter_add_rows_sorted(tk, r, x, -1e-4, accum=ak, eps=1e-8)
+            S.scatter_add_rows_sorted_plain(tp, r, x, -1e-4, accum=ap,
+                                            eps=1e-8)
+            err = max(err, scatter_agrees(
+                tk, tp, ak, ap, f"scatter {label} D={d} {epilogue}"))
+            del tk, tp, ak, ap
         nbytes = (n * d * 4 + n * 4 + 2 * uniq * d * 4
                   + (2 * uniq * 4 if a is not None else 0))
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2776,9 +2826,13 @@ def time_wide_scatter(S, gen, sets, v, d):
                 [(r.long(), x) for r, x in sets], reps=10),
              "bound_ms": max(bound_bytes_ms, bound_ops_ms),
              "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                          else "operations")}
+                          else "operations"),
+             "max_abs_err": err,
+             "kernel_split_us": [[k[:60], us] for k, us in device_kernels(
+                 lambda: S.scatter_add_rows_sorted(
+                     table, *sets[0], -1e-4, accum=a, eps=1e-8))]}
         emit({"phase": "kernel_time", "kernel": "scatter_add_rows_sorted",
-              "stream": "zipf", "epilogue": epilogue, "dtype": "float32",
+              "stream": label, "epilogue": epilogue, "dtype": "float32",
               "V": v, "D": d, "n": n, "unique_rows": uniq, "bytes": nbytes,
               **t})
         out[epilogue] = t
@@ -2832,8 +2886,8 @@ def tt_rank32_step(ett, S, G, counter, gen):
 
 
 def wide_rows_phase(ett, S, G, gen, counter):
-    """The run-scatter at D = 258, 1,025, 2,048 and 4,096 (rows wider than
-    a warp's registers: the column-chunk path), f32 and bf16 tables, SGD
+    """The run-scatter at D = 258, 1,025, 2,048 and 4,096 (the wide class:
+    a block a window), f32 and bf16 tables, SGD
     (bitwise) and AdaGrad (rtol 1e-6) epilogues, on a window-edge stream and
     a Zipf stream, each held to its plain version and timed; then TT at
     rank 32 under indexer AdaGrad. Returns (max error, {D: times},
@@ -2851,11 +2905,156 @@ def wide_rows_phase(ett, S, G, gen, counter):
         sets = [(z, torch.randn((n, d), generator=gen, device="cuda"))
                 for z in zipf]
         times[d] = time_wide_scatter(S, gen, sets, v, d)
+        err = max(err, *(t["max_abs_err"] for t in times[d].values()))
         del zipf, edges, sets
         torch.cuda.empty_cache()
     launches = tt_rank32_step(ett, S, G, counter, gen)
     emit({"phase": "wide_rows_done", "seconds": time.perf_counter() - t0})
     return err, times, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12, part 2: the run-scatter at every width class
+# ---------------------------------------------------------------------------
+
+# Narrow (D = 1 ... 64), 32-128 units (128) and wide (129 ... 4,096). D = 4
+# and 8 are one and two 16-byte units (P = 1 and 2), D = 2 and 7 4-byte units.
+SCATTER_WIDTHS = (1, 2, 4, 7, 8, 12, 16, 32, 36, 64, 128, 129, 258, 1025,
+                  2048, 4096)
+
+
+def hot_run_stream(gen, v: int, n: int) -> torch.Tensor:
+    """n sorted Zipf ids over v rows, a third of them one row (a run over
+    n / 3L windows), with padding and rows >= V (`with_padding`)."""
+    (z,) = zipf_ids(gen, v, n, 1)
+    r = torch.rand(n, generator=gen, device="cuda")
+    return with_padding(torch.where(r < 1 / 3, v // 2, z), v, gen)
+
+
+def device_kernels(fn) -> list:
+    """[name, µs] of each device kernel one call of `fn` launches
+    (torch.profiler), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[e.name, e.time_range.elapsed_us()] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernels_per_call(S, gen, d: int, adagrad: bool, v: int = WIDE_ROWS,
+                     n: int = B_TRAIN) -> tuple:
+    """The kernels one wrapper call launches, on 65,536 sorted Zipf ids
+    over `v` rows: the launch code's count (`scatter_add_rows_sorted.kernels`,
+    which the entry point reports; None in a build without it) and the
+    device kernels torch.profiler recorded, [name, µs] each (late in the
+    whole script the profiler has recorded none, and once it dropped one)."""
+    (rows,) = zipf_ids(gen, v, n, 1)
+    rows = torch.sort(rows).values
+    table = torch.zeros((v, d), device="cuda")
+    vals = torch.randn((n, d), generator=gen, device="cuda")
+    accum = torch.zeros((v,), device="cuda") if adagrad else None
+    recorded = device_kernels(lambda: S.scatter_add_rows_sorted(
+        table, rows, vals, -1e-4, accum=accum, eps=1e-8))
+    return getattr(S.scatter_add_rows_sorted, "kernels", None), recorded
+
+
+def scatter_widths_phase(ett, S, gen):
+    """The run-scatter at every width of SCATTER_WIDTHS (D = 1 ... 4,096),
+    f32 and bf16 tables, SGD (bitwise) and AdaGrad (rtol 1e-6; bf16 2^-7)
+    against its plain version on a window-edge stream, a padded Zipf stream
+    and a stream whose hottest run spans about 170 windows (65,536 ids over
+    100,000 rows); the kernels one wrapper call launches at D = 1, 258,
+    1,025 and 4,096 (the launch code's count, torch.profiler's record beside
+    it); then each width timed beside its byte bound and `index_add_` on its
+    path's stream, each timed set's result held to the plain version's: the
+    stacked training ids (1,703,936 Zipf ids over 26 x 250,000 rows) at
+    D = 1, 128 and 129; the two-tower tables at D = 64 (the query stack's
+    3 x 16,384 ids over 1.1M rows, the corpus's 16,384 over 2M); the mixed
+    replicated group at D = 32 (1,048,576 ids over 19,889 rows); 65,536 Zipf
+    ids over 100,000 rows at the other widths. Returns (max error,
+    {key: times})."""
+    t0 = time.perf_counter()
+    err, v, n = 0.0, WIDE_ROWS, B_TRAIN
+    for d in SCATTER_WIDTHS:
+        (z,) = zipf_ids(gen, v, n, 1)
+        err = max(err, check_scatter(
+            S, gen, {"window_edges": window_edge_stream(S.RUN_WINDOW, v,
+                                                        reps=10),
+                     "zipf": with_padding(z, v, gen),
+                     "hot_run": hot_run_stream(gen, v, n)}, v, d))
+        torch.cuda.empty_cache()
+    emit({"phase": "scatter_widths_checks", "widths": list(SCATTER_WIDTHS),
+          "max_abs_err": err, "seconds": time.perf_counter() - t0})
+    launched = {}
+    for d in (1, 258, 1025, 4096):
+        for adagrad in (False, True):
+            counted, recorded = kernels_per_call(S, gen, d, adagrad)
+            names = [x for x, _ in recorded]
+            hand = [x for x in names if HAND_KERNELS[
+                "scatter_add_rows_sorted"] in x]
+            launched[f"d{d}_{'adagrad' if adagrad else 'sgd'}"] = counted
+            emit({"phase": "scatter_kernels_per_call", "D": d,
+                  "epilogue": "adagrad" if adagrad else "sgd",
+                  "run_scatter_kernels": counted,
+                  "profiler_run_scatter_kernels": len(hand) if names else None,
+                  "device_kernels": [x[:80] for x in names]})
+    torch.cuda.empty_cache()
+
+    def sorted_sets(row_sets, d):
+        return [(torch.sort(r.to(torch.int32)).values,
+                 torch.randn((r.numel(), d), generator=gen, device="cuda"))
+                for r in row_sets]
+    stacked = [stacked_rows(b, VOCAB) for b in
+               criteo_batches(ett, (VOCAB,) * 26, 3, SEED + 5)]
+    tt = list(ett.SyntheticRetrieval(
+        TT_QUERY_VOCABS, TT_ITEMS, num_dense=4, batch_size=TT_BATCH,
+        seed=SEED + 20).batches(3))
+    q_off = np.cumsum([0] + list(TT_QUERY_VOCABS[:-1]))[:, None]
+    small = [i for i, c in enumerate(PLANNER_VOCABS) if c <= MIXED_SMALL]
+    m_off = np.cumsum([0] + [PLANNER_VOCABS[i] for i in small])
+    mixed = [np.stack([b["cat"][i] + m_off[j] for j, i in enumerate(small)])
+             for b in ett.SyntheticCriteo(vocab_sizes=PLANNER_VOCABS,
+                                          batch_size=B_TRAIN,
+                                          seed=SEED + 41).batches(3)]
+
+    def cuda_ids(x):
+        return torch.from_numpy(np.ascontiguousarray(x).reshape(-1).astype(
+            np.int32)).cuda()
+    # key: (label, rows of the table, the id sets)
+    streams = {
+        "stacked": (26 * VOCAB, stacked),
+        "tt_query": (sum(TT_QUERY_VOCABS),
+                     [cuda_ids(b["q_cat"] + q_off) for b in tt]),
+        "tt_items": (TT_ITEMS, [cuda_ids(b["item_ids"]) for b in tt]),
+        "mixed": (int(m_off[-1]), [cuda_ids(m) for m in mixed]),
+        "zipf_100k": (v, None)}
+    cases = [("stacked", 1), ("stacked", 128), ("stacked", 129),
+             ("tt_query", 64), ("tt_items", 64), ("mixed", 32)] + [
+        ("zipf_100k", d) for d in (4, 7, 8, 36, 258, 1025, 2048, 4096)]
+    times = {}
+    for label, d in cases:
+        rows_v, id_sets = streams[label]
+        if id_sets is None:
+            id_sets = zipf_ids(gen, rows_v, n, 3)
+        t = times[f"{label}_d{d}"] = time_wide_scatter(
+            S, gen, sorted_sets(id_sets, d), rows_v, d, label)
+        err = max(err, *(x["max_abs_err"] for x in t.values()))
+        torch.cuda.empty_cache()
+    emit({"phase": "scatter_widths_times",
+          "kernels_per_call": launched,
+          **{k: {e: {"kernel_ms": t[e]["kernel_ms"],
+                     "bound_ms": t[e]["bound_ms"],
+                     "share_of_bound": t[e]["bound_ms"] / t[e]["kernel_ms"],
+                     "library_ms": t[e]["library_ms"],
+                     "kernel_over_library": (
+                         None if t[e]["library_ms"] is None
+                         else t[e]["kernel_ms"] / t[e]["library_ms"])}
+                 for e in ("sgd", "adagrad")} for k, t in times.items()},
+          "seconds": time.perf_counter() - t0})
+    return err, times, launched
 
 
 # ---------------------------------------------------------------------------
@@ -4136,7 +4335,7 @@ def timed_sharded_steps(S, G, step, model, blocks, steps: int,
     outs = [step(model, *blocks[0])]
     torch.cuda.synchronize()
     G.gather_rows.launches = 0
-    S.scatter_add_rows_sorted.launches = 0
+    zero_scatter(S)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -4145,7 +4344,7 @@ def timed_sharded_steps(S, G, step, model, blocks, steps: int,
     end.record()
     torch.cuda.synchronize()
     launches = {"gather_rows": G.gather_rows.launches,
-                "scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches}
+                "scatter_add_rows_sorted": scatter_count(S)}
     if exchanges is None:
         tables = getattr(model, "tables", None) or model.query_tables
         exchanges = [tables.exchange]
@@ -4398,12 +4597,12 @@ def mesh_persistence(ett, P, S, G, mesh, rank, host, root):
             seed), device="cuda", sparse_opt=opt)
 
     def counted(fn):
-        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        G.gather_rows.launches = 0
+        zero_scatter(S)
         got = fn()
         torch.cuda.synchronize()
         launches["gather_rows"] += G.gather_rows.launches
-        launches["scatter_add_rows_sorted"] += \
-            S.scatter_add_rows_sorted.launches
+        launches["scatter_add_rows_sorted"] += scatter_count(S)
         return got
 
     def rows_equal(a, b, what):
@@ -4820,12 +5019,12 @@ def mesh_planner_loop(ett, P, S, G, mesh, rank, n, host, root):
             SEED), device="cuda", sparse_opt=opt)
 
     def counted(fn):
-        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        G.gather_rows.launches = 0
+        zero_scatter(S)
         got = fn()
         torch.cuda.synchronize()
         launches["gather_rows"] += G.gather_rows.launches
-        launches["scatter_add_rows_sorted"] += \
-            S.scatter_add_rows_sorted.launches
+        launches["scatter_add_rows_sorted"] += scatter_count(S)
         return got
 
     kw = dict(sparse_opt=opt, dense_lr=0.1, log_every=1, verbose=False,
@@ -5091,7 +5290,8 @@ def mesh_planner_tt(ett, P, S, G, mesh, rank, n, root, results):
     opt = ett.SparseSGD(0.05)
     ckpt = os.path.join(root, "planned_tt_ckpt")
     mgr = CheckpointManager(ckpt)
-    G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+    G.gather_rows.launches = 0
+    zero_scatter(S)
     t0 = time.perf_counter()
     res = ett.train_two_tower(
         cfg, itertools.cycle(host), 4, model=fresh(opt), mesh=mesh,
@@ -5102,7 +5302,7 @@ def mesh_planner_tt(ett, P, S, G, mesh, rank, n, root, results):
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches = {"gather_rows": G.gather_rows.launches,
-                "scatter_add_rows_sorted": S.scatter_add_rows_sorted.launches}
+                "scatter_add_rows_sorted": scatter_count(S)}
     restored = P.init_planned_two_tower(cfg, qp, ip, mesh, sparse_opt=opt,
                                         seed=SEED + 1)
     mgr.restore_latest(restored)
@@ -5196,7 +5396,8 @@ def mesh_mixed(ett, P, S, G, mesh, rank, n, results):
                                                  [t.clone() for t in tables],
                                                  sparse_opt=opt)
         torch.cuda.synchronize()
-        G.gather_rows.launches = S.scatter_add_rows_sorted.launches = 0
+        G.gather_rows.launches = 0
+        zero_scatter(S)
         G.gather_rows.widths.clear()
         start, mid, end = (torch.cuda.Event(enable_timing=True)
                            for _ in range(3))
@@ -5207,8 +5408,7 @@ def mesh_mixed(ett, P, S, G, mesh, rank, n, results):
         end.record()
         torch.cuda.synchronize()
         launches = {"gather_rows": G.gather_rows.launches,
-                    "scatter_add_rows_sorted":
-                        S.scatter_add_rows_sorted.launches}
+                    "scatter_add_rows_sorted": scatter_count(S)}
         widths = {str(d): c for d, c in sorted(G.gather_rows.widths.items())}
         got = [ex.gather_batch(x.contiguous()) for x in looked]
         dense = [mt.table(t) for t in range(mt.ntables)]
@@ -5425,6 +5625,8 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results,
     mesh = P.local_mesh(n)
     if planner_only:
         mesh_planner(ett, P, S, G, mesh, rank, n, root, results)
+        results.put({"kind": "scatter_classes", "rank": rank,
+                     "classes": dict(SCATTER_CLASSES)})
         import torch.distributed as dist
         dist.barrier()
         dist.destroy_process_group()
@@ -5458,7 +5660,7 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results,
             outs = [step(model, *blocks[0])]                  # warm-up
             torch.cuda.synchronize()
             G.gather_rows.launches = 0
-            S.scatter_add_rows_sorted.launches = 0
+            zero_scatter(S)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -5469,8 +5671,7 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results,
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / MESH_STEPS * 1e3
             launches = {"gather_rows": G.gather_rows.launches,
-                        "scatter_add_rows_sorted":
-                            S.scatter_add_rows_sorted.launches}
+                        "scatter_add_rows_sorted": scatter_count(S)}
             losses = [float(o[0] if isinstance(o, tuple) else o)
                       for o in outs]
             overflow = [int(o[1]) for o in outs if isinstance(o, tuple)]
@@ -5534,6 +5735,8 @@ def mesh_rank(rank: int, n: int, port: int, root: str, results,
     del blocks
     torch.cuda.empty_cache()
     mesh_planner(ett, P, S, G, mesh, rank, n, root, results)
+    results.put({"kind": "scatter_classes", "rank": rank,
+                 "classes": dict(SCATTER_CLASSES)})
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()
@@ -5712,6 +5915,9 @@ def mesh_phase(ett, S, H, G, planner_only: bool = False):
                       **{k: v for k, v in got[-1].items() if k != "kind"}})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    for g in got:
+        if g["kind"] == "scatter_classes":
+            SCATTER_CLASSES.update(g["classes"])
     total = {"gather_rows": 0, "scatter_add_rows_sorted": 0}
     check_planner(got, n, total)
     if planner_only:
@@ -5859,7 +6065,7 @@ def compat_phase(ett, S, H, G):
         for i in range(COMPAT_STEPS):
             b = batches[i % len(batches)]
             G.gather_rows.launches = 0
-            S.scatter_add_rows_sorted.launches = 0
+            zero_scatter(S)
             H.hot_accumulate.launches = 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -5873,8 +6079,7 @@ def compat_phase(ett, S, H, G):
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
-            counts.append((G.gather_rows.launches,
-                           S.scatter_add_rows_sorted.launches,
+            counts.append((G.gather_rows.launches, scatter_count(S),
                            H.hot_accumulate.launches))
             losses.append(float(loss.detach()))
         return model, losses, counts, ms
@@ -6031,6 +6236,10 @@ def main() -> int:
         wide_rows_phase(ett, S, G, gen, LaunchCounter(S, H, G))
         print(card_line(), flush=True)
         return 0
+    if "--scatter-widths" in sys.argv[1:]:
+        scatter_widths_phase(ett, S, gen)
+        print(card_line(), flush=True)
+        return 0
     # The stacked training batches (26 x 250,000-row vocabularies, B =
     # 65,536): the DLRM, DCN and DeepFM recipes all train on them.
     train_batches = criteo_batches(ett, (VOCAB,) * 26, 4, SEED + 6)
@@ -6110,6 +6319,7 @@ def main() -> int:
     var = variants_phase(ett, S, H, G, gen, train_batches)
     wide_counter = LaunchCounter(S, H, G)
     wide_err, wide_times, _ = wide_rows_phase(ett, S, G, gen, wide_counter)
+    widths_err, widths_times, per_call = scatter_widths_phase(ett, S, gen)
     persist, _ = persistence_phase(ett, S, H, G, gen, train_batches)
     micro = microbatch_phase(ett, S, H, G, train_batches)
     served_rpc = rpc_phase(ett, S, H, G)
@@ -6124,13 +6334,22 @@ def main() -> int:
     for name, e in fam_errs.items():
         errs[name] = max(errs[name], e)
     errs["scatter_add_rows_sorted"] = max(errs["scatter_add_rows_sorted"],
-                                          wide_err)
+                                          wide_err, widths_err)
     for d, t in wide_times.items():
         timings["scatter_add_rows_sorted"].update({
             f"d{d}_ms": t["sgd"]["kernel_ms"],
             f"d{d}_adagrad_ms": t["adagrad"]["kernel_ms"],
             f"d{d}_bound_ms": t["sgd"]["bound_ms"],
             f"d{d}_library_ms": t["sgd"]["library_ms"]})
+    for key, t in widths_times.items():
+        timings["scatter_add_rows_sorted"].update({
+            f"{key}_ms": t["sgd"]["kernel_ms"],
+            f"{key}_adagrad_ms": t["adagrad"]["kernel_ms"],
+            f"{key}_bound_ms": t["sgd"]["bound_ms"],
+            f"{key}_library_ms": t["sgd"]["library_ms"]})
+    timings["scatter_add_rows_sorted"].update(
+        kernels_per_call=per_call,
+        launches_by_class=dict(SCATTER_CLASSES))
     for key, name, d in (("gather_rows", "gather_rows", 129),
                          ("gather_rows", "gather_rows", 1),
                          ("gather_bags", "gather_bags", 129),

@@ -25,16 +25,25 @@ The order of the float32 additions: pieces at run starts and at multiples of
 pieces folded left to right, `((p0 + p1) + p2) + ...`. A run that crosses no
 multiple of L is one piece, summed in stream order.
 
-Tables are float32 or bfloat16, of any width; values are float32. Rows
-wider than the kernel's registers hold are walked in column chunks, with the
-same additions per column. A CUDA tensor goes to the
-kernel in `csrc/scatter.cu`; a CPU tensor to the plain version
+Tables are float32 or bfloat16, of any width; values are float32. The
+kernel has three width classes by the row's vector units (4 elements when
+D and the pointers allow 16-byte accesses, else 1): narrow (fewer than 32
+units: a group of P lanes a window, P the next power of two), 32 to 128 (a
+warp a window) and wide (more than 128: a block a window, a slice of the
+row a warp). Each update is two kernel launches; only AdaGrad on rows
+wider than `_WIDE_COLS` walks column chunks twice. A CUDA tensor goes to
+the kernel in `csrc/scatter.cu`; a CPU tensor to the plain version
 (`scatter_add_rows_sorted_plain`), which is also what the kernel is checked
 against on the card: it makes the same float32 additions in the same order.
-The wrapper counts its launches in `scatter_add_rows_sorted.launches`.
+The wrapper counts its launches in `scatter_add_rows_sorted.launches` (one
+a call), and each call's width class in `scatter_add_rows_sorted.classes`
+(a `Counter` keyed "narrow", "mid" and "wide"); the entry point reports the
+class and the device kernels it launched (`scatter_add_rows_sorted.kernels`,
+of the last call) in the same call.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -50,15 +59,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "et_scatter_add_rows_sorted": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                   _INT, _F32, _F32, _P],
+                                   _INT, _F32, _F32, _P, _P],
     "et_run_window": [],
 }
-# The widest rows, in elements, that the kernel holds in registers in one
-# pass: 1,024 on its 16-byte path, else 256. Wider rows are walked in column
-# chunks of that width; the scratch is at most this wide, and the AdaGrad
-# epilogue of rows wider than the narrower width takes an (n,) f32 scratch of
-# sums of squares.
-_CHUNK_MAX, _CHUNK_MIN = 1024, 256
+_CLASSES = ("narrow", "mid", "wide")
+# The widest rows, in elements, that the kernel holds in one pass
+# (`kWideCols` in csrc/scatter.cu): the scratch is at most this wide, and
+# only the AdaGrad epilogue of wider rows takes an (n,) f32 scratch of sums
+# of squares, walking the rows in column chunks of this width twice.
+_WIDE_COLS = 4096
 
 
 def _validate(table, rows, vals, accum) -> None:
@@ -175,21 +184,24 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
         return table
     lib = _library()
     # Two f32 slots per window for the pieces of runs that cross its edges,
-    # one column chunk wide.
-    scratch = torch.empty((2 * -(-n // RUN_WINDOW), min(d, _CHUNK_MAX)),
+    # one pass's columns wide.
+    scratch = torch.empty((2 * -(-n // RUN_WINDOW), min(d, _WIDE_COLS)),
                           dtype=torch.float32, device=table.device)
     ssq = None
-    if accum is not None and d > _CHUNK_MIN:
+    if accum is not None and d > _WIDE_COLS:
         ssq = torch.zeros((n,), dtype=torch.float32, device=table.device)
+    info = (ctypes.c_int * 2)()         # width class, kernels launched
     with torch.cuda.device(table.device):
         err = lib.et_scatter_add_rows_sorted(
             table.data_ptr(), sorted_rows.data_ptr(), sorted_vals.data_ptr(),
             None if accum is None else accum.data_ptr(), scratch.data_ptr(),
             None if ssq is None else ssq.data_ptr(), n, v, d,
             _DTYPE_CODE[table.dtype], float(scale), float(eps),
-            _lib.stream_of(table))
+            _lib.stream_of(table), info)
     _lib.check(lib, err, "scatter_add_rows_sorted")
     scatter_add_rows_sorted.launches += 1
+    scatter_add_rows_sorted.classes[_CLASSES[info[0]]] += 1
+    scatter_add_rows_sorted.kernels = info[1]
     return table
 
 
@@ -220,3 +232,5 @@ def scatter_sgd(table: torch.Tensor, delta: torch.Tensor, idx_result,
 
 
 scatter_add_rows_sorted.launches = 0
+scatter_add_rows_sorted.classes = collections.Counter()
+scatter_add_rows_sorted.kernels = 0

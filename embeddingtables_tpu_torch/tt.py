@@ -18,7 +18,7 @@ of the cores), and the pullback of a lookup is K `SparseEmbeddingUpdate`s on
 the digit streams, the fold's VJP taken with `torch.autograd`.
 
 Cores of any width take the run-scatter: at rank 32 and D = 128 the middle
-core is 4,096 wide, which the kernel walks in column chunks.
+core is 4,096 wide, which the kernel's wide class takes in one pass.
 """
 from __future__ import annotations
 

@@ -114,10 +114,14 @@ def _sorted_rows(g, device, n, v, zipf):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("adagrad", [False, True])
-@pytest.mark.parametrize("d", [128, 36, 7])
+@pytest.mark.parametrize("d", [128, 36, 7, 1, 32, 64, 129, 258, 4096,
+                               2, 4, 8, 12, 16])
 @pytest.mark.parametrize("zipf", [False, True])
 def test_cuda_scatter_add_rows_sorted_matches_plain(cuda_device, dtype,
                                                     adagrad, d, zipf):
+    # Every width class: narrow (1, 2, 4, 7, 8, 12, 16, 32, 36, 64; at 4 and
+    # 8 one and two 16-byte units, P = 1 and 2), 32-128 units (128) and wide
+    # (129, 258, 4096).
     g = torch.Generator(device=cuda_device).manual_seed(d + 2 * zipf)
     v, n = 3000, 20_000
     rows = _sorted_rows(g, cuda_device, n, v, zipf)
@@ -169,9 +173,11 @@ def _window_edge_rows(device, v):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("adagrad", [False, True])
-def test_cuda_scatter_window_edges_match_plain(cuda_device, dtype, adagrad):
+@pytest.mark.parametrize("d", [128, 1, 64, 258])
+def test_cuda_scatter_window_edges_match_plain(cuda_device, dtype, adagrad,
+                                               d):
     g = torch.Generator(device=cuda_device).manual_seed(7)
-    v, d = 300, 128
+    v = 300
     rows = _window_edge_rows(cuda_device, v)
     vals = torch.randn((rows.numel(), d), generator=g, device=cuda_device)
     table = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
@@ -191,6 +197,36 @@ def test_cuda_scatter_window_edges_match_plain(cuda_device, dtype, adagrad):
         torch.testing.assert_close(t_k.float(), t_p.float(), rtol=tol,
                                    atol=1e-6)
         torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, width_class", [(1, "narrow"), (64, "narrow"),
+                                            (128, "mid"), (129, "wide"),
+                                            (4096, "wide")])
+def test_cuda_scatter_counts_one_launch_by_width_class(cuda_device, d,
+                                                       width_class):
+    # One wrapper call, AdaGrad epilogue: one count, under its width class,
+    # two device kernels, and the plain version's result (a 4,096-wide row
+    # in one pass).
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    v = 500
+    rows = _sorted_rows(g, cuda_device, 6000, v, True)
+    vals = torch.randn((rows.numel(), d), generator=g, device=cuda_device)
+    table = torch.randn((v, d), generator=g, device=cuda_device)
+    accum = torch.rand((v,), generator=g, device=cuda_device)
+    t_k, t_p, a_k, a_p = table.clone(), table.clone(), accum.clone(), accum.clone()
+    before = S.scatter_add_rows_sorted.launches
+    classes = dict(S.scatter_add_rows_sorted.classes)
+    S.scatter_add_rows_sorted(t_k, rows, vals, -0.05, accum=a_k, eps=1e-8)
+    assert S.scatter_add_rows_sorted.launches == before + 1
+    after = dict(S.scatter_add_rows_sorted.classes)
+    assert after.pop(width_class) == classes.pop(width_class, 0) + 1
+    assert after == classes
+    assert S.scatter_add_rows_sorted.kernels == 2
+    S.scatter_add_rows_sorted_plain(t_p, rows, vals, -0.05, accum=a_p, eps=1e-8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda
@@ -874,11 +910,12 @@ def test_cuda_host_tables_match_a_simple_embedding(cuda_device, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("adagrad", [False, True])
-@pytest.mark.parametrize("d", [258, 1025, 2048, 4096])
+@pytest.mark.parametrize("d", [258, 1025, 2048, 4096, 4097, 4100])
 @pytest.mark.parametrize("zipf", [False, True], ids=["edges", "zipf"])
 def test_cuda_wide_rows_scatter_matches_plain(cuda_device, dtype, adagrad, d,
                                               zipf):
-    # Wider than 1,024 (or 256 off the 16-byte path): the column chunks.
+    # Wider than 128 units: the wide class, a block a window; past 4,096
+    # columns, AdaGrad's two sweeps over column chunks.
     g = torch.Generator(device=cuda_device).manual_seed(d + zipf)
     v, n = 3000, 20_000
     rows = (_sorted_rows(g, cuda_device, n, v, True) if zipf

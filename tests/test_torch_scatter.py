@@ -428,8 +428,8 @@ def test_ensemble_update_refuses_state_on_a_protocol_table():
 
 @pytest.mark.parametrize("case", ["run_scatter", "simple_embedding_sgd"])
 def test_rows_of_2048_match_jax(case):
-    # Wider than the kernel's registers hold (its column-chunk path on the
-    # card); the plain version and JAX's XLA scatter take any width. Against
+    # Wider than 128 vector units (the kernel's wide class on the card); the
+    # plain version and JAX's XLA scatter take any width. Against
     # XLA's per-occurrence additions: rtol/atol 1e-5, as above.
     rng = np.random.default_rng(2048)
     v, d, n = 600, 2048, 300

@@ -31,6 +31,7 @@ from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..optim import (SparseSGD, apply_dense_tx, check_dense_tx,
                      require_dense_state)
+from ..utils.telemetry import phase
 from .dlrm import (RowState, _init_mlp, _mlp, _pairs, _param_list,
                    _stacked_lookup, bce_loss, embedding_forward,
                    lazy_stack_update, microbatch_slices, stacked_flat_indices,
@@ -238,23 +239,28 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
     update of the stacked table and its row state in place, then plain SGD
     on the cross layers, deep tower and head, or one step of `dense_tx`
     (`init_dcn(dense_tx=)` holds its state); `microbatch=k` takes the
-    gradients over k slices of the batch before that one update."""
+    gradients over k slices of the batch before that one update. It opens
+    the DLRM step's telemetry phases ("step.lookup", "step.forward", ...)."""
     check_dense_tx(dense_tx)
     sparse_opt = sparse_opt or SparseSGD()
     k = microbatch_slices(microbatch)
 
     def grads(model, params, dense, cat, label):
         tables = model.tables
-        flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
-        with torch.enable_grad():
+        with phase("step.lookup"):
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
             with torch.no_grad():
                 emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
                                         cat.shape[1])
+        with torch.enable_grad():
             emb_t.requires_grad_(True)
-            loss = bce_loss(forward_from_embeddings(
-                model.cross, model.deep, model.head, cfg, dense, emb_t), label)
-            *dense_grads, delta_t = torch.autograd.grad(loss,
-                                                        params + [emb_t])
+            with phase("step.forward"):
+                loss = bce_loss(forward_from_embeddings(
+                    model.cross, model.deep, model.head, cfg, dense, emb_t),
+                    label)
+            with phase("step.backward"):
+                *dense_grads, delta_t = torch.autograd.grad(loss,
+                                                            params + [emb_t])
         return loss.detach(), dense_grads, (delta_t,), (flat, valid)
 
     def step(model: DCN, dense, cat, label, lr=None, generator=None):
@@ -274,11 +280,14 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
         else:
             loss, dense_grads, (delta_t,), (flat, valid) = grads(
                 model, params, dense, cat, label)
-        upd = lazy_stack_update(flat, valid, delta_t, cfg.dim, cfg.combiner)
-        tables.data, model.emb_state = sparse_opt.apply(
-            tables.data, upd, model.emb_state, lr=lr, **kw)
-        apply_dense_tx(params, dense_grads, dense_tx, model.dense_opt_state,
-                       dense_lr)
+        with phase("step.sparse_update"):
+            upd = lazy_stack_update(flat, valid, delta_t, cfg.dim,
+                                    cfg.combiner)
+            tables.data, model.emb_state = sparse_opt.apply(
+                tables.data, upd, model.emb_state, lr=lr, **kw)
+        with phase("step.dense_update"):
+            apply_dense_tx(params, dense_grads, dense_tx,
+                           model.dense_opt_state, dense_lr)
         return loss
 
     return step

@@ -37,6 +37,7 @@ from ..optim import (DenseOptState, SparseAdamState, SparseFTRLState,
                      SparseOptState, SparseSGD, apply_dense_tx,
                      check_dense_tx, require_dense_state)
 from ..tables import SimpleEmbedding
+from ..utils.telemetry import phase
 from .microbatch import microbatch_grads
 
 
@@ -573,24 +574,35 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
     of the batch, one lookup and one backward each, so only B/k examples'
     activations are live at once (`models/microbatch.py`); the update is
     still one `apply` of the whole batch's delta: the monolithic step up to
-    float re-association."""
+    float re-association.
+
+    Each layer of the step is a telemetry phase (`utils/telemetry.py`,
+    no synchronisation): "step.lookup" (the flat ids and the gather),
+    "step.forward" (towers, interaction, loss), "step.backward"
+    (`torch.autograd.grad`), "step.sparse_update" (the lazy update and
+    `sparse_opt.apply`, whose run-scatter path opens "update.sort",
+    "update.permute" and "update.scatter") and "step.dense_update"; under
+    `microbatch=k` the first three open k times a step."""
     check_dense_tx(dense_tx)
     sparse_opt = sparse_opt or SparseSGD()
     k = microbatch_slices(microbatch)
 
     def grads(model, params, dense, cat, label):
         tables = model.tables
-        flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
-        with torch.enable_grad():
+        with phase("step.lookup"):
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
             with torch.no_grad():
                 emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
                                         cat.shape[1])
+        with torch.enable_grad():
             emb_t.requires_grad_(True)
-            logits = forward_from_embeddings(model.bottom, model.top, cfg,
-                                             dense, emb_t)
-            loss = bce_loss(logits, label)
-            *dense_grads, delta_t = torch.autograd.grad(loss,
-                                                        params + [emb_t])
+            with phase("step.forward"):
+                logits = forward_from_embeddings(model.bottom, model.top, cfg,
+                                                 dense, emb_t)
+                loss = bce_loss(logits, label)
+            with phase("step.backward"):
+                *dense_grads, delta_t = torch.autograd.grad(loss,
+                                                            params + [emb_t])
         return loss.detach(), dense_grads, (delta_t,), (flat, valid)
 
     def step(model: DLRM, dense, cat, label, lr=None, generator=None):
@@ -610,11 +622,14 @@ def make_train_step(cfg: DLRMConfig, sparse_opt=None, dense_lr: float = 0.01,
         else:
             loss, dense_grads, (delta_t,), (flat, valid) = grads(
                 model, params, dense, cat, label)
-        upd = lazy_stack_update(flat, valid, delta_t, cfg.dim, cfg.combiner)
-        tables.data, model.emb_state = sparse_opt.apply(
-            tables.data, upd, model.emb_state, lr=lr, **kw)
-        apply_dense_tx(params, dense_grads, dense_tx, model.dense_opt_state,
-                       dense_lr)
+        with phase("step.sparse_update"):
+            upd = lazy_stack_update(flat, valid, delta_t, cfg.dim,
+                                    cfg.combiner)
+            tables.data, model.emb_state = sparse_opt.apply(
+                tables.data, upd, model.emb_state, lr=lr, **kw)
+        with phase("step.dense_update"):
+            apply_dense_tx(params, dense_grads, dense_tx,
+                           model.dense_opt_state, dense_lr)
         return loss
 
     return step

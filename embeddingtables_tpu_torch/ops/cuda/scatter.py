@@ -210,12 +210,19 @@ def scatter_update(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                    eps=0.0) -> torch.Tensor:
     """Duplicate-accumulating scatter-add through sorted runs, in place:
     a stable sort of `rows`, the values permuted with `gather_rows`, then
-    `scatter_add_rows_sorted` (which drops rows `< 0` and `>= V`)."""
-    sorted_rows, perm = torch.sort(rows.to(torch.int32), stable=True)
-    sorted_vals = gather_rows(vals.float().contiguous(),
-                              perm.to(torch.int32))
-    return scatter_add_rows_sorted(table, sorted_rows, sorted_vals, scale,
-                                   accum=accum, eps=eps)
+    `scatter_add_rows_sorted` (which drops rows `< 0` and `>= V`), each
+    step a telemetry phase: "update.sort", "update.permute" and
+    "update.scatter"."""
+    # imported here: `utils` imports the optimizers, which import this module
+    from ...utils.telemetry import phase
+    with phase("update.sort"):
+        sorted_rows, perm = torch.sort(rows.to(torch.int32), stable=True)
+    with phase("update.permute"):
+        sorted_vals = gather_rows(vals.float().contiguous(),
+                                  perm.to(torch.int32))
+    with phase("update.scatter"):
+        return scatter_add_rows_sorted(table, sorted_rows, sorted_vals, scale,
+                                       accum=accum, eps=eps)
 
 
 def scatter_sgd(table: torch.Tensor, delta: torch.Tensor, idx_result,

@@ -48,6 +48,7 @@ from ..ops.sparse_update import SparseEmbeddingUpdate
 from ..optim import (SparseFTRL, SparseLazyAdam, SparseRowWiseAdaGrad,
                      SparseSGD, apply_dense_tx, check_dense_tx,
                      require_dense_state)
+from ..utils.telemetry import phase
 from .alltoall import sharded_lookup_a2a, sharded_update_a2a
 from .mesh import mesh_device
 from .sharded import (Exchange, ShardedStackedTables, owned_apply,
@@ -239,8 +240,10 @@ def _local_grads(params, acts, loss_fn):
     block; `loss_fn(acts)` is the block's loss."""
     with torch.enable_grad():
         acts = [a.detach().requires_grad_(True) for a in acts]
-        loss = loss_fn(acts)
-        out = torch.autograd.grad(loss, params + acts, allow_unused=True)
+        with phase("step.forward"):
+            loss = loss_fn(acts)
+        with phase("step.backward"):
+            out = torch.autograd.grad(loss, params + acts, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, out[:len(params)])]
     return loss.detach(), grads, tuple(out[len(params):])
@@ -321,7 +324,9 @@ def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
     The local-mean gradients (over `microbatch=k` slices of the block when
     k > 1) become the global mean's (`_global_mean`); the deltas are
     divided by the data-axis size (and by the bag for an unpadded mean)
-    before the update; the towers then step."""
+    before the update; the towers then step. The step opens the single-card
+    step's telemetry phases (`models/dlrm.py::make_train_step`), and each
+    collective its "exchange.<collective>" phase (`Exchange.timed`)."""
     k = microbatch_slices(microbatch)
 
     def step(model, dense, cat, label, lr=None, generator=None):
@@ -335,7 +340,9 @@ def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
         ex = model.tables.exchange
 
         def slice_grads(d, c, l):
-            return _local_grads(params, lookups(model, c), lambda acts:
+            with phase("step.lookup"):
+                acts = lookups(model, c)
+            return _local_grads(params, acts, lambda acts:
                                 bce_loss(forward(model, d, acts), l))
 
         if k > 1:
@@ -344,12 +351,15 @@ def gather_train_step(cfg, sparse_opt, dense_lr: float, dense_tx, microbatch,
         else:
             loss, grads, deltas = slice_grads(dense, cat, label)
         loss, grads = _global_mean(ex, loss, grads)
-        deltas = [d.float() / ex.n_data for d in deltas]
-        if cfg.pad_idx is None and cfg.combiner == "mean" and cat.dim() == 3:
-            deltas = [d / cat.shape[2] for d in deltas]
-        update(model, cat, deltas, lr, kw)
-        apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
-                       dense_lr)
+        with phase("step.sparse_update"):
+            deltas = [d.float() / ex.n_data for d in deltas]
+            if cfg.pad_idx is None and cfg.combiner == "mean" and \
+                    cat.dim() == 3:
+                deltas = [d / cat.shape[2] for d in deltas]
+            update(model, cat, deltas, lr, kw)
+        with phase("step.dense_update"):
+            apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
+                           dense_lr)
         return loss
 
     return step
@@ -424,7 +434,7 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
         a2a_pad = None if cfg.pad_idx is None else -1
         opts = dict(capacity_factor=capacity_factor, pad_idx=a2a_pad,
                     wire_dtype=wire_dtype)
-        with torch.no_grad():
+        with phase("step.lookup"), torch.no_grad():
             if bag is None:
                 emb_bt, ovf_fwd = sharded_lookup_a2a(
                     mesh, st, shifted_bt, reducing=False, **opts)
@@ -445,24 +455,27 @@ def make_sharded_train_step(cfg: DLRMConfig, mesh, axis="data",
             lambda acts: bce_loss(forward_from_embeddings(
                 model.bottom, model.top, cfg, dense, acts[0]), label))
         loss, grads = _global_mean(ex, loss, grads)
-        delta_bt = (delta_t.float() / ex.n_data).transpose(0, 1).reshape(
-            -1, dim)
-        upd_w = None
-        if scale_tb is not None:
-            scale_bt = scale_tb.transpose(0, 1)
-            upd_w = scale_bt.reshape((-1,) if bag is None else (b * t, bag))
-        elif bag is not None and cfg.combiner == "mean":
-            delta_bt = delta_bt / bag
-        upd = SparseEmbeddingUpdate(
-            delta=delta_bt,
-            indices=shifted_bt.reshape((-1,) if bag is None
-                                       else (b * t, bag)),
-            weights=upd_w)
-        model.emb_state, ovf_bwd = sharded_update_a2a(
-            mesh, st, model.emb_state, upd, sparse_opt, lr=lr, **opts,
-            **kw)
-        apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
-                       dense_lr)
+        with phase("step.sparse_update"):
+            delta_bt = (delta_t.float() / ex.n_data).transpose(0, 1).reshape(
+                -1, dim)
+            upd_w = None
+            if scale_tb is not None:
+                scale_bt = scale_tb.transpose(0, 1)
+                upd_w = scale_bt.reshape((-1,) if bag is None
+                                         else (b * t, bag))
+            elif bag is not None and cfg.combiner == "mean":
+                delta_bt = delta_bt / bag
+            upd = SparseEmbeddingUpdate(
+                delta=delta_bt,
+                indices=shifted_bt.reshape((-1,) if bag is None
+                                           else (b * t, bag)),
+                weights=upd_w)
+            model.emb_state, ovf_bwd = sharded_update_a2a(
+                mesh, st, model.emb_state, upd, sparse_opt, lr=lr, **opts,
+                **kw)
+        with phase("step.dense_update"):
+            apply_dense_tx(params, grads, dense_tx, model.dense_opt_state,
+                           dense_lr)
         if with_overflow:
             return loss, ovf_fwd + ovf_bwd
         return loss

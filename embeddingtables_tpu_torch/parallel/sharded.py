@@ -36,9 +36,12 @@ into its row through an XLA scatter (SGD) or a dense-gradient scratch; the
 port's owned stream goes through the run-scatter, which sums each row's run
 in its own order before one write.
 
-An `Exchange`'s `timer`, when set to a callable `name -> context manager`,
-wraps each of its collective calls (chip_smoke.py times them with CUDA
-events).
+Each collective call of an `Exchange` is the telemetry phase
+"exchange.<collective>" ("exchange.all_gather", "exchange.reduce_scatter",
+...), and `owned_apply`'s host read of the owned count is
+"update.owned_count". An `Exchange`'s `timer`, when set to a callable
+`name -> context manager`, also wraps each collective call (chip_smoke.py
+times them with CUDA events).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..ops.sparse_update import SparseEmbeddingUpdate
 from ..optim import SparseAdamState, SparseFTRLState, SparseOptState, SparseSGD
 from ..tables import SimpleEmbedding, as_table
 from ..types import cdiv
+from ..utils.telemetry import phase
 from .mesh import mesh_device
 
 
@@ -126,9 +130,14 @@ class Exchange:
             self.order = torch.tensor(flat)
             self.inverse = torch.argsort(self.order)
 
+    @contextlib.contextmanager
     def timed(self, name: str):
-        return (contextlib.nullcontext() if self.timer is None
-                else self.timer(name))
+        """The collective `name` as the telemetry phase "exchange.<name>",
+        inside `timer(name)` where one is set."""
+        with phase(f"exchange.{name}"), (
+                contextlib.nullcontext() if self.timer is None
+                else self.timer(name)):
+            yield
 
     def _to_flat(self, x):
         """Group-rank-major chunks -> flat-index-major."""
@@ -553,7 +562,8 @@ def owned_apply(st: ShardedStackedTables, idx: torch.Tensor,
     rows = idx.reshape(-1).long()
     per_row = rows.numel() // max(1, delta.numel() // dim)
     mine = (rows >= 0) & (torch.remainder(rows, ex.n) == ex.me)
-    sel = mine.nonzero().squeeze(1)
+    with phase("update.owned_count"):     # reads the count on the host
+        sel = mine.nonzero().squeeze(1)
     lrow = torch.div(rows[sel], ex.n, rounding_mode="floor").to(torch.int32)
     vals = delta.reshape(-1, dim).index_select(
         0, sel if per_row == 1 else torch.div(sel, per_row,

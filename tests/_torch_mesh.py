@@ -373,16 +373,24 @@ def dlrm_eval(ctx, axis, cfg, arrays, dense, cat):
 
 
 def train_loop(ctx, axis, cfg, arrays, opt, batches, kw):
-    """`train_dlrm(mesh=...)` over the global batches: losses, AUCs, the
-    unsharded model, and the capacity tuner's factor."""
+    """`train_dlrm(mesh=...)` over the global batches, under a telemetry of
+    its own: losses, AUCs, the unsharded model, and how often each
+    telemetry phase opened."""
     from embeddingtables_tpu_torch.models.train import train_dlrm
+    from embeddingtables_tpu_torch.utils import telemetry
     kw = dict(kw)
     model = None if arrays is None else dict(arrays)
-    res = train_dlrm(cfg, iter([dict(dense=d, cat=c, label=l)
-                                for d, c, l in batches]), len(batches),
-                     model=model, mesh=ctx.mesh(axis), axis=axis,
-                     sparse_opt=opt, device="cpu", verbose=False, **kw)
-    out = {"losses": res.losses, "aucs": res.aucs, **_unsharded(res.model)}
+    tel = telemetry.Telemetry()
+    old = telemetry.set_telemetry(tel)
+    try:
+        res = train_dlrm(cfg, iter([dict(dense=d, cat=c, label=l)
+                                    for d, c, l in batches]), len(batches),
+                         model=model, mesh=ctx.mesh(axis), axis=axis,
+                         sparse_opt=opt, device="cpu", verbose=False, **kw)
+    finally:
+        telemetry.set_telemetry(old)
+    out = {"losses": res.losses, "aucs": res.aucs, **_unsharded(res.model),
+           "phases": {k: v.count for k, v in tel.phases.items()}}
     return out
 
 

@@ -324,5 +324,13 @@ def test_loop_telemetry_phases_match_jax(tmp_path):
         finally:
             tel_mod.set_telemetry(old)
         counts.append({k: v.count for k, v in tel.phases.items()})
+    # The port's step also opens a span at each layer (the JAX package,
+    # whose step is one jitted program, has none): once a step each.
+    layers = {k: counts[1].pop(k) for k in list(counts[1])
+              if k.startswith(("step.", "update."))}
     assert counts[1] == counts[0] == {"data": 4, "step": 4, "eval": 2,
                                       "checkpoint": 2}
+    assert layers == dict.fromkeys(
+        ("step.lookup", "step.forward", "step.backward", "step.sparse_update",
+         "step.dense_update", "update.sort", "update.permute",
+         "update.scatter"), 4)

@@ -202,10 +202,31 @@ def test_unshard_dlrm_gives_back_the_model(pool):
             np.testing.assert_array_equal(s, np.asarray(w, np.float32))
 
 
+# The telemetry phases of `test_train_dlrm_on_a_mesh_matches_jax`'s loop
+# (4 steps, 2 evals) on every rank: each layer span once a step.
+MESH_PHASES = {"data": 4, "step": 4, "eval": 2, **dict.fromkeys(
+    ("step.lookup", "step.forward", "step.backward", "step.sparse_update",
+     "step.dense_update", "update.sort", "update.permute", "update.scatter"),
+    4)}
+MESH_EXCHANGES = {
+    # a step: the lookup's ids all-gather and reduce-scatter, the towers'
+    # all-reduce, the update's ids and delta all-gathers and its owned
+    # count; an eval: one all-gather and one reduce-scatter, then the
+    # scores' all-gather
+    "gather": {"update.owned_count": 4, "exchange.all_gather": 16,
+               "exchange.reduce_scatter": 6, "exchange.all_reduce": 4},
+    # the butterfly's all-to-alls, the towers' all-reduce and the overflow
+    # counts' all-reduces; the tuner retunes once
+    "a2a": {"retune": 1, "exchange.all_to_all": 16,
+            "exchange.all_reduce": 12, "exchange.all_gather": 4,
+            "exchange.reduce_scatter": 2}}
+
+
 @pytest.mark.parametrize("exchange", ["gather", "a2a"])
 def test_train_dlrm_on_a_mesh_matches_jax(pool, exchange):
     """Both loops on the same global batches; on the butterfly the capacity
-    tuner starts at factor 0.5 and must retune at the same steps."""
+    tuner starts at factor 0.5 and must retune at the same steps. Every
+    rank opens the same telemetry phases, each collective its own."""
     jcfg, pcfg = cfgs()
     jopt, popt = opts("adagrad")
     jm = jax_model(jcfg, jopt)
@@ -227,6 +248,7 @@ def test_train_dlrm_on_a_mesh_matches_jax(pool, exchange):
         assert [s for s, _ in g["aucs"]] == [s for s, _ in res.aucs]
         np.testing.assert_allclose([a for _, a in g["aucs"]],
                                    [a for _, a in res.aucs], atol=1e-6)
+        assert g["phases"] == {**MESH_PHASES, **MESH_EXCHANGES[exchange]}
     assert_model_close(got[0], JP.unshard_dlrm(res.model))
 
 

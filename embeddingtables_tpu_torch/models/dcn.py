@@ -31,7 +31,7 @@ from ..config import resolve_device
 from ..ops.ensemble import StackedTables
 from ..optim import (SparseSGD, apply_dense_tx, check_dense_tx,
                      require_dense_state)
-from ..utils.telemetry import phase
+from ..utils.telemetry import get_telemetry, phase
 from .dlrm import (RowState, _init_mlp, _mlp, _pairs, _param_list,
                    _stacked_lookup, bce_loss, embedding_forward,
                    lazy_stack_update, microbatch_slices, stacked_flat_indices,
@@ -176,19 +176,45 @@ def init_dcn(cfg: DCNConfig, generator: torch.Generator | None = None,
                          dense_tx)
 
 
+def grid_width(f: int, dtype: torch.dtype) -> int:
+    """`f` rounded up to a whole number of 16-byte units of `dtype`: the
+    width at which every row of a `(B, f)` activation starts on the 16-byte
+    grid, which cuBLAS's Hopper GEMM kernels need (off it, only its
+    alignment-1 kernels run)."""
+    unit = max(1, 16 // dtype.itemsize)
+    return -(-f // unit) * unit
+
+
+def _padded(t: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """`t` cast to `dtype` at the top-left of a zeroed `shape` buffer, in
+    one copy (differentiable: the gradient is the buffer's, sliced back);
+    `t.to(dtype)` where the shapes agree."""
+    if tuple(t.shape) == tuple(shape):
+        return t.to(dtype)
+    out = t.new_zeros(shape, dtype=dtype)
+    out[tuple(slice(0, n) for n in t.shape)].copy_(t)
+    return out
+
+
 def cross_layers(cross, x0: torch.Tensor, compute_dtype) -> torch.Tensor:
     """L applications of `x <- x0 * (W x + b) + x` (low-rank W = U V^T,
-    applied as `(x @ V) @ U^T`)."""
+    applied as `(x @ V) @ U^T`). `x0` may be wider than the weights' F
+    rows, with zero columns past F: the weights are then zero-padded to its
+    width, the padded columns stay 0 through every layer (`0 * (...) + 0`)
+    and the first F columns are the unpadded network's."""
     x0 = x0.to(compute_dtype)
+    fp = x0.shape[-1]
     x = x0
     for layer in cross:
         if len(layer) == 2:
             w, b = layer
-            xw = x @ w.to(compute_dtype)
+            xw = x @ _padded(w, (fp, fp), compute_dtype)
         else:
             u, v, b = layer
-            xw = (x @ v.to(compute_dtype)) @ u.to(compute_dtype).T
-        x = x0 * (xw + b.to(compute_dtype)) + x
+            r = v.shape[1]
+            xw = (x @ _padded(v, (fp, r), compute_dtype)) @ \
+                _padded(u, (fp, r), compute_dtype).T
+        x = x0 * (xw + _padded(b, (fp,), compute_dtype)) + x
     return x
 
 
@@ -196,16 +222,32 @@ def forward_from_embeddings(cross, deep, head, cfg: DCNConfig,
                             dense: torch.Tensor,
                             emb_t: torch.Tensor) -> torch.Tensor:
     """Forward given looked-up embeddings `(T, B, dim)`; float32 logits
-    `(B,)`."""
+    `(B,)`.
+
+    The cross network and the deep tower's first layer run at
+    `grid_width(F, compute_dtype)` columns, x0 and their weights
+    zero-padded (exact: see `cross_layers`), so that every GEMM of width F
+    has its leading dimensions on the 16-byte grid; the counter
+    `dcn.x0_pad_cols` adds the padded columns of x0 in each forward. The
+    parameters keep their logical shapes."""
     cd = cfg.compute_dtype
     b = emb_t.shape[1]
+    f = cfg.input_features
+    fp = grid_width(f, cd)
     emb = emb_t.permute(1, 0, 2).reshape(b, -1)            # (B, T*dim)
-    x0 = torch.cat([emb.to(cd), dense.to(cd)], dim=-1)
+    zeros = []
+    if fp > f:
+        zeros = [emb.new_zeros((b, fp - f), dtype=cd)]
+        (w0, b0), *rest = deep
+        deep = [(_padded(w0, (fp, w0.shape[1]), cd), b0)] + rest
+        get_telemetry().count("dcn.x0_pad_cols", fp - f)
+    # No name holds the casts: each is freed once x0 is built.
+    x0 = torch.cat([emb.to(cd), dense.to(cd)] + zeros, dim=-1)
     xc = cross_layers(cross, x0, cd)
     if cfg.structure == "stacked":
         feat = _mlp(deep, xc, cd)
     else:
-        feat = torch.cat([xc, _mlp(deep, x0, cd)], dim=-1)
+        feat = torch.cat([xc[:, :f], _mlp(deep, x0, cd)], dim=-1)
     w, bh = head
     logits = feat @ w.to(cd) + bh.to(cd)
     return logits[:, 0].float()

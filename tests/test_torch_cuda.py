@@ -1124,3 +1124,83 @@ def test_cuda_device_prefetcher_copies_on_a_side_stream(cuda_device):
     for want, (dense, cat) in zip(host, got):
         assert torch.equal(dense.cpu(), torch.from_numpy(want["dense"]) * 2)
         assert torch.equal(cat.cpu(), torch.from_numpy(want["cat"]) + 1)
+
+
+def _dcn_plain(model, dense, emb_t, dtype):
+    """The DCN forward at the logical width F, written out: x0, the
+    weights and every product in `dtype`, as the port casts them."""
+    b = emb_t.shape[1]
+    x0 = torch.cat([emb_t.permute(1, 0, 2).reshape(b, -1), dense],
+                   dim=-1).to(dtype)
+    x = x0
+    for u, v, bias in model.cross:
+        x = x0 * ((x @ v.to(dtype)) @ u.to(dtype).T + bias.to(dtype)) + x
+    for w, bias in model.deep:
+        x = torch.relu(x @ w.to(dtype) + bias.to(dtype))
+    w, bias = model.head
+    return (x @ w.to(dtype) + bias.to(dtype))[:, 0].float()
+
+
+@pytest.mark.cuda
+def test_cuda_dcn_towers_run_on_the_16_byte_grid(cuda_device):
+    # DCN-v2 at the MLPerf widths (x0 = 26 x 128 + 13 = 3,341 columns,
+    # rank 512) in bf16: the towers run 3,344 wide, so none of the 21
+    # GEMMs of width F in the forward and backward is one of cuBLAS's
+    # alignment-1, -2 or -4 kernels. Against the same network written out at width 3,341 in
+    # bf16 and in f32: the logits within 2^-5 of the largest (0.5-0.84 %
+    # on the H100). A bf16 backward of this network sits about 11 % from
+    # f32's in every leaf, the unpadded computation's as much as the
+    # padded one's: a bf16 forward flips ReLU masks and the rounding runs
+    # through the cross layers' products, so two bf16 summation orders
+    # differ by about 5 % (two seeds, H100). Each gradient is held to
+    # about twice that: 2^-2 of f32's, 2^-3 of the unpadded bf16 one's.
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch.models import dcn as PD
+    cfg = ett.DCNConfig(vocab_sizes=(10,) * 26, num_dense=13, dim=128,
+                        num_cross=3, cross_rank=512,
+                        deep_mlp=(1024, 1024, 512, 256),
+                        compute_dtype=torch.bfloat16)
+    assert cfg.input_features == 3341
+    assert PD.grid_width(3341, torch.bfloat16) == 3344
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    model = ett.init_dcn(cfg, g, device=cuda_device)
+    b = 4096
+    dense = torch.randn((b, 13), generator=g, device=cuda_device)
+    emb_t = torch.randn((26, b, 128), generator=g, device=cuda_device) * 0.1
+    label = (torch.rand((b,), generator=g, device=cuda_device) < 0.5).float()
+    leaves = [p for _, p in model.tower_params()] + [emb_t.requires_grad_()]
+
+    def grads(forward):
+        logits = forward(model.cross, model.deep, model.head, cfg, dense,
+                         emb_t)
+        return logits, torch.autograd.grad(PD.bce_loss(logits, label), leaves)
+
+    grads(PD.forward_from_embeddings)               # cuBLAS's heuristics
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        logits, got = grads(PD.forward_from_embeddings)
+        torch.cuda.synchronize()
+    # The towers' GEMMs: those with F' = 3,344 among their operands' sizes
+    # (per cross layer two in the forward and four in the backward, and
+    # three of the deep tower's first layer); the kernels launched by each.
+    tower = [k.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and any(3344 in s for s in e.input_shapes if isinstance(s, list))
+             for k in e.kernels]
+    gemms = [k for k in tower
+             if re.search("gemm|nvjet|xmma|cutlass", k, re.I)]
+    assert len(gemms) >= 21, tower
+    misaligned = [k for k in gemms if re.search("align[124](?![0-9])", k)]
+    assert not misaligned, misaligned
+    plain = {dt: grads(lambda *a: _dcn_plain(model, dense, emb_t, dt))
+             for dt in (torch.bfloat16, torch.float32)}
+    for dt in plain:
+        assert (logits - plain[dt][0]).abs().max() <= \
+            2 ** -5 * plain[dt][0].abs().max()
+    for dt, tol in ((torch.bfloat16, 2 ** -3), (torch.float32, 2 ** -2)):
+        for leaf, a, w in zip(leaves, got, plain[dt][1]):
+            assert a.shape == w.shape == leaf.shape
+            assert (a - w).norm() <= tol * w.norm()

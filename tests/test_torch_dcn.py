@@ -28,6 +28,7 @@ import embeddingtables_tpu_torch as ett
 from embeddingtables_tpu_torch import optim as P
 from embeddingtables_tpu_torch.data import SyntheticCriteo
 from embeddingtables_tpu_torch.models import dcn as PD
+from embeddingtables_tpu_torch.utils.telemetry import Telemetry, set_telemetry
 from _torch_threads import _one_torch_thread  # noqa: F401
 
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -191,6 +192,44 @@ def test_three_train_steps_match_jax(case, jax_programs):
         assert abs(float(ploss) - float(jloss)) <= 1e-4
         if i in (0, 2):
             _assert_models_close(pm, jm, tol)
+
+
+@pytest.mark.parametrize("num_dense", [5, 8], ids=["F37", "F40_on_grid"])
+@pytest.mark.parametrize("rank", [64, None], ids=["rank64", "full_rank"])
+@pytest.mark.parametrize("structure", ["stacked", "parallel"])
+def test_towers_padded_to_the_16_byte_grid_match_jax(structure, rank,
+                                                     num_dense, jax_programs):
+    # F = 37 runs the towers at the f32 grid width 40 (x0 and the weights
+    # zero-padded), F = 40 unpadded: the counter reads the padded columns
+    # of each forward, every parameter and gradient keeps its logical
+    # shape, and a train step matches JAX's.
+    (jcfg, jopt, jm), (pcfg, popt, pm) = _pair(structure=structure,
+                                               cross_rank=rank,
+                                               num_dense=num_dense)
+    f = pcfg.input_features
+    pad = PD.grid_width(f, torch.float32) - f
+    assert (f, pad) == ((37, 3) if num_dense == 5 else (40, 0))
+    shapes = {k: v.shape for k, v in pm.state_dict().items()}
+    params = [p for _, p in pm.tower_params()]
+    tel = Telemetry()
+    old = set_telemetry(tel)
+    try:
+        dense, cat, label = _batch(np.random.default_rng(6), pcfg)
+        loss = PD.bce_loss(ett.dcn_forward(pm, dense, cat),
+                           torch.as_tensor(label))
+        grads = torch.autograd.grad(loss, params)
+        assert [g.shape for g in grads] == [p.shape for p in params]
+        assert tel.counters.get("dcn.x0_pad_cols", 0) == pad
+        jm, _ = jax_programs("train", jcfg, "sgd", jopt)(
+            jm, jnp.asarray(dense), jnp.asarray(cat), jnp.asarray(label))
+        PD.make_train_step(pcfg, sparse_opt=popt, dense_lr=0.05)(
+            pm, dense, cat, label)
+        assert tel.counters.get("dcn.x0_pad_cols", 0) == 2 * pad
+        assert ("dcn.x0_pad_cols" in tel.summary()) == (pad > 0)
+    finally:
+        set_telemetry(old)
+    assert {k: v.shape for k, v in pm.state_dict().items()} == shapes
+    _assert_models_close(pm, jm, dict(rtol=1e-5, atol=1e-5))
 
 
 def test_train_step_refuses_what_is_not_ported():

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --per-table          # only the per-table comparison
     python3 chip_smoke.py --ensemble           # only the ensemble API phase
     python3 chip_smoke.py --families           # only the model-family phase
+    python3 chip_smoke.py --multihot-dcn       # only its multi-hot DCN part
     python3 chip_smoke.py --variants           # only the table-variant phase
     python3 chip_smoke.py --wide-rows          # only the wide-row run-scatter
     python3 chip_smoke.py --scatter-widths     # only the run-scatter's widths
@@ -80,6 +81,14 @@ Phases, each of which ends the script with a non-zero exit if it fails:
     query rows, 2M items, dim 64, B = 16,384) through `train_two_tower`
     (2 run-scatters a step, recall@10), `build_item_index` (31
     `gather_rows`) and `make_retrieval_service` against the plain path.
+    Last, MLPerf DLRM-DCNv2 at the benchmark cell's shapes
+    (`multihot_dcn_phase`: one card's share of its tables, 51.9M x 128
+    f32, bags of the published per-table widths, 214 ids an example, B =
+    65,536): 4 indexer-AdaGrad steps of `make_train_step` with 1
+    `gather_bags_ragged`, 1 `gather_rows` and 1 run-scatter a step counted,
+    the step's time, kernel profile and peak memory; `gather_bags_ragged`
+    bitwise its plain version on a step's ids and timed beside it,
+    `F.embedding_bag` with per-bag offsets and its byte bound.
 11. The table variants. Quantized serving through
     `make_*_service(quantized=True)` to 8 closed-loop clients: the DLRM at
     int8 and int4, DCN-v2 at int8, the folded DeepFM at int8 (int4 refused
@@ -249,7 +258,9 @@ runs phases 1-2, `hot_accumulate`'s uniform times at S = 128 and 512, and
 phase 8: the lines that compare two versions of the update kernels on the
 per-table path. Copied into an unpacked older commit and run there, it
 measures that commit's kernels the same way. With `--ensemble` it runs
-phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10; with
+phases 1-2 and phase 9; with `--families` phases 1-2 and phase 10 but its
+multi-hot part, with `--multihot-dcn` phases 1-2, that part and its
+kernel's `kernels` entry; with
 `--variants` phases 1-2 and phase 11; with `--wide-rows` phases 1-2 and
 phase 12's first part, with `--scatter-widths` its second; with
 `--persistence` phases 1-2 and phase 13; with `--microbatch`, `--rpc`,
@@ -609,9 +620,11 @@ HAND_KERNELS = {"scatter_add_rows_sorted": "runscatter_",
                 "gather_bags": "gather_bags_"}
 
 
-def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
+def kernel_profile(fn, step_ms: float, reps: int = 5,
+                   hand: dict = HAND_KERNELS) -> dict:
     """Kernel time per call of `fn` by name (torch.profiler over `reps`
-    calls), the hand kernels' share of it, and the device's idle share of a
+    calls), the time of each of the `hand` kernels (wrapper -> a part of
+    its device functions' names), and the device's idle share of a
     `step_ms` step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -629,7 +642,7 @@ def kernel_profile(fn, step_ms: float, reps: int = 5) -> dict:
             "hand_kernel_us_per_step": {
                 name: sum(e.self_device_time_total for e in kernels
                           if key in e.key) / reps
-                for name, key in HAND_KERNELS.items()},
+                for name, key in hand.items()},
             "top_kernels_us_per_step": [
                 [e.key[:70], e.self_device_time_total / reps]
                 for e in kernels[:8]]}
@@ -1316,10 +1329,11 @@ def card_parity(ett, S, G, model, cfg, batch):
     emit({"phase": "train_card_parity", "n": flat.numel(), **out})
 
 
-def step_times(run, examples: int, steps: int = 5) -> dict:
+def step_times(run, examples: int, steps: int = 5,
+               hand: dict = HAND_KERNELS) -> dict:
     """Per-step device time (CUDA events over back-to-back calls of
     `run(i)`, the i-th step), host wall, examples/s, and the kernel profile
-    of one step."""
+    of one step (`kernel_profile`'s `hand`)."""
     run(0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1334,7 +1348,7 @@ def step_times(run, examples: int, steps: int = 5) -> dict:
     return {"step_ms": ms,
             "host_wall_ms": (time.perf_counter() - t0) / steps * 1e3,
             "examples_per_s": examples / (ms / 1e3),
-            **kernel_profile(lambda: run(0), ms, reps=2)}
+            **kernel_profile(lambda: run(0), ms, reps=2, hand=hand)}
 
 
 def ctr_runner(step, model, batches, generator=None):
@@ -2227,6 +2241,140 @@ def families_phase(ett, S, H, G, gen, batches):
           "launches": counter.total, "dcn_step_ms": dcn_ms,
           "deepfm_step_ms": fm_ms})
     return counter.total, errs, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 10, last part: MLPerf DLRM-DCNv2's multi-hot bags
+# ---------------------------------------------------------------------------
+
+# The benchmark's configuration of the model: one card's share of its tables
+# (51,883,621 x 128 f32), the published bag widths, the dense arch.
+MLPERF_DCN_CONFIG = "portbench/configs/dlrm_dcnv2_mlperf.json"
+MULTIHOT_KERNELS = {"gather_bags_ragged": "gather_bags_ragged",
+                    "gather_rows": "gather_rows_",
+                    "scatter_add_rows_sorted": "runscatter_"}
+
+
+def multihot_dcn_phase(ett, S, H, G, gen, b: int = B_TRAIN,
+                       steps: int = 4):
+    """MLPerf DLRM-DCNv2 at the benchmark cell's shapes (S = 214 ids an
+    example in 26 bags of the published widths, D = 128, f32 tables, B =
+    65,536; Zipf(1.1) ids drawn slot by slot): `make_train_step` with
+    indexer AdaGrad, each hand kernel's launches counted over `steps` steps
+    (one `gather_bags_ragged`, one `gather_rows` (the update's permute) and
+    one run-scatter a step, no `gather_bags` and no `hot_accumulate`);
+    `gather_bags_ragged` bitwise
+    its plain version on a step's ids; then its time beside its plain
+    version, `F.embedding_bag` with per-bag offsets and the byte bound of
+    those ids (4 bytes an id, each distinct row read once, the T * B sums
+    written once). Returns the counted launches, the kernel's largest
+    difference from its plain version and its times."""
+    from embeddingtables_tpu_torch.models.dlrm import stacked_flat_indices
+    t0 = time.perf_counter()
+    with open(MLPERF_DCN_CONFIG) as f:
+        js = json.load(f)
+    widths = tuple(js["bag_sizes"])
+    cfg = ett.DCNConfig(
+        vocab_sizes=tuple(js["vocab_sizes"]), num_dense=js["num_dense"],
+        dim=js["dim"], num_cross=js["num_cross"], cross_rank=js["cross_rank"],
+        deep_mlp=tuple(js["deep_mlp"]), structure=js["structure"],
+        bag_sizes=widths, dense_mlp=tuple(js["dense_mlp"]))
+    opt = ett.SparseRowWiseAdaGrad(0.01, eps=1e-8, method="indexer")
+    model = ett.init_dcn(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         sparse_opt=opt)
+    drawn = [zipf_ids(gen, v, w * b, 2)
+             for v, w in zip(cfg.vocab_sizes, widths)]
+    batches = [{"dense": torch.randn((b, cfg.num_dense), generator=gen,
+                                     device="cuda"),
+                "cat": torch.cat([d[k].view(w, b)
+                                  for d, w in zip(drawn, widths)]),
+                "label": torch.randint(0, 2, (b,), generator=gen,
+                                       device="cuda").float()}
+               for k in range(2)]
+    del drawn
+    run = ctr_runner(ett.models.dcn.make_train_step(cfg, sparse_opt=opt,
+                                                    dense_lr=0.1),
+                     model, batches)
+    run(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"gather_bags_ragged": G.gather_bags_ragged,
+                "gather_bags": G.gather_bags, "gather_rows": G.gather_rows,
+                "scatter_add_rows_sorted": S.scatter_add_rows_sorted,
+                "hot_accumulate": H.hot_accumulate}
+    for w in wrappers.values():
+        w.launches = 0
+    losses = [float(run(i)) for i in range(steps)]
+    launches = {k: w.launches for k, w in wrappers.items()}
+    require(launches == {"gather_bags_ragged": steps, "gather_bags": 0,
+                         "gather_rows": steps,
+                         "scatter_add_rows_sorted": steps,
+                         "hot_accumulate": 0},
+            f"multi-hot DCN launches over {steps} steps: {launches}")
+    require(all(math.isfinite(x) for x in losses),
+            f"multi-hot DCN losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step = step_times(run, b, steps, hand=MULTIHOT_KERNELS)
+
+    table, d = model.tables.data, cfg.dim
+    layout = model.tables.bag_layout(widths)
+    id_sets = [stacked_flat_indices(model.tables, x["cat"], None,
+                                    widths)[0].view(-1, b) for x in batches]
+    got = G.gather_bags_ragged(table, id_sets[0], layout)
+    want = G.gather_bags_ragged_plain(table, id_sets[0], layout)
+    # The same f32 additions in bag order, one rounding: equal.
+    require(torch.equal(got, want), "gather_bags_ragged differs from its "
+            "plain version at the MLPerf widths")
+    err = max_abs_err(got, want)
+    # F.embedding_bag takes each bag's ids together: table t's (w, B) block
+    # transposed, bags in (table, example) order, one offset a bag.
+    lib_sets = [torch.cat([blk.t().reshape(-1) for blk in
+                           torch.split(ids, list(widths))]).long()
+                for ids in id_sets]
+    offsets = torch.cumsum(torch.tensor(widths, device="cuda")
+                           .repeat_interleave(b), 0) - torch.tensor(
+                               widths, device="cuda").repeat_interleave(b)
+    lib = torch.nn.functional.embedding_bag(lib_sets[0], table, offsets,
+                                            mode="sum")
+    lib_err = float((lib.view_as(got) - got).abs().max())
+    torch.testing.assert_close(lib.view_as(got), got, rtol=1e-5, atol=1e-5)
+    del got, want, lib
+    n, bags = id_sets[0].numel(), len(widths) * b
+    uniq = statistics.mean(int(torch.unique(s).numel()) for s in id_sets)
+    nbytes = 4 * n + uniq * d * 4 + bags * d * 4
+    t = {"kernel_ms": time_each_ms(
+             lambda i: G.gather_bags_ragged(table, i, layout),
+             [(s,) for s in id_sets], reps=20),
+         "plain_ms": time_each_ms(
+             lambda i: G.gather_bags_ragged_plain(table, i, layout),
+             [(s,) for s in id_sets], reps=5),
+         "library_ms": time_each_ms(
+             lambda i: torch.nn.functional.embedding_bag(
+                 i, table, offsets, mode="sum"),
+             [(s,) for s in lib_sets], reps=20),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit({"phase": "multihot_dcn", "seconds": time.perf_counter() - t0,
+          "table_shape": list(table.shape), "bag_sizes": list(widths),
+          "ids_a_step": n, "bags_a_step": bags, "unique_rows": uniq,
+          "bytes": nbytes, "launches": launches, "losses": losses,
+          "peak_gb": peak_gb, "kernel_vs_plain_max_abs": err,
+          "library_vs_kernel_max_abs": lib_err, **step,
+          **{f"gather_bags_ragged_{k}": v for k, v in t.items()}})
+    return launches, err, t
+
+
+def ragged_kernel_row(launches: int, err: float, t: dict) -> dict:
+    """The `kernels` line's entry of `gather_bags_ragged`."""
+    return {"name": "gather_bags_ragged", "route": "cuda",
+            "source": "embeddingtables_tpu_torch/csrc/gather.cu",
+            "replaces": None,
+            "counterpart": "embeddingtables_tpu/ops/pallas/gather.py:258 "
+                           "(bags of one width; per-table widths are the "
+                           "port's own)",
+            "launches": launches, "max_abs_err": err,
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6232,6 +6380,12 @@ def main() -> int:
         ensemble_phase(ett, S, H, G, gen)
         print(card_line(), flush=True)
         return 0
+    if "--multihot-dcn" in sys.argv[1:]:
+        launches, err, t = multihot_dcn_phase(ett, S, H, G, gen)
+        emit({"kernels": [ragged_kernel_row(
+            launches["gather_bags_ragged"], err, t)]})
+        print(card_line(), flush=True)
+        return 0
     if "--wide-rows" in sys.argv[1:]:
         wide_rows_phase(ett, S, G, gen, LaunchCounter(S, H, G))
         print(card_line(), flush=True)
@@ -6316,6 +6470,8 @@ def main() -> int:
     ens = ensemble_phase(ett, S, H, G, gen)
     fam, fam_errs, fam_times = families_phase(ett, S, H, G, gen,
                                               train_batches)
+    ragged = multihot_dcn_phase(ett, S, H, G, gen)
+    torch.cuda.empty_cache()
     var = variants_phase(ett, S, H, G, gen, train_batches)
     wide_counter = LaunchCounter(S, H, G)
     wide_err, wide_times, _ = wide_rows_phase(ett, S, G, gen, wide_counter)
@@ -6368,7 +6524,7 @@ def main() -> int:
 
     csrc = "embeddingtables_tpu_torch/csrc/"
     pallas = "embeddingtables_tpu/ops/pallas/"
-    counted = (ens, fam, var, wide_counter.total, persist, micro,
+    counted = (ens, fam, ragged[0], var, wide_counter.total, persist, micro,
                served_rpc, meshed, compat, piped)
     paths = {
         "gather_rows": (serve_launches["gather_rows"]
@@ -6394,7 +6550,8 @@ def main() -> int:
          "library_ms": timings[name]["library_ms"],
          **{k: v for k, v in timings[name].items() if k not in (
              "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-        for name, (launches, source, where) in paths.items()]})
+        for name, (launches, source, where) in paths.items()]
+        + [ragged_kernel_row(ragged[0]["gather_bags_ragged"], *ragged[1:])]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

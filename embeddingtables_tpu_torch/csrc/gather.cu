@@ -61,6 +61,21 @@
 //    and a bag that holds one sums to NaN. No read ever leaves the table's
 //    allocation, and an out-of-range id reads nothing.
 //
+// et_gather_bags_ragged (no Pallas counterpart: the JAX package pads every
+// bag to one width) sums bags whose width is fixed per table, as multi-hot
+// features are (MLPerf DLRM-DCNv2: widths 1 ... 100, 214 ids an example).
+// Padding them all to the widest would gather 12x the rows, nearly all of
+// them pads. The ids are one (S, B) array, S the sum of the widths: table
+// t's bag of example b is ids[o_t + k][b] for k < w_t, o_t the sum of the
+// widths before t; out[t][b] = sum_k T[ids[o_t + k][b]], (T, B, D). A
+// group of lanes owns one output row and holds 16 bytes a lane (one
+// element a lane off the grid), reads R ids and R rows of its bag before
+// the first add, and sums them in f32 in bag order, as gather_bags does.
+// The rows of a block are consecutive examples of one table, so a slot's ids
+// are read in whole sectors. Work a row varies 100-fold between tables; the
+// grid-stride loop deals each warp rows of every table in turn. Offsets are
+// 64-bit: 14M ids x 512 bytes is 7.2 GB.
+//
 // Each entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError().
 
@@ -144,6 +159,58 @@ gather_bags_kernel(const E* __restrict__ table, const int32_t* __restrict__ idx,
         const P p = *reinterpret_cast<const P*>(table + row * d + c * N);
 #pragma unroll
         for (int j = 0; j < N; ++j) acc[j] += Elem<E>::to_f32(p.e[j]);
+      }
+      P o;
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        o.e[j] = ok ? Elem<E>::from_f32(acc[j]) : Elem<E>::kNan;
+      *reinterpret_cast<P*>(out + i * d + c * N) = o;
+    }
+  }
+}
+
+// Bags of per-table widths: output row i = t * batch + b sums the rows of
+// ids[slot0[t] + k][b], k < width[t]; N elements a lane as above.
+template <typename E, int N>
+__global__ void __launch_bounds__(kThreads)
+gather_bags_ragged_kernel(const E* __restrict__ table,
+                          const int32_t* __restrict__ idx,
+                          const int32_t* __restrict__ slot0,
+                          const int32_t* __restrict__ width,
+                          E* __restrict__ out, int64_t batch, int64_t n,
+                          int64_t v, int64_t d) {
+  using P = Pack<E, N>;
+  constexpr int R = kRowsInFlight;
+  const int64_t packs = d / N;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.y;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y;
+       i < n; i += stride) {
+    const int64_t t = i / batch;
+    const int32_t* ids = idx + __ldg(slot0 + t) * batch + (i - t * batch);
+    const int bag = __ldg(width + t);
+    for (int64_t c = threadIdx.x; c < packs; c += blockDim.x) {
+      float acc[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = 0.0f;
+      bool ok = true;
+      for (int k0 = 0; k0 < bag; k0 += R) {
+        P p[R];
+        bool use[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          const bool in_bag = k0 + s < bag;
+          int64_t row = 0;
+          use[s] = in_bag &&
+                   resolve(__ldg(ids + static_cast<int64_t>(k0 + s) * batch), v, &row);
+          ok = ok && (use[s] || !in_bag);
+          if (use[s]) p[s] = *reinterpret_cast<const P*>(table + row * d + c * N);
+        }
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          if (!use[s]) continue;
+#pragma unroll
+          for (int j = 0; j < N; ++j) acc[j] += Elem<E>::to_f32(p[s].e[j]);
+        }
       }
       P o;
 #pragma unroll
@@ -579,6 +646,30 @@ cudaError_t launch_bags(const void* table, const int32_t* idx, void* out,
   return cudaSuccess;
 }
 
+// Bags of per-table widths: 16 bytes a lane on the grid, one element a lane
+// off it.
+template <typename E>
+cudaError_t launch_bags_ragged(const void* table, const int32_t* idx,
+                               const int32_t* slot0, const int32_t* width,
+                               void* out, int64_t batch, int64_t n, int64_t v,
+                               int64_t d, int sms, cudaStream_t stream) {
+  if (!aligned_bytes(table, out, 0, sizeof(E))) return cudaErrorMisalignedAddress;
+  const int64_t pitch = d * static_cast<int64_t>(sizeof(E));
+  if (aligned_bytes(table, out, pitch, 16)) {
+    constexpr int kVec = 16 / sizeof(E);
+    const Plan p = plan(n, d / kVec, sms);
+    gather_bags_ragged_kernel<E, kVec><<<p.grid, p.block, 0, stream>>>(
+        static_cast<const E*>(table), idx, slot0, width, static_cast<E*>(out),
+        batch, n, v, d);
+  } else {
+    const Plan p = plan(n, d, sms);
+    gather_bags_ragged_kernel<E, 1><<<p.grid, p.block, 0, stream>>>(
+        static_cast<const E*>(table), idx, slot0, width, static_cast<E*>(out),
+        batch, n, v, d);
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. n, d > 0; every pointer is a device
@@ -604,6 +695,27 @@ extern "C" int et_gather_bags(const void* table, const void* idx, void* out,
   const cudaError_t err =
       dtype == 0 ? launch_bags<uint32_t>(table, ids, out, n, bag, v, d, sms, s)
                  : launch_bags<uint16_t>(table, ids, out, n, bag, v, d, sms, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// meta: (2, ntables) int32 on the device, each table's first slot, then its
+// width; idx (S, batch), out (ntables, batch, d). ntables, batch, d > 0.
+extern "C" int et_gather_bags_ragged(const void* table, const void* idx,
+                                     const void* meta, void* out,
+                                     int64_t ntables, int64_t batch, int64_t v,
+                                     int64_t d, int dtype, int sms,
+                                     void* stream) {
+  const auto* ids = static_cast<const int32_t*>(idx);
+  const auto* slot0 = static_cast<const int32_t*>(meta);
+  const int32_t* width = slot0 + ntables;
+  const int64_t n = ntables * batch;
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0 ? launch_bags_ragged<uint32_t>(table, ids, slot0, width, out,
+                                                batch, n, v, d, sms, s)
+                 : launch_bags_ragged<uint16_t>(table, ids, slot0, width, out,
+                                                batch, n, v, d, sms, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

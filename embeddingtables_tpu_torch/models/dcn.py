@@ -12,6 +12,13 @@ with `W_l` full `(F, F)` or low-rank, applied as `(x @ V) @ U^T`. The input
 (the deep tower eats the cross output) and "parallel" (cross and deep side
 by side, concatenated into the head).
 
+MLPerf's DLRM-DCNv2 adds two things (`bag_sizes`, `dense_mlp`): multi-hot
+features whose bag width is fixed per table (a batch's `cat` is then one
+`(S, B)` array, S the sum of the widths, table t's bag in its `bag_sizes[t]`
+consecutive slot rows, summed by one ragged gather), and a dense arch, a
+ReLU MLP from the dense features to `dim`, whose output takes the raw
+features' place in x0, `[emb (B, T*D), dense_mlp(dense) (B, D)]`.
+
 The embedding path is the DLRM's: one `StackedTables`, one gather, and a
 train step that differentiates the loss with respect to the looked-up
 `(T, B, D)` activations and applies one lazy update to the stacked table in
@@ -55,6 +62,10 @@ class DCNConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     # Storage dtype of the embedding tables only (None = param_dtype).
     table_dtype: Optional[torch.dtype] = None
+    # Multi-hot bags of one fixed width a table (sum; no bag, pad_idx).
+    bag_sizes: Optional[Tuple[int, ...]] = None
+    # The dense arch's widths, the last = dim (None: raw dense in x0).
+    dense_mlp: Optional[Tuple[int, ...]] = None
 
     @property
     def tables_dtype(self):
@@ -68,6 +79,19 @@ class DCNConfig:
             raise ValueError(self.combiner)
         if self.num_cross < 1:
             raise ValueError("num_cross must be >= 1")
+        if self.bag_sizes is not None:
+            if (len(self.bag_sizes) != self.num_tables
+                    or min(self.bag_sizes) < 1):
+                raise ValueError("bag_sizes needs one width >= 1 a table, got "
+                                 f"{self.bag_sizes}")
+            if (self.bag is not None or self.pad_idx is not None
+                    or self.combiner != "sum"):
+                raise ValueError("bag_sizes takes summed bags without bag "
+                                 "or pad_idx")
+        if self.dense_mlp is not None and (not self.dense_mlp or
+                                           self.dense_mlp[-1] != self.dim):
+            raise ValueError(f"dense_mlp must end in dim={self.dim}, got "
+                             f"{self.dense_mlp}")
 
     @property
     def num_tables(self) -> int:
@@ -75,7 +99,10 @@ class DCNConfig:
 
     @property
     def input_features(self) -> int:
-        """x0 width: all embeddings flattened + raw dense features."""
+        """x0 width: all embeddings flattened + the raw dense features, or
+        the dense arch's `dim` outputs."""
+        if self.dense_mlp is not None:
+            return (self.num_tables + 1) * self.dim
         return self.num_tables * self.dim + self.num_dense
 
     @property
@@ -83,6 +110,14 @@ class DCNConfig:
         if self.structure == "stacked":
             return self.deep_mlp[-1]
         return self.input_features + self.deep_mlp[-1]
+
+
+def single_device_only(cfg: DCNConfig, what: str) -> None:
+    """Refuse `bag_sizes` and `dense_mlp` on a path that has neither (the
+    sharded, planned and quantized DCN)."""
+    if cfg.bag_sizes is not None or cfg.dense_mlp is not None:
+        raise NotImplementedError(f"{what}: bag_sizes and dense_mlp run on "
+                                  "the single-device DCN only")
 
 
 def dcn_small_config(vocab: int = 100_000, **kw) -> DCNConfig:
@@ -96,17 +131,23 @@ class DCN(nn.Module):
     and the head as `(W, b)` pairs in the JAX layout `(fan_in, fan_out)`,
     the stacked ensemble, the sparse optimizer's row state (`emb_state`),
     held as buffers, and the towers' optimizer state (`dense_opt_state`, a
-    `DenseOptState`, or None for plain SGD)."""
+    `DenseOptState`, or None for plain SGD). With `config.dense_mlp`, the
+    dense arch's `(W, b)` pairs (`dense_arch`), after the head."""
 
     emb_state = RowState("emb")
 
     def __init__(self, config: DCNConfig, cross, deep, head,
-                 tables: StackedTables, emb_state=None, dense_opt_state=None):
+                 tables: StackedTables, emb_state=None, dense_opt_state=None,
+                 dense_arch=()):
         super().__init__()
+        if len(dense_arch) != len(config.dense_mlp or ()):
+            raise ValueError(f"{len(dense_arch)} dense arch layers for "
+                             f"dense_mlp={config.dense_mlp}")
         self.config = config
         self.cross_params = _param_list(cross)
         self.deep_params = _param_list(deep)
         self.head_params = _param_list([head])
+        self.dense_params = _param_list(dense_arch)
         self.tables = tables
         self.emb_state = (SparseSGD().init(tables.data) if emb_state is None
                           else emb_state)
@@ -129,6 +170,10 @@ class DCN(nn.Module):
     @property
     def head(self):
         return tuple(self.head_params)
+
+    @property
+    def dense_arch(self):
+        return _pairs(self.dense_params)
 
     def forward(self, dense, cat):
         return dcn_forward(self, dense, cat)
@@ -163,17 +208,21 @@ def init_dcn(cfg: DCNConfig, generator: torch.Generator | None = None,
              device=None, sparse_opt=None, dense_tx=None) -> DCN:
     """Random DCN on `device` (CUDA unless given) with `sparse_opt`'s
     initial row state (default `SparseSGD`) and `dense_tx`'s initial tower
-    state (`init_dlrm`). `generator` must live on that device; by default
-    one seeded with 0."""
+    state (`init_dlrm`); the dense arch, if any, Glorot-normal like the
+    DLRM's bottom MLP, drawn after the tables. `generator` must live on
+    that device; by default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     cross, deep, head = init_dense_params(cfg, generator, device)
     tables = stacked_table_init(cfg.vocab_sizes, cfg.dim, cfg.tables_dtype,
                                 generator, device)
+    dense_arch = () if cfg.dense_mlp is None else _init_mlp(
+        (cfg.num_dense,) + tuple(cfg.dense_mlp), cfg.param_dtype, generator,
+        device)
     state = (sparse_opt or SparseSGD()).init(tables.data)
-    return with_dense_tx(DCN(cfg, cross, deep, head, tables, state),
-                         dense_tx)
+    return with_dense_tx(DCN(cfg, cross, deep, head, tables, state,
+                             dense_arch=dense_arch), dense_tx)
 
 
 def grid_width(f: int, dtype: torch.dtype) -> int:
@@ -219,10 +268,11 @@ def cross_layers(cross, x0: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 def forward_from_embeddings(cross, deep, head, cfg: DCNConfig,
-                            dense: torch.Tensor,
-                            emb_t: torch.Tensor) -> torch.Tensor:
+                            dense: torch.Tensor, emb_t: torch.Tensor,
+                            dense_arch=()) -> torch.Tensor:
     """Forward given looked-up embeddings `(T, B, dim)`; float32 logits
-    `(B,)`.
+    `(B,)`. With `cfg.dense_mlp`, `dense_arch` holds its layers (ReLU on
+    each), whose `(B, dim)` output follows the embeddings in x0.
 
     The cross network and the deep tower's first layer run at
     `grid_width(F, compute_dtype)` columns, x0 and their weights
@@ -235,6 +285,11 @@ def forward_from_embeddings(cross, deep, head, cfg: DCNConfig,
     f = cfg.input_features
     fp = grid_width(f, cd)
     emb = emb_t.permute(1, 0, 2).reshape(b, -1)            # (B, T*dim)
+    if cfg.dense_mlp is not None:
+        if len(dense_arch) != len(cfg.dense_mlp):
+            raise ValueError("cfg.dense_mlp is set: pass the dense arch's "
+                             "layers as dense_arch")
+        dense = _mlp(dense_arch, dense, cd)                 # (B, dim)
     zeros = []
     if fp > f:
         zeros = [emb.new_zeros((b, fp - f), dtype=cd)]
@@ -254,13 +309,15 @@ def forward_from_embeddings(cross, deep, head, cfg: DCNConfig,
 
 
 def dcn_forward(model: DCN, dense, cat) -> torch.Tensor:
-    """Logits `(B,)` for dense `(B, num_dense)` and cat `(T, B[, bag])`
-    (tensors or arrays; moved to the model's device)."""
+    """Logits `(B,)` for dense `(B, num_dense)` and cat `(T, B[, bag])`, or
+    `(S, B)` with `bag_sizes` (tensors or arrays; moved to the model's
+    device)."""
+    cfg = model.config
     dense = torch.as_tensor(dense).to(model.tables.data.device)
-    emb_t = embedding_forward(model.tables, cat, model.config.combiner,
-                              model.config.pad_idx)
+    emb_t = embedding_forward(model.tables, cat, cfg.combiner, cfg.pad_idx,
+                              cfg.bag_sizes)
     return forward_from_embeddings(model.cross, model.deep, model.head,
-                                   model.config, dense, emb_t)
+                                   cfg, dense, emb_t, model.dense_arch)
 
 
 def make_eval_step(cfg: DCNConfig):
@@ -290,16 +347,17 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
     def grads(model, params, dense, cat, label):
         tables = model.tables
         with phase("step.lookup"):
-            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx,
+                                               cfg.bag_sizes)
             with torch.no_grad():
                 emb_t = _stacked_lookup(tables, flat, valid, cfg.combiner,
-                                        cat.shape[1])
+                                        cat.shape[1], cfg.bag_sizes)
         with torch.enable_grad():
             emb_t.requires_grad_(True)
             with phase("step.forward"):
                 loss = bce_loss(forward_from_embeddings(
-                    model.cross, model.deep, model.head, cfg, dense, emb_t),
-                    label)
+                    model.cross, model.deep, model.head, cfg, dense, emb_t,
+                    model.dense_arch), label)
             with phase("step.backward"):
                 *dense_grads, delta_t = torch.autograd.grad(loss,
                                                             params + [emb_t])
@@ -318,13 +376,16 @@ def make_train_step(cfg: DCNConfig, sparse_opt=None, dense_lr: float = 0.01,
             loss, dense_grads, (delta_t,) = microbatch_grads(
                 params, dense, cat, label, k,
                 lambda *s: grads(model, params, *s)[:3])
-            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx)
+            flat, valid = stacked_flat_indices(tables, cat, cfg.pad_idx,
+                                               cfg.bag_sizes)
         else:
             loss, dense_grads, (delta_t,), (flat, valid) = grads(
                 model, params, dense, cat, label)
         with phase("step.sparse_update"):
+            bags = None if cfg.bag_sizes is None \
+                else tables.bag_layout(cfg.bag_sizes).bags(cat.shape[1])
             upd = lazy_stack_update(flat, valid, delta_t, cfg.dim,
-                                    cfg.combiner)
+                                    cfg.combiner, bags)
             tables.data, model.emb_state = sparse_opt.apply(
                 tables.data, upd, model.emb_state, lr=lr, **kw)
         with phase("step.dense_update"):

@@ -31,13 +31,13 @@ from torch import nn
 
 from ..config import resolve_device
 from ..ops.ensemble import StackedTables
-from ..ops.lookup import lookup
+from ..ops.lookup import lookup, lookup_ragged
 from ..ops.sparse_update import SparseEmbeddingUpdate
 from ..optim import (DenseOptState, SparseAdamState, SparseFTRLState,
                      SparseOptState, SparseSGD, apply_dense_tx,
                      check_dense_tx, require_dense_state)
 from ..tables import SimpleEmbedding
-from ..utils.telemetry import phase
+from ..utils.telemetry import get_telemetry, phase
 from .microbatch import microbatch_grads
 
 
@@ -418,13 +418,19 @@ def dot_interaction(bottom_out: torch.Tensor, emb: torch.Tensor,
 
 
 def stacked_flat_indices(tables: StackedTables, cat: torch.Tensor,
-                         pad_idx: Optional[int] = None):
+                         pad_idx: Optional[int] = None, bag_sizes=None):
     """(T, B[, bag]) local ids -> (flat global int32 ids, valid mask or None).
+    With `bag_sizes`, a multi-hot `(S, B)` batch (`StackedTables.
+    shift_indices`) -> its `(S * B,)` global ids, slot-major, and None.
 
     Pad detection must precede the stacked-offset shift (a shifted pad no
     longer matches the sentinel), so pads are remapped to local row 0 here
     and reported through the mask."""
     cat = torch.as_tensor(cat).to(tables.data.device)
+    if bag_sizes is not None:
+        if pad_idx is not None:
+            raise ValueError("per-table bag widths take no pad_idx")
+        return tables.shift_indices(cat, bag_sizes).reshape(-1), None
     if pad_idx is None:
         g = tables.shift_indices(cat)
         return g.reshape(-1, *g.shape[2:]), None
@@ -450,7 +456,17 @@ def stacked_update_weights(valid, combiner: str, shape):
 
 
 def _stacked_lookup(tables: StackedTables, flat, valid, combiner: str,
-                    batch: int) -> torch.Tensor:
+                    batch: int, bag_sizes=None) -> torch.Tensor:
+    """The `(T, B, dim)` lookup of the flat ids (`stacked_flat_indices`),
+    one launch. Counts the id slots it gathers, pads included, in the
+    telemetry counter `lookup.ids` and the sums or rows it writes in
+    `lookup.bags` (from shapes: no sync)."""
+    tel = get_telemetry()
+    tel.count("lookup.ids", flat.numel())
+    tel.count("lookup.bags", tables.ntables * batch)
+    if bag_sizes is not None:
+        return lookup_ragged(tables.data, flat.view(-1, batch),
+                             tables.bag_layout(bag_sizes))
     w = None if valid is None else valid.float()
     out = lookup(SimpleEmbedding(tables.data), flat, combiner=combiner,
                  weights=w)
@@ -458,13 +474,15 @@ def _stacked_lookup(tables: StackedTables, flat, valid, combiner: str,
 
 
 def embedding_forward(tables: StackedTables, cat: torch.Tensor,
-                      combiner: str = "sum",
-                      pad_idx: Optional[int] = None) -> torch.Tensor:
+                      combiner: str = "sum", pad_idx: Optional[int] = None,
+                      bag_sizes=None) -> torch.Tensor:
     """Ensemble lookup as ONE gather on the stacked tensor.
 
-    cat: (T, B) or (T, B, bag) per-table local ids -> (T, B, dim)."""
-    flat, valid = stacked_flat_indices(tables, cat, pad_idx)
-    return _stacked_lookup(tables, flat, valid, combiner, cat.shape[1])
+    cat: (T, B) or (T, B, bag) per-table local ids, or with `bag_sizes`
+    (S, B) multi-hot ids -> (T, B, dim)."""
+    flat, valid = stacked_flat_indices(tables, cat, pad_idx, bag_sizes)
+    return _stacked_lookup(tables, flat, valid, combiner, cat.shape[1],
+                           bag_sizes)
 
 
 def forward_from_embeddings(bottom, top, cfg: DLRMConfig, dense: torch.Tensor,
@@ -525,14 +543,17 @@ def make_eval_step(cfg: DLRMConfig):
 
 
 def lazy_stack_update(flat, valid, delta_t: torch.Tensor, dim: int,
-                      combiner: str) -> SparseEmbeddingUpdate:
+                      combiner: str, bags=None) -> SparseEmbeddingUpdate:
     """The lazy update of a stacked ensemble from its flat ids and validity
     mask (`stacked_flat_indices`) and the `(T, B, dim)` activation
-    cotangent, weighted as the forward combined the bags."""
+    cotangent, weighted as the forward combined the bags. `bags`
+    (`BagLayout.bags`) names each multi-hot id's row of the
+    cotangent: the update then carries the `(T * B, dim)` cotangent as it
+    is, not one row an id."""
     w = stacked_update_weights(valid, combiner, flat.shape)
     return SparseEmbeddingUpdate(
         delta=delta_t.reshape(-1, dim).float(), indices=flat,
-        weights=None if w is None else w.to(flat.device))
+        weights=None if w is None else w.to(flat.device), bags=bags)
 
 
 def step_generator(sparse_opt, generator, loop: str) -> dict:

@@ -15,7 +15,9 @@ Counterpart of `embeddingtables_tpu/ops/pallas/scatter.py`:
   - `scatter_update(table, rows, vals, scale)`: any row order; a stable sort
     of the rows, a permute of the values with `gather_rows`, then the
     run-scatter. Equal to `table.index_add_(0, rows, scale * vals)` up to
-    the order of the float32 additions.
+    the order of the float32 additions. With `bags=`, occurrence k's value
+    is `vals[bags[k]]` (a multi-hot bag's gradient, shared by its ids): the
+    permute gathers it from there by `bags[perm]`.
   - `scatter_sgd(table, delta, idx_result, cols, lr)`: the SGD step of an
     indexer result, `table[r] -= lr * sum delta[cols[k]]` over the
     occurrences k of r, each occurrence's row being `unique[group_of[k]]`.
@@ -207,19 +209,21 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_rows: torch.Tensor,
 
 def scatter_update(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                    scale=1.0, *, accum: torch.Tensor | None = None,
-                   eps=0.0) -> torch.Tensor:
+                   eps=0.0, bags: torch.Tensor | None = None) -> torch.Tensor:
     """Duplicate-accumulating scatter-add through sorted runs, in place:
     a stable sort of `rows`, the values permuted with `gather_rows`, then
     `scatter_add_rows_sorted` (which drops rows `< 0` and `>= V`), each
     step a telemetry phase: "update.sort", "update.permute" and
-    "update.scatter"."""
+    "update.scatter". `bags` (int32, one a row) makes `vals[bags[k]]` row
+    k's value."""
     # imported here: `utils` imports the optimizers, which import this module
     from ...utils.telemetry import phase
     with phase("update.sort"):
         sorted_rows, perm = torch.sort(rows.to(torch.int32), stable=True)
     with phase("update.permute"):
-        sorted_vals = gather_rows(vals.float().contiguous(),
-                                  perm.to(torch.int32))
+        src = perm.to(torch.int32) if bags is None \
+            else bags.to(torch.int32).index_select(0, perm)
+        sorted_vals = gather_rows(vals.float().contiguous(), src)
     with phase("update.scatter"):
         return scatter_add_rows_sorted(table, sorted_rows, sorted_vals, scale,
                                        accum=accum, eps=eps)

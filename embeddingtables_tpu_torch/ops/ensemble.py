@@ -27,6 +27,7 @@ from torch import nn
 
 from ..tables import SimpleEmbedding, as_table
 from ..types import featuresize
+from .cuda.gather import BagLayout
 from .lookup import effective_weights, lookup
 from .sparse_update import SparseEmbeddingUpdate
 
@@ -43,6 +44,7 @@ class StackedTables(nn.Module):
         self.register_buffer("_starts", torch.tensor(
             self.offsets[:-1], dtype=torch.int32, device=data.device),
             persistent=False)
+        self._bag_layout = None
 
     @classmethod
     def stack(cls, tables: Sequence) -> "StackedTables":
@@ -68,14 +70,31 @@ class StackedTables(nn.Module):
         return tuple(self.offsets[i + 1] - self.offsets[i]
                      for i in range(self.ntables))
 
-    def shift_indices(self, idx_list) -> torch.Tensor:
+    def shift_indices(self, idx_list, bag_sizes=None) -> torch.Tensor:
         """Per-table local ids -> global rows of the stacked array, stacked
         to `(T, B[, bag])` int32. Accepts a sequence of T tensors or one
-        `(T, B[, bag])` tensor."""
+        `(T, B[, bag])` tensor. With `bag_sizes` (one width a table), one
+        multi-hot `(S, B)` tensor whose slot rows belong to the tables in
+        turn, `bag_sizes[t]` rows each (`bag_layout`)."""
         idx = torch.stack(list(idx_list)) if not torch.is_tensor(idx_list) \
             else idx_list
         idx = idx.to(device=self._starts.device, dtype=torch.int32)
-        return idx + self._starts.view(-1, *([1] * (idx.dim() - 1)))
+        starts = self._starts if bag_sizes is None \
+            else self.bag_layout(bag_sizes).starts
+        return idx + starts.view(-1, *([1] * (idx.dim() - 1)))
+
+    def bag_layout(self, bag_sizes) -> BagLayout:
+        """The `BagLayout` of multi-hot batches with one bag width a table,
+        each slot row shifted by its table's offset; built once, and again
+        only for other widths or after the stack moves."""
+        widths = tuple(int(w) for w in bag_sizes)
+        lay, dev = self._bag_layout, self._starts.device
+        if lay is None or lay.widths != widths or lay.meta.device != dev:
+            if len(widths) != self.ntables:
+                raise ValueError(f"need one bag width for each of the "
+                                 f"{self.ntables} tables, got {widths}")
+            lay = self._bag_layout = BagLayout(widths, dev, self._starts)
+        return lay
 
     def table(self, t: int) -> SimpleEmbedding:
         return SimpleEmbedding(self.data[self.offsets[t]:self.offsets[t + 1]])

@@ -5,9 +5,14 @@ Semantics:
   non-reducing: ids of shape `(B,)`      -> `O[i, :] = A[I[i], :]`
   reducing:     ids of shape `(B, bag)`  -> `O[i, :] = sum_k A[I[i, k], :]`
 
+Multi-hot features whose bag width is fixed per table take `lookup_ragged`:
+one `(S, B)` id array, S the sum of the widths, table t's bags in its
+`bag_sizes[t]` consecutive slot rows, summed to `(T, B, dim)`.
+
 Dispatch is by the table's device (`ops/cuda/gather.py`): on a CUDA tensor the
 hand-written kernels, on a CPU tensor their plain versions. 1-D ids go to
-`gather_rows`, 2-D ids with a plain sum to `gather_bags`; weighted, mean and
+`gather_rows`, 2-D ids with a plain sum to `gather_bags`, ragged bags to
+`gather_bags_ragged`; weighted, mean and
 padded bags gather their rows with `gather_rows` over the flattened ids and
 reduce them in `_combine`. Ids follow the JAX lookup's contract: `[-V, 0)`
 wraps, any other out-of-range id gives NaN.
@@ -24,7 +29,8 @@ import torch
 
 from ..tables import SimpleEmbedding, is_table
 from ..types import Forward
-from .cuda.gather import gather_bags, gather_rows
+from .cuda.gather import (BagLayout, gather_bags, gather_bags_ragged,
+                          gather_rows)
 from .sparse_update import SparseEmbeddingUpdate
 
 
@@ -171,6 +177,16 @@ def lookup(table, indices, context=None, *, combiner: str = "sum",
     if combiner == "sum" and weights is None:
         return _lookup_dispatch(data, indices)
     return _combine(_bag_rows(data, indices), indices, combiner, weights)
+
+
+def lookup_ragged(data: torch.Tensor, indices,
+                  layout: BagLayout) -> torch.Tensor:
+    """Sum bags of per-table widths from a raw `(vocab, dim)` tensor:
+    `indices` `(S, B)`, table t's bag of example b the ids in column b of
+    its `layout.widths[t]` slot rows (a `BagLayout` on the tensor's
+    device). Returns `(T, B, dim)` sums (f32 in bag order, one cast), in
+    one launch; ids follow `lookup`'s contract."""
+    return gather_bags_ragged(data, _ids(indices, data.device), layout)
 
 
 def effective_weights(indices: torch.Tensor, combiner: str, weights,

@@ -41,15 +41,20 @@ class SparseEmbeddingUpdate:
              row fans out to every id of its bag).
     weights: optional per-occurrence scale (`(B,)` or `(B, bag)`), carrying
              weighted, mean and padded bags.
+    bags:    optional `(n,)` int32, for bags of any widths (multi-hot
+             features): `indices` is then the `(n,)` ids and `bags[k]` the
+             row of `delta` that id k's bag takes; `weights`, if any,
+             `(n,)`.
     """
 
     delta: torch.Tensor
     indices: torch.Tensor
     weights: Optional[torch.Tensor] = None
+    bags: Optional[torch.Tensor] = None
 
     @property
     def reducing(self) -> bool:
-        return self.indices.dim() == 2
+        return self.indices.dim() == 2 or self.bags is not None
 
 
 def occurrence_values(upd: SparseEmbeddingUpdate) -> tuple:
@@ -59,7 +64,9 @@ def occurrence_values(upd: SparseEmbeddingUpdate) -> tuple:
         raise ValueError("indices must be 1-D or 2-D, got shape "
                          f"{tuple(upd.indices.shape)}")
     vals = upd.delta
-    if upd.indices.dim() == 2:
+    if upd.bags is not None:
+        vals = vals.index_select(0, upd.bags)
+    elif upd.indices.dim() == 2:
         vals = torch.repeat_interleave(vals, upd.indices.shape[1], dim=0)
     if upd.weights is not None:
         vals = vals * upd.weights.reshape(-1, 1).to(vals.dtype)
@@ -70,9 +77,13 @@ def accumulate_updates(upds: Sequence[SparseEmbeddingUpdate]
                        ) -> SparseEmbeddingUpdate:
     """Merge K lazy updates into one by concatenation (gradient
     accumulation): no scatter and no table-sized buffer. Mixed bag widths
-    are refused; missing weights become ones when others have weights."""
+    are refused; missing weights become ones when others have weights.
+    Updates with `bags` merge with each other only, each one's bags
+    shifted past the delta rows before it."""
     if len(upds) == 1:
         return upds[0]
+    if any(u.bags is not None for u in upds):
+        return _accumulate_bagged(upds)
     ndims = {u.indices.dim() for u in upds}
     if len(ndims) != 1:
         raise ValueError("cannot merge reducing and non-reducing updates")
@@ -88,6 +99,25 @@ def accumulate_updates(upds: Sequence[SparseEmbeddingUpdate]
                              device=u.indices.device) for u in upds], dim=0)
     return SparseEmbeddingUpdate(delta=delta, indices=indices,
                                  weights=weights)
+
+
+def _accumulate_bagged(upds) -> SparseEmbeddingUpdate:
+    if any(u.bags is None for u in upds):
+        raise ValueError("cannot merge updates with and without bags")
+    shift, bags = 0, []
+    for u in upds:
+        bags.append(u.bags + shift)
+        shift += u.delta.shape[0]
+    weights = None
+    if any(u.weights is not None for u in upds):
+        weights = torch.cat(
+            [u.weights.reshape(-1) if u.weights is not None
+             else torch.ones(u.indices.shape, dtype=torch.float32,
+                             device=u.indices.device) for u in upds])
+    return SparseEmbeddingUpdate(
+        delta=torch.cat([u.delta for u in upds]),
+        indices=torch.cat([u.indices for u in upds]), weights=weights,
+        bags=torch.cat(bags))
 
 
 def uncompress(upd: SparseEmbeddingUpdate, num_rows: int,
@@ -190,7 +220,8 @@ def _split_stateful_apply(opt, t: SplitEmbedding, u: SparseEmbeddingUpdate,
         lidx = torch.where(shard_of == si, u.indices.long() - lo, nrows)
         lupd = SparseEmbeddingUpdate(
             delta=u.delta.to(dev), indices=lidx.to(dev, torch.int32),
-            weights=None if u.weights is None else u.weights.to(dev))
+            weights=None if u.weights is None else u.weights.to(dev),
+            bags=None if u.bags is None else u.bags.to(dev))
         sdata = torch.cat([shard, shard.new_zeros((1, dim))])
         sstate = type(state)(*[
             torch.cat([leaf[lo:lo + nrows].to(dev),

@@ -72,6 +72,22 @@ def _occurrence_grads(upd: SparseEmbeddingUpdate, row_offset: int = 0):
     return rows + row_offset, vals
 
 
+def _lazy_grads(upd: SparseEmbeddingUpdate, row_offset: int = 0):
+    """`(rows, grad, bags)`: `_occurrence_grads`, except that an update
+    with `bags` and no weights keeps its per-bag gradient, id k's being
+    `grad[bags[k]]`, for the run-scatter's permute to read through `bags`
+    (no `(n, dim)` copy); `bags` is None otherwise. `_expand` makes the
+    gradient per id."""
+    if upd.bags is None or upd.weights is not None:
+        return (*_occurrence_grads(upd, row_offset), None)
+    return (upd.indices.reshape(-1).to(torch.int32) + row_offset, upd.delta,
+            upd.bags)
+
+
+def _expand(g: torch.Tensor, bags) -> torch.Tensor:
+    return g if bags is None else g.index_select(0, bags)
+
+
 # The JAX package's crossover between its one-hot segment sum and XLA's
 # scatter, measured on a TPU v5e (512 padded rows). Kept so that both
 # packages take the same branch; the H100's own crossover is measured by
@@ -431,17 +447,18 @@ class SparseSGD:
               generator: torch.Generator | None = None):
         """One step, in place; returns `(data, state)`."""
         lr = self.lr if lr is None else lr
-        rows, g = _occurrence_grads(upd, row_offset)
+        rows, g, bags = _lazy_grads(upd, row_offset)
         if self.stochastic_rounding and generator is None:
             raise ValueError(
                 "stochastic_rounding=True needs apply(generator=...)")
         gen = generator if self.stochastic_rounding else None
         if self.weight_decay == 0.0 and self.clipnorm is None and gen is None:
             if _segsum_vpad(data) is not None:
-                return sgd_dense_body(data, rows, g, lr), state
+                return sgd_dense_body(data, rows, _expand(g, bags), lr), state
             scatter_update(data, resolve_rows(rows, data.shape[0]),
-                           g.float(), -float(lr))
+                           g.float(), -float(lr), bags=bags)
             return data, state
+        g = _expand(g, bags)
         return sgd_dense_body(data, rows, g, lr, self.weight_decay,
                               self.clipnorm, generator=gen,
                               grad_dtype=self.dense_grad_dtype), state
@@ -484,7 +501,7 @@ class SparseRowWiseAdaGrad:
         method; its rows are the update's own ids either way, since the
         run-scatter dedups them itself."""
         lr = self.lr if lr is None else lr
-        rows, g = _occurrence_grads(upd, row_offset)
+        rows, g, bags = _lazy_grads(upd, row_offset)
         method = method or self.method
         if self.stochastic_rounding and generator is None:
             raise ValueError(
@@ -505,8 +522,8 @@ class SparseRowWiseAdaGrad:
                 "dense realization (they apply per touched row)")
         if method == "dense":
             adagrad_dense_body(
-                data, state.accum, rows, g, lr, self.eps, self.weight_decay,
-                self.clipnorm,
+                data, state.accum, rows, _expand(g, bags), lr, self.eps,
+                self.weight_decay, self.clipnorm,
                 generator=generator if self.stochastic_rounding else None,
                 grad_dtype=self.dense_grad_dtype)
             return data, state
@@ -517,7 +534,7 @@ class SparseRowWiseAdaGrad:
             raise ValueError("dense_grad_dtype applies to the dense method "
                              "only; the indexer method sums in f32")
         scatter_update(data, resolve_rows(rows, data.shape[0]), g.float(), -float(lr), accum=state.accum,
-                       eps=self.eps)
+                       eps=self.eps, bags=bags)
         return data, state
 
 

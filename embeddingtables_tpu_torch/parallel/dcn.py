@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..models.dcn import DCN, DCNConfig, forward_from_embeddings
+from ..models.dcn import (DCN, DCNConfig, forward_from_embeddings,
+                          single_device_only)
 from ..models.dlrm import RowState, _param_list, with_dense_tx
 from ..ops.ensemble import StackedTables
 from ..optim import SparseSGD, check_dense_tx
@@ -59,6 +60,7 @@ def shard_dcn(model: DCN, mesh, axis="data", sparse_opt=None,
     """Place a single-device DCN on a mesh (`parallel.dlrm.shard_dlrm`'s
     rules): copy the towers, keep this rank's rows of the table and of its
     state, copy the tower state or make `dense_tx`'s."""
+    single_device_only(model.config, "shard_dcn")
     st = ShardedStackedTables.shard(mesh, axis, model.tables)
     state = shard_row_accum(mesh, axis, st, model.emb_state,
                             sparse_opt or SparseSGD())

@@ -1008,6 +1008,7 @@ def init_planned_dlrm(cfg, plan: ShardingPlan, mesh, sparse_opt=None,
 def init_planned_dcn(cfg, plan: ShardingPlan, mesh, sparse_opt=None,
                      dense_tx=None, seed: int = 0) -> PlannedDCN:
     """A random DCN-v2 made directly on the plan (`init_planned_dlrm`)."""
+    _dcn.single_device_only(cfg, "init_planned_dcn")
     return _init_planned("dcn", cfg, plan, mesh, sparse_opt, dense_tx, seed)
 
 

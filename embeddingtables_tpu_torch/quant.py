@@ -241,8 +241,9 @@ def quantize_dcn(model, bits: int = 8):
     """Serving conversion of a DCN-v2 (`quantize_dlrm`'s contract): the
     stacked tables quantized, the cross layers, tower and head as they
     are."""
-    from .models.dcn import forward_from_embeddings
+    from .models.dcn import forward_from_embeddings, single_device_only
     cfg = model.config
+    single_device_only(cfg, "quantize_dcn")
     qt, stack = _quantize_stack(model, bits)
     cross, deep, head = model.cross, model.deep, model.head
 

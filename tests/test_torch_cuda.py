@@ -1204,3 +1204,152 @@ def test_cuda_dcn_towers_run_on_the_16_byte_grid(cuda_device):
         for leaf, a, w in zip(leaves, got, plain[dt][1]):
             assert a.shape == w.shape == leaf.shape
             assert (a - w).norm() <= tol * w.norm()
+
+
+# The multi-hot path (MLPerf DLRM-DCNv2): bags of one width a table.
+MLPERF_BAGS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+               100, 27, 10, 3, 1, 1)
+
+
+def _ragged_ids(g, device, vocab, widths, b):
+    """(S, b) int32 stacked ids, table t's bag in its widths[t] slot rows
+    drawn over its own rows; with the stack's first and last rows, the
+    wrapped id -1 (the last row), an out-of-range id (a NaN bag) and a bag
+    of 100 repeats of one row placed in example 0 ... 3."""
+    offs = [0]
+    for _ in widths:
+        offs.append(offs[-1] + vocab)
+    ids = torch.cat([torch.randint(offs[t], offs[t + 1], (w, b), generator=g,
+                                   device=device)
+                     for t, w in enumerate(widths)]).to(torch.int32)
+    starts = [sum(widths[:t]) for t in range(len(widths))]
+    wide = max(range(len(widths)), key=lambda t: widths[t])
+    ids[starts[wide]:starts[wide] + widths[wide], 0] = offs[wide] + 17
+    ids[0, 1], ids[1, 1] = 0, offs[-1] - 1
+    ids[starts[wide] + 5, 2] = -1
+    ids[starts[wide] + 50, 3] = offs[-1]
+    return ids, offs[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 129])
+def test_cuda_gather_bags_ragged_matches_plain(cuda_device, dtype, d):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    ids, v = _ragged_ids(g, cuda_device, 4000, MLPERF_BAGS, 3000)
+    tab = torch.randn((v, d), generator=g, device=cuda_device).to(dtype)
+    before = G.gather_bags_ragged.launches
+    layout = G.BagLayout(MLPERF_BAGS, cuda_device)
+    got = G.gather_bags_ragged(tab, ids, layout)
+    assert G.gather_bags_ragged.launches == before + 1
+    want = G.gather_bags_ragged_plain(tab, ids, layout)
+    assert got.shape == (len(MLPERF_BAGS), 3000, d)
+    # The same f32 additions in bag order, one rounding: equal, NaN bags
+    # included (torch writes bf16 NaN as 0x7fff, the kernel 0x7fc0).
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    wide = MLPERF_BAGS.index(100)
+    row = tab[ids[sum(MLPERF_BAGS[:wide]), 0].long()].float()
+    acc = torch.zeros_like(row)
+    for _ in range(100):
+        acc += row
+    assert torch.equal(got[wide, 0].float(), acc.to(dtype).float())
+    assert torch.isnan(got[wide, 3]).all() and not torch.isnan(got[wide, 2]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adagrad_indexer"])
+def test_cuda_bag_indexed_update_is_the_expanded_update(cuda_device, opt):
+    import embeddingtables_tpu_torch as ett
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, d = 2048, 128
+    ids, v = _ragged_ids(g, cuda_device, 3000, MLPERF_BAGS, b)
+    ids = ids.clamp(0, v - 1)
+    bags = G.BagLayout(MLPERF_BAGS, cuda_device).bags(b)
+    delta = torch.randn((len(MLPERF_BAGS) * b, d), generator=g,
+                        device=cuda_device)
+    make = {"sgd": lambda: ett.SparseSGD(0.1),
+            "adagrad_indexer": lambda: ett.SparseRowWiseAdaGrad(
+                0.1, method="indexer")}[opt]
+    table = torch.randn((v, d), generator=g, device=cuda_device)
+    lazy = ett.SparseEmbeddingUpdate(delta=delta, indices=ids.reshape(-1),
+                                     bags=bags)
+    expanded = ett.SparseEmbeddingUpdate(delta=delta[bags.long()],
+                                         indices=ids.reshape(-1))
+    out = []
+    for upd in (lazy, expanded):
+        t = table.clone()
+        state = make().init(t)
+        make().apply(t, upd, state)
+        out.append((t, state))
+    # The same values reach the run-scatter in the same sorted order.
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, c) for a, c in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_bag_indexed_update_past_2_31_elements(cuda_device):
+    # n * D = 2^31 + 2^27 elements of sorted values (8.6 GB in f32): the
+    # permute's output and the run-scatter's reads past 2^31 elements. The
+    # last 2^20 ids touch rows no earlier id touches, so a wrapped offset
+    # shows in them.
+    if torch.cuda.get_device_properties(cuda_device).total_memory < 40e9:
+        pytest.skip("needs 40 GB of device memory")
+    d, v, m, tail = 128, 200_000, 65_536, 1 << 20
+    n = (1 << 31) // d + tail
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rows = torch.cat([
+        torch.randint(0, v - 1000, (n - tail,), generator=g,
+                      device=cuda_device),
+        torch.randint(v - 1000, v, (tail,), generator=g, device=cuda_device),
+    ]).to(torch.int32)
+    bags = torch.randint(0, m, (n,), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    delta = torch.randn((m, d), generator=g, device=cuda_device)
+    table = torch.zeros((v, d), device=cuda_device)
+    S.scatter_update(table, rows, delta, 1.0, bags=bags)
+    want = torch.zeros((v, d), dtype=torch.float64, device=cuda_device)
+    for lo in range(0, n, 1 << 22):
+        hi = min(n, lo + (1 << 22))
+        want.index_add_(0, rows[lo:hi].long(),
+                        delta[bags[lo:hi].long()].double())
+    # f32 run sums of about 10,000 N(0, 1) terms a row against f64 sums
+    torch.testing.assert_close(table.double(), want, rtol=1e-4, atol=1e-3)
+    assert table[v - 1000:].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adagrad_indexer"])
+def test_cuda_multihot_dcn_step_matches_the_cpu_step(cuda_device, opt):
+    import embeddingtables_tpu_torch as ett
+    from embeddingtables_tpu_torch.models import make_dcn_train_step
+    widths = (1, 3, 7, 100, 2)
+    cfg = ett.DCNConfig(vocab_sizes=(300, 5000, 200, 4000, 50), num_dense=5,
+                        dim=128, num_cross=2, cross_rank=64, deep_mlp=(64, 32),
+                        compute_dtype=torch.float32, bag_sizes=widths,
+                        dense_mlp=(64, 128))
+    make = {"sgd": lambda: ett.SparseSGD(0.1),
+            "adagrad_indexer": lambda: ett.SparseRowWiseAdaGrad(
+                0.1, method="indexer")}[opt]
+    cpu = ett.init_dcn(cfg, torch.Generator().manual_seed(0), device="cpu",
+                       sparse_opt=make())
+    gpu = ett.init_dcn(cfg, torch.Generator().manual_seed(0), device="cpu",
+                       sparse_opt=make()).to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    dense = torch.randn((256, 5), generator=g)
+    cat = torch.cat([torch.randint(0, v, (w, 256), generator=g,
+                                   dtype=torch.int32)
+                     for v, w in zip(cfg.vocab_sizes, widths)])
+    label = torch.randint(0, 2, (256,), generator=g).float()
+    before = (G.gather_bags_ragged.launches, S.scatter_add_rows_sorted.launches)
+    loss_g = make_dcn_train_step(cfg, sparse_opt=make())(gpu, dense, cat, label)
+    assert (G.gather_bags_ragged.launches,
+            S.scatter_add_rows_sorted.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    loss_c = make_dcn_train_step(cfg, sparse_opt=make())(cpu, dense, cat, label)
+    # f32 towers on both: summation order only.
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gpu.tables.data.cpu(), cpu.tables.data,
+                               rtol=1e-5, atol=1e-5)
+    for (_, a), (_, c) in zip(gpu.tower_params(), cpu.tower_params()):
+        torch.testing.assert_close(a.detach().cpu(), c.detach(), rtol=1e-5,
+                                   atol=1e-6)
